@@ -1,0 +1,72 @@
+"""Serial AU-NMF (paper Algorithm 1): the iteration body and the factor
+initialisers the engine composes.  Counterpart of ``repro/core/aunmf.py``.
+
+The data matrix appears only inside the three local products (A·Hᵀ, AᵀW,
+and the factor Grams), which ``aunmf_step_rule`` takes as hooks — the
+engine fills them from a ``repro_torch.backends.LocalOps`` backend (plain
+``torch.matmul`` or the hand-written CUDA kernels).
+
+Unlike the reference, the step carries Hᵀ, a contiguous (n, k) tensor,
+instead of H (k, n): the kernels take row-major operands and must never be
+handed the strided view ``H.T``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.error import sq_error_from_products
+
+
+@dataclass
+class NMFResult:
+    W: Any                # (m, k)
+    H: Any                # (k, n)
+    rel_errors: Any       # (iters,) relative error after each full iteration
+    algo: str = "bpp"
+    iters: int = 0
+    extras: dict = field(default_factory=dict)
+
+
+def init_h(generator: torch.Generator, n: int, k: int,
+           dtype=torch.float32) -> torch.Tensor:
+    """Paper §6.1.3: H (k, n) uniform on [0, 1), drawn on the generator's
+    device."""
+    return torch.rand((k, n), generator=generator, dtype=dtype,
+                      device=generator.device)
+
+
+def init_w(generator: torch.Generator, m: int, k: int, algo,
+           dtype=torch.float32) -> torch.Tensor:
+    """W needs no init for additive / re-solving rules (HALS, BPP);
+    multiplicative rules (``positive_init``) get a strictly positive seed,
+    uniform on [0.1, 1).  ``algo`` is anything ``rules.get_rule``
+    resolves."""
+    from repro_torch.core import rules
+    dev = generator.device
+    if rules.get_rule(algo).positive_init:
+        W = torch.empty((m, k), dtype=dtype, device=dev)
+        return W.uniform_(0.1, 1.0, generator=generator)
+    return torch.zeros((m, k), dtype=dtype, device=dev)
+
+
+def aunmf_step_rule(A, W, Ht, rule, state, normA_sq, *, mm: Callable,
+                    mm_t: Callable, gram: Callable, norm_psum=lambda v: v):
+    """One full AU-NMF iteration through an ``UpdateRule``; returns
+    (W, Ht, sq_error, state).
+
+    ``mm(A, B) -> A @ B``, ``mm_t(A, B) -> Aᵀ @ B`` and ``gram(X) -> XᵀX``
+    are the ``LocalOps`` local products (the engine passes its backend's).
+    """
+    HHt = gram(Ht)
+    AHt = mm(A, Ht)
+    W, state = rule.update_w(HHt, AHt, W, state, norm_psum=norm_psum)
+    WtW = gram(W)
+    AtW = mm_t(A, W)                 # (WᵀA)ᵀ, (n, k)
+    Ht, state = rule.update_h(WtW, AtW, Ht, state, norm_psum=norm_psum)
+    HHt_new = gram(Ht)
+    sq = sq_error_from_products(normA_sq, AtW, Ht, WtW, HHt_new)
+    return W, Ht, sq, state
