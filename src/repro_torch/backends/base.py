@@ -10,7 +10,7 @@ products, the only operations that ever touch the data matrix A:
     gram(X)     Xᵀ X       — the k×k Gram of a factor panel (lines 3/9)
 
 plus the representation hooks a schedule needs (``prepare``, ``norm_sq``).
-Implementations live next door (dense.py / cuda.py) and are looked up
+Implementations live next door (dense.py / cuda.py / sparse.py) and are looked up
 through a registry so projects can plug their own:
 
     from repro_torch.backends import LocalOps, register_backend
@@ -78,7 +78,8 @@ class LocalOps:
         if isinstance(A, torch.Tensor):
             if A.layout != torch.strided:
                 raise ValueError(f"backend {self.name!r} needs a dense data "
-                                 f"matrix; got layout {A.layout}")
+                                 f"matrix; got layout {A.layout} — use "
+                                 f"backend='sparse' for a sparse tensor")
             return A.to(device).contiguous()
         if isinstance(A, np.ndarray):
             if A.dtype == np.float64:
@@ -86,7 +87,8 @@ class LocalOps:
             return torch.from_numpy(np.ascontiguousarray(A)).to(device)
         raise ValueError(
             f"backend {self.name!r} needs a dense (torch or numpy) data "
-            f"matrix; got {type(A).__name__}")
+            f"matrix; got {type(A).__name__} — use backend='sparse' for a "
+            f"BlockCOO or a sparse tensor")
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(name={self.name!r})"
@@ -94,8 +96,8 @@ class LocalOps:
 
 def infer_backend(A) -> str:
     """Backend name implied by a data matrix's type: "dense" for anything
-    dense-array-like (a strided tensor or numpy), "sparse" otherwise (not
-    ported yet)."""
+    dense-array-like (a strided tensor or numpy), "sparse" for a BlockCOO
+    or a sparse tensor."""
     if isinstance(A, np.ndarray) or (isinstance(A, torch.Tensor)
                                      and A.layout == torch.strided):
         return "dense"

@@ -4,7 +4,8 @@ serial schedule only.
 
 * **backend** — a ``repro_torch.backends.LocalOps`` implementation of the
   local products (A·Hᵀ, AᵀW, XᵀX): ``cuda`` (the hand-written kernels, the
-  default) or ``dense`` (``torch.matmul``).
+  default), ``dense`` (``torch.matmul``) or ``sparse`` (a ``BlockCOO`` or
+  sparse tensor A through the SpMM kernels; the factors stay dense).
 * **algo** — a ``repro_torch.core.rules.UpdateRule``: ``mu``, ``hals``,
   ``bpp`` (aliases ``abpp`` / ``anls``), or anything registered.
 * **device** — ``cuda`` unless the caller passes ``device="cpu"``; asking
@@ -146,6 +147,7 @@ class NMFSolver:
     >>> solver = NMFSolver(k=50, algo="bpp", max_iters=30)   # cuda, kernels
     >>> result = solver.fit(A)              # A: dense tensor or numpy array
     >>> result = solver.fit(A, init=result)  # warm start
+    >>> NMFSolver(k=50, backend="sparse").fit(A_sparse)   # BlockCOO / COO
 
     ``fit(init=...)`` warm-starts from previously trained factors — an
     ``NMFResult`` of either package, or a plain ``(W, H)`` pair.
@@ -202,7 +204,9 @@ class NMFSolver:
         A's dtype, on the solver's device); ``init=`` warm starts go through
         the eps-flooring of ``_warm_start_factors``.  Random factors come
         from a ``torch.Generator`` on the solver's device seeded with
-        ``seed`` (default 0): H first, then W."""
+        ``seed`` (default 0): H first, then W.  A is whatever the backend's
+        ``prepare`` makes of it (a tensor, or a ``BlockCOO``); only its
+        ``shape`` and ``dtype`` are read here."""
         A = self.ops.prepare(A, self.device)
         m, n = A.shape
         dtype = A.dtype

@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ts_matmul", "gram")
+SOURCES = ("ts_matmul", "gram", "spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,6 +47,11 @@ SIGNATURES = {
     "gram": {
         "gram_launch": [_I, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
         "gram_tiles": [_IP],
+    },
+    "spmm": {
+        "spmm_launch": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+        "spmm_sorted_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                               _I64, _I64, _I64, _P],
     },
 }
 

@@ -1,11 +1,12 @@
 """Wrappers around the port's CUDA kernels — the counterpart of
 ``repro/kernels/ops.py`` (``gram`` :109, ``ts_matmul`` :153,
-``ts_matmul_t`` :174).
+``ts_matmul_t`` :174, ``spmm`` :195, ``spmm_t`` :230, ``spmm_sorted`` :254).
 
 Each wrapper
 
-  * checks device, dtype (fp32 or bf16, the same for every operand), shape
-    and contiguity, and raises on anything its kernel does not take;
+  * checks device, dtype (fp32 or bf16, the same for every float operand;
+    int32 indices), shape and contiguity, and raises on anything its kernel
+    does not take;
   * on a CPU tensor, runs the plain PyTorch version (``kernels/ref.py``);
   * on a CUDA tensor, allocates the output (and the slab scratch) with
     ``torch.empty``, launches the kernel on the current stream, raises if
@@ -13,7 +14,10 @@ Each wrapper
     There is no fallback: a CUDA tensor gets the kernel or an exception.
 
 Unlike the reference, nothing is padded: the kernels mask ragged edges
-themselves, so A (56 GB at the paper's Video shape) is never copied.
+themselves, so A (56 GB at the paper's Video shape) is never copied.  The
+SpMM kernels skip triplets whose indices fall outside the output or B,
+as the reference's scatter drops out-of-range updates; the plain versions
+raise on them.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 #: launches of each kernel on CUDA tensors since the last reset
-LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0}
+LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0, "spmm": 0,
+            "spmm_sorted": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SLABS = 65535                         # gridDim.z limit
@@ -162,3 +167,92 @@ def ts_matmul_t(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
             A.device, _DTYPE_CODES[A.dtype], A.data_ptr(), B.data_ptr(),
             Y.data_ptr(), _ptr(scratch), m, n, k, slab, slabs)
     return Y
+
+
+def _check_sparse(name: str, vals: torch.Tensor, rows: torch.Tensor,
+                  cols: torch.Tensor, B: torch.Tensor, out_rows: int,
+                  *int32s: torch.Tensor) -> bool:
+    """Validate SpMM operands: 1-D contiguous ``vals`` in B's dtype, int32
+    ``rows``/``cols`` of its length (and any further int32 metadata), B a
+    non-empty contiguous 2-D tensor, all on one device.  True on CUDA."""
+    on_cuda = _check(name, B)
+    for t in (vals, rows, cols, *int32s):
+        if not isinstance(t, torch.Tensor) or t.layout != torch.strided:
+            raise TypeError(f"{name}: operands must be dense tensors")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name}: triplets and metadata must be "
+                             f"contiguous 1-D tensors, got shape "
+                             f"{tuple(t.shape)}")
+        if t.device != B.device:
+            raise ValueError(f"{name}: operands must share a device, got "
+                             f"{t.device} and {B.device}")
+    if vals.dtype != B.dtype:
+        raise ValueError(f"{name}: vals and B must share a dtype, got "
+                         f"{vals.dtype} and {B.dtype}")
+    if any(t.dtype != torch.int32 for t in (rows, cols, *int32s)):
+        raise TypeError(f"{name}: indices must be int32")
+    if not rows.numel() == cols.numel() == vals.numel():
+        raise ValueError(f"{name}: vals/rows/cols lengths differ: "
+                         f"{vals.numel()}, {rows.numel()}, {cols.numel()}")
+    if out_rows < 1:
+        raise ValueError(f"{name}: the output needs at least one row, got "
+                         f"{out_rows}")
+    return on_cuda
+
+
+def spmm(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+         B: torch.Tensor, m_out: int) -> torch.Tensor:
+    """A @ B (fp32, (m_out, k)) from COO triplets (duplicates add up) and
+    B (n, k): the unsorted kernel.  Its fp32 atomics add in an order that
+    changes from run to run, so results agree to rounding, not bitwise."""
+    if not _check_sparse("spmm", vals, rows, cols, B, m_out):
+        return ref.spmm(vals, rows, cols, B, m_out)
+    n, k = B.shape
+    out = torch.empty((m_out, k), dtype=torch.float32, device=B.device)
+    _launch(build.load("spmm"), "spmm_launch", "spmm", B.device,
+            _DTYPE_CODES[B.dtype], vals.data_ptr(), rows.data_ptr(),
+            cols.data_ptr(), B.data_ptr(), out.data_ptr(), vals.numel(),
+            m_out, n, k)
+    return out
+
+
+def spmm_t(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+           B: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Aᵀ @ B (fp32, (n_out, k)): the same kernel with rows and cols
+    swapped, so Aᵀ is never formed."""
+    return spmm(vals, cols, rows, B, n_out)
+
+
+def spmm_sorted(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+                tiles: torch.Tensor, valid: torch.Tensor, B: torch.Tensor,
+                m_out: int, *, align: int) -> torch.Tensor:
+    """A @ B (fp32, (m_out, k)) from the ``sort_rows`` packed layout:
+    ``vals``/``rows``/``cols`` of U·align slots, and per unit its 8-row
+    tile id (non-decreasing, < ceil(m_out/8)) and valid count.  Each 8-row
+    output tile is summed in packed order by one warp and written once;
+    rows that own no triplets come out 0.  No atomics: repeated runs are
+    bit-identical."""
+    on_cuda = _check_sparse("spmm_sorted", vals, rows, cols, B, m_out,
+                            tiles, valid)
+    if align <= 0 or vals.numel() != tiles.numel() * align:
+        raise ValueError(f"spmm_sorted: {vals.numel()} packed slots are not "
+                         f"{tiles.numel()} units of align={align}")
+    if valid.numel() != tiles.numel():
+        raise ValueError(f"spmm_sorted: {valid.numel()} valid counts for "
+                         f"{tiles.numel()} units")
+    if not on_cuda:
+        return ref.spmm_sorted(vals, rows, cols, tiles, valid, B, m_out,
+                               align=align)
+    n, k = B.shape
+    ntiles = -(-m_out // 8)
+    # each tile's first unit; tile t owns units [first[t], first[t + 1])
+    first = torch.searchsorted(
+        tiles, torch.arange(ntiles + 1, dtype=torch.int32, device=B.device),
+        out_int32=True)
+    out = torch.empty((m_out, k), dtype=torch.float32, device=B.device)
+    _launch(build.load("spmm"), "spmm_sorted_launch", "spmm_sorted",
+            B.device, _DTYPE_CODES[B.dtype], vals.data_ptr(),
+            rows.data_ptr(), cols.data_ptr(), first.data_ptr(),
+            valid.data_ptr(), B.data_ptr(), out.data_ptr(), ntiles, m_out, n,
+            k, align)
+    return out

@@ -87,7 +87,13 @@ def test_cpu_path_counts_no_launch():
     ops.ts_matmul(torch.from_numpy(a), torch.from_numpy(b))
     ops.ts_matmul_t(torch.from_numpy(a), torch.from_numpy(a[:, :5].copy()))
     ops.gram(torch.from_numpy(b))
-    assert ops.LAUNCHES == {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0}
+    idx = torch.arange(8, dtype=torch.int32)
+    vals, B = torch.ones(8), torch.from_numpy(b)
+    ops.spmm(vals, idx, idx, B, 40)
+    ops.spmm_sorted(vals, idx, idx, torch.zeros(1, dtype=torch.int32),
+                    torch.full((1,), 8, dtype=torch.int32), B, 8, align=8)
+    assert ops.LAUNCHES == {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0,
+                            "spmm": 0, "spmm_sorted": 0}
 
 
 @pytest.mark.parametrize("case", ["strided", "dtype_mix", "f16", "shape",
