@@ -3,14 +3,20 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Two paths run, each through ``NMFSolver(k, algo=...).fit(A)`` with k = 50:
+Three paths run, at k = 50:
 
-* dense: the paper's serial loop on a dense fp32 A at the paper's Video
-  shape (m = 1,013,400, n = 13,824; A is 56.04 GB), made on the device from
-  ``--seed`` as low rank plus noise, through gram, ts_matmul, ts_matmul_t;
+* dense: the paper's serial loop, ``NMFSolver(k, algo=...).fit(A)``, on a
+  dense fp32 A at the paper's Video shape (m = 1,013,400, n = 13,824; A is
+  56.04 GB), made on the device from ``--seed`` as low rank plus noise,
+  through gram, ts_matmul, ts_matmul_t, and for the MU/HALS rules (mu,
+  hals, amu, ahals) mu_update and hals_sweep;
 * sparse: ``backend="sparse"`` on an Erdős–Rényi A at m = n = 2^24 with
   Webbase-2001's row density (8.633 nonzeros per row, 144.8 M nonzeros),
-  values on (0, 1] made on the device, through spmm and spmm_sorted.
+  values on (0, 1] made on the device, through spmm and spmm_sorted (and
+  the LUC kernels);
+* serving: ``FactorArtifact`` → ``FoldInProjector`` → ``TopK`` on the
+  factors of the dense bpp fit (saved and loaded on local disk) and of the
+  sparse mu fit (in memory), for dense and sparse request rows.
 
 Phases, each of which raises on failure:
 
@@ -24,12 +30,29 @@ Phases, each of which raises on failure:
   6. timings   each dense kernel at the full shape in fp32 against its plain
                version, then timed with CUDA events beside its bound, its
                plain version and one torch.matmul call;
+  4b. luc      mu_update and hals_sweep against their plain versions in fp32
+               and bf16, with ε = 1e-16 and ε = eps_for, at ragged shapes
+               (k = 1, 50, 128) and at Video's W (1,013,400 × 50), with a
+               row whose X·G is 0 and a zero diagonal entry of G; timed at
+               full width beside their bound and plain versions;
   7. main      fit() at the full shape: bpp for 10 iterations, then mu and
                hals for 3 each, with the launch counters reset just before
                each fit and read just after; the last rel error is checked
                against a direct ||A − WH|| / ||A||;
+  7b. accel    amu and ahals (inner_iters=4, delta=0.01) for 3 iterations:
+               ms/iter, the inner sweep counts, which the LUC launch counts
+               must equal, and the rel error against the direct value;
   8. breakdown ms per iteration in each product and half-update (CUDA
                events around the backend's and the rule's calls);
+  8b. serve    the bpp fit published as a FactorArtifact, saved and loaded
+               (checksums verified), then FoldInProjector for bpp, mu, hals,
+               amu and ahals (iters=100) on b = 1, 7, 64, 256 new rows and,
+               through ``transposed()``, new columns: per-batch latency,
+               launch counts; each result against the same fold with the
+               plain LUC versions on the same R, R against its plain
+               product, and both results' residuals ||a − xH||; TopK
+               (cosine, k = 10) over W's rows, checked against a direct
+               top-k;
   9. sparse data      the sparse A as a BlockCOO, its nnz and bytes, and the
                time to build its sorted layout on the device;
  10. sparse kernels   spmm and spmm_sorted, A·B and Aᵀ·C, against their
@@ -42,8 +65,16 @@ Phases, each of which raises on failure:
                spmm_impl="sorted" and with "auto" on an unsorted BlockCOO
                (the spmm kernel), bpp for 1 with "sorted"; launch counts,
                finiteness, nonnegativity and a direct float64 error;
+ 12b. sparse accel / luc  ahals for 2 iterations; mu_update and hals_sweep
+               at the 2^24 × 50 factor, checked and timed;
  13. sparse breakdown ms per iteration in mm, mm_t, each half-update, the
-               grams and the rest, for each rule and impl.
+               grams and the rest, for mu and hals with each impl and for
+               amu and ahals with the sorted one (bpp's
+               one-iteration breakdown is left out to keep the run short;
+               phase 12 times its iteration whole);
+ 14. sparse serve  an artifact of the sparse mu fit, in memory; sparse
+               request rows at the matrix's density (b = 1, 256) through
+               the spmm kernel and a hals fold-in; TopK over W's 2^24 rows.
 
 Before the last line it prints the kernels as one JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -54,6 +85,7 @@ quicker run, and the cut is printed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -93,7 +125,28 @@ KERNELS = {
              "replaces": "src/repro/kernels/spmm.py:99"},
     "spmm_sorted": {"source": "src/repro_torch/kernels/csrc/spmm.cu",
                     "replaces": "src/repro/kernels/spmm.py:189"},
+    "mu_update": {"source": "src/repro_torch/kernels/csrc/luc.cu",
+                  "replaces": "src/repro/kernels/mu_update.py:36"},
+    "hals_sweep": {"source": "src/repro_torch/kernels/csrc/luc.cu",
+                   "replaces": "src/repro/kernels/hals_sweep.py:53"},
 }
+
+LUC_RAGGED = ((4_099, 50), (4_099, 1), (4_099, 128))
+SERVE_BATCHES = (1, 7, 64, 256)
+SERVE_ALGOS = ("bpp", "mu", "hals", "amu", "ahals")
+# A served batch is held against the same projection with the LUC kernels
+# replaced by their plain versions on the same R (scaled, 100 sweeps of
+# rounding), and R itself against its plain product (fp32 tolerance; 1e-4
+# for a dense contraction longer than 65,536: the transposed fold's
+# 1,013,400-term sums, which the ts_matmul kernel adds in order in one
+# block where cuBLAS splits them); the two solutions of min ||a - xH||,
+# x >= 0, must leave the same residual relative to ||a||.  R is held apart
+# because the fold amplifies R's rounding where G is ill-conditioned (the
+# transposed fold's G = WᵀW).
+SERVE_TOL = {"codes": 1e-3, "product": 1e-5, "long product": 1e-4,
+             "residual": 1e-5}
+LONG_CONTRACTION = 65_536
+TOPK_CHECK_ROWS = 65_536
 
 
 def require(cond: bool, msg: str) -> None:
@@ -131,6 +184,37 @@ def bound_ms(read_bytes: int, write_bytes: int, flops: float,
     t_bytes = (read_bytes + write_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def col_scaled_err(got, want) -> tuple[float, float]:
+    """(max |got − want|, the largest over columns of that column's max
+    |got − want| over its max |want|): a column of huge values (the ε
+    guard) cannot hide the error of the others."""
+    diff = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(0).clamp_min(1e-30)
+    return diff.max().item(), (diff.amax(0) / scale).max().item()
+
+
+@contextlib.contextmanager
+def plain_luc():
+    """The LUC kernel wrappers of ``kernels.ops`` replaced by their plain
+    versions (``kernels.ref``): the same projector's fold-in math without
+    the LUC kernels, which a served batch is held against on the card."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.mu_update, ops.hals_sweep
+    ops.mu_update = lambda X, G, R, *, eps=ref.LUC_EPS: ref.mu_update(
+        X, G, R, eps)
+    ops.hals_sweep = lambda X, G, R, *, eps=ref.LUC_EPS: ref.hals_sweep(
+        X, G, R, eps)
+    try:
+        yield
+    finally:
+        ops.mu_update, ops.hals_sweep = saved
+
+
+def add_launches(total: dict, counts: dict) -> None:
+    for name, c in counts.items():
+        total[name] = total.get(name, 0) + c
 
 
 def phase_card() -> str:
@@ -188,6 +272,83 @@ def phase_kernels(A, Ht, W, errs: dict) -> None:
                 e[0], e[1] = max(e[0], abs_err), max(e[1], err)
             del a, b, w
     torch.cuda.empty_cache()
+
+
+def luc_problem(gen, r: int, k: int, x_dtype, r_dtype):
+    """X (r, k) with a zero row (X·G = 0: the ε of the MU denominator), G a
+    Gram with a zero diagonal entry when k > 2 (the sweep divides by ε),
+    R (r, k)."""
+    import torch
+    dev = gen.device
+    X = torch.rand((r, k), generator=gen, device=dev)
+    X[r // 2] = 0.0
+    C = torch.rand((64, k), generator=gen, device=dev)
+    if k > 2:
+        C[:, 2] = 0.0
+    R = torch.rand((r, k), generator=gen, device=dev) * 5
+    return X.to(x_dtype), C.T @ C, R.to(r_dtype)
+
+
+def phase_luc(dev, cases, errs: dict, label: str, time_rows: int) -> dict:
+    """mu_update and hals_sweep against their plain versions: each case
+    (r, k) in fp32 and with a bf16 carry (fp32 R), with ε = 1e-16 and
+    ε = eps_for; then both timed in fp32 at (time_rows, 50) beside their
+    bound, their plain versions and (mu) the three-op torch expression."""
+    import torch
+    from repro_torch.core.rules import eps_for
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for (r, k), (dname, xdt) in (
+            (c, d) for c in cases
+            for d in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16))):
+        X, G, R = luc_problem(gen, r, k, xdt, torch.float32)
+        for eps in (ref.LUC_EPS, eps_for(xdt)):
+            for name in ("mu_update", "hals_sweep"):
+                got = getattr(ops, name)(X, G, R, eps=eps)
+                want = getattr(ref, name)(X, G, R, eps)
+                torch.cuda.synchronize()
+                abs_err, err = col_scaled_err(got, want)
+                ok = (err <= TOL[dname] and got.dtype == xdt
+                      and bool(torch.isfinite(got.float()).all()))
+                log(f"[luc] {name:10s} {dname:8s} {label:6s} {(r, k)} "
+                    f"eps {eps:.1e} column-scaled err {err:.3e} (tol "
+                    f"{TOL[dname]:.0e}) abs {abs_err:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+                require(ok, f"{name} {dname} {(r, k)} eps {eps} disagrees "
+                            f"with its plain version: {err:.3e}")
+                e = errs.setdefault(name, [0.0, 0.0])
+                e[0], e[1] = max(e[0], abs_err), max(e[1], err)
+                del got, want
+        del X, G, R
+    torch.cuda.empty_cache()
+    r, k = time_rows, K
+    X, G, R = luc_problem(gen, r, k, torch.float32, torch.float32)
+    eps = eps_for(torch.float32)
+    # X and R read once, the output written once; 2·r·k² flops
+    b_ms, b_by = bound_ms(8 * r * k, 4 * r * k, 2.0 * r * k * k, "float32")
+    out = {}
+    for name, reps in (("mu_update", 20), ("hals_sweep", 20)):
+        kern = lambda: getattr(ops, name)(X, G, R, eps=eps)
+        plain = lambda: getattr(ref, name)(X, G, R, eps)
+        p1, k1, k2, p2 = (time_ms(f, n) for f, n in (
+            (plain, 3), (kern, reps), (kern, reps), (plain, 3)))
+        row = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+        extra = ""
+        if name == "mu_update":
+            row["torch_expr_ms"] = time_ms(
+                lambda: X * (R / (torch.matmul(X, G) + eps)), 3)
+            extra = (f", the three-op torch expression "
+                     f"{row['torch_expr_ms']:.3f} ms")
+        out[name] = row
+        log(f"[luc timings] {name:10s} fp32 {label} {(r, k)} kernel "
+            f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms{extra}, "
+            f"bound {b_ms:.3f} ms ({b_by}); "
+            f"{12 * r * k / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s")
+    del X, G, R
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_small() -> None:
@@ -271,7 +432,14 @@ def phase_timings(A, Ht, W, errs: dict) -> dict:
     return out
 
 
-def phase_main(A, seed: int, runs) -> tuple[dict, dict]:
+#: LUC launches per iteration of a plain rule's fit: MU updates both halves
+#: through mu_update; HALS only its H-step through hals_sweep (the W-step's
+#: normalised sweep stays a plain column loop)
+LUC_PER_ITER = {"mu": {"mu_update": 2}, "hals": {"hals_sweep": 1}, "bpp": {}}
+
+
+def phase_main(A, seed: int, runs) -> tuple[dict, dict, object]:
+    """Phase 7; also returns the bpp fit, which phase 8b serves."""
     import numpy as np
     import torch
     from repro_torch.core.engine import NMFSolver
@@ -279,6 +447,7 @@ def phase_main(A, seed: int, runs) -> tuple[dict, dict]:
     m, n = A.shape
     launches = {name: 0 for name in ops.LAUNCHES}
     summary = {}
+    kept = None
     for algo, iters in runs:
         solver = NMFSolver(K, algo=algo, max_iters=iters)
         torch.cuda.synchronize()
@@ -297,6 +466,8 @@ def phase_main(A, seed: int, runs) -> tuple[dict, dict]:
         log(f"[main] {algo:4s} rel errors {rels.tolist()}")
         want = dict.fromkeys(counts, 0)
         want.update(gram=3 * iters, ts_matmul=iters, ts_matmul_t=iters)
+        want.update({name: c * iters
+                     for name, c in LUC_PER_ITER[algo].items()})
         require(counts == want, f"{algo}: launches {counts} != {want}")
         require(rels.shape == (iters,) and np.isfinite(rels).all(),
                 f"{algo}: rel errors not finite: {rels}")
@@ -319,6 +490,72 @@ def phase_main(A, seed: int, runs) -> tuple[dict, dict]:
             launches[name] += counts[name]
         summary[algo] = {"iters": iters, "s_per_iter": wall / iters,
                          "peak_gb": peak, "rel_errors": rels.tolist()}
+        if algo == "bpp":
+            kept = res
+        del res
+        torch.cuda.empty_cache()
+    return launches, summary, kept
+
+
+def phase_accel(A, seed: int, runs, backend=None, label="accel") -> tuple:
+    """Phase 7b (and 12b): the accelerated rules, inner_iters=4 and
+    delta=0.01, through fit(); the launch counters reset just before each
+    fit and read just after.  The LUC launches must equal the inner sweeps
+    the rule state counted (amu: both halves through mu_update; ahals: its
+    H sweeps through hals_sweep, its normalised W sweeps in plain torch)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import rules
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.kernels import ops
+    sparse = backend is not None
+    m, n = A.shape
+    launches, summary = {}, {}
+    for algo, iters in runs:
+        rule = type(rules.get_rule(algo))(inner_iters=4, delta=0.01)
+        solver = NMFSolver(K, algo=rule, max_iters=iters,
+                           **({"backend": backend} if sparse else {}))
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = solver.fit(A, seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        st = res.extras["rule_state"]
+        rels = res.rel_errors.numpy()
+        log(f"[{label}] {algo:5s} {iters} iters at {(m, n, K)}: fit "
+            f"{wall:.2f} s incl. set-up, {wall / iters:.3f} s/iter; inner "
+            f"sweeps {st}; launches {counts}")
+        log(f"[{label}] {algo:5s} rel errors {rels.tolist()}")
+        luc = ({"mu_update": st["inner_w"] + st["inner_h"]} if algo == "amu"
+               else {"hals_sweep": st["inner_h"]})
+        want = dict.fromkeys(counts, 0)
+        if sparse:
+            want["spmm_sorted"] = 2 * iters
+        else:
+            want.update(gram=3 * iters, ts_matmul=iters, ts_matmul_t=iters)
+        want.update(luc)
+        require(counts == want, f"{label} {algo}: launches {counts} != "
+                                f"{want}")
+        require(iters <= st["inner_w"] <= 4 * iters
+                and iters <= st["inner_h"] <= 4 * iters,
+                f"{label} {algo}: inner sweep counts {st} outside "
+                f"[{iters}, {4 * iters}]")
+        require(np.isfinite(rels).all() and bool(
+            torch.isfinite(res.W).all() and res.W.min() >= 0
+            and res.H.min() >= 0), f"{label} {algo}: factors or rel errors "
+                                   f"not finite and nonnegative")
+        direct = (direct_sparse_rel_error(A, res.W, res.H) if sparse
+                  else direct_rel_error(A, res.W, res.H))
+        log(f"[{label}] {algo:5s} direct ||A-WH||/||A|| {direct:.6f} vs "
+            f"trace-trick {rels[-1]:.6f}")
+        require(abs(direct - rels[-1]) <= 1e-2 * direct,
+                f"{label} {algo}: rel error {rels[-1]} disagrees with the "
+                f"direct value {direct}")
+        add_launches(launches, counts)
+        summary[algo] = {"iters": iters, "s_per_iter": wall / iters,
+                         "inner": dict(st), "rel_errors": rels.tolist()}
         del res
         torch.cuda.empty_cache()
     return launches, summary
@@ -591,9 +828,10 @@ def direct_sparse_rel_error(blk, W, H, chunk: int = 1 << 22) -> float:
     return float(((norm - 2 * cross + quad).clamp_min(0) / norm).sqrt())
 
 
-def phase_sparse_main(blk, srt, seed: int, runs) -> tuple[dict, dict]:
+def phase_sparse_main(blk, srt, seed: int, runs) -> tuple[dict, dict, object]:
     """Phase 12: fit() at full size, through the user's entry point, with
-    the launch counters reset just before each fit and read just after."""
+    the launch counters reset just before each fit and read just after.
+    Also returns the mu fit on the sorted layout, which phase 14 serves."""
     import numpy as np
     import torch
     from repro_torch.backends import SparseOps
@@ -602,6 +840,7 @@ def phase_sparse_main(blk, srt, seed: int, runs) -> tuple[dict, dict]:
     m, n = blk.shape
     launches = {name: 0 for name in ops.LAUNCHES}
     summary = {}
+    kept = None
     for algo, iters, impl in runs:
         A = srt if impl == "sorted" else blk
         kernel = "spmm_sorted" if impl == "sorted" else "spmm"
@@ -623,6 +862,8 @@ def phase_sparse_main(blk, srt, seed: int, runs) -> tuple[dict, dict]:
             f"memory {peak:.2f} GB, launches {counts}")
         log(f"[sparse main] {tag} rel errors {rels.tolist()}")
         want = {name: 2 * iters if name == kernel else 0 for name in counts}
+        want.update({name: c * iters
+                     for name, c in LUC_PER_ITER[algo].items()})
         require(counts == want, f"{tag}: launches {counts} != {want}")
         require(rels.shape == (iters,) and np.isfinite(rels).all(),
                 f"{tag}: rel errors not finite: {rels}")
@@ -640,13 +881,15 @@ def phase_sparse_main(blk, srt, seed: int, runs) -> tuple[dict, dict]:
         require(abs(direct - rels[-1]) <= 1e-2 * direct,
                 f"{tag}: rel error {rels[-1]} disagrees with the direct "
                 f"value {direct}")
-        launches[kernel] += counts[kernel]
+        add_launches(launches, counts)
         summary[f"{algo}/{impl}"] = {"iters": iters, "s_per_iter": wall / iters,
                                      "peak_gb": peak,
                                      "rel_errors": rels.tolist()}
+        if (algo, impl) == ("mu", "sorted"):
+            kept = res
         del res
         torch.cuda.empty_cache()
-    return launches, summary
+    return launches, summary, kept
 
 
 def phase_sparse_breakdown(blk, srt, seed: int, runs) -> dict:
@@ -662,6 +905,212 @@ def phase_sparse_breakdown(blk, srt, seed: int, runs) -> dict:
         log(f"[sparse breakdown] {algo:4s} {impl:6s} ms/iter over {iters} "
             f"iters: " + ", ".join(f"{k} {v:.2f}" for k, v in per.items()))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Serving: FactorArtifact -> FoldInProjector -> TopK
+# ---------------------------------------------------------------------------
+
+def fold_residual(proj, req, X):
+    """||a − x H|| / ||a|| per request row, in float64 from the Gram form
+    ||a||² − 2 x·(a Hᵀ) + x G xᵀ (no (b, n) product of a wide request)."""
+    import torch
+    Ht = proj.Ht.double()
+    if req.layout == torch.strided:
+        a = req.double()
+        a2, R = (a * a).sum(1), a @ Ht
+    else:
+        idx, v = req._indices(), req._values().double()
+        b = req.shape[0]
+        a2 = torch.zeros(b, dtype=torch.float64, device=v.device).index_add_(
+            0, idx[0], v * v)
+        R = torch.zeros((b, Ht.shape[1]), dtype=torch.float64,
+                        device=v.device).index_add_(
+            0, idx[0], v[:, None] * Ht[idx[1]])
+    Xd = X.double()
+    r2 = a2 - 2 * (Xd * R).sum(1) + ((Xd @ proj.G.double()) * Xd).sum(1)
+    return (r2.clamp_min(0) / a2.clamp_min(1e-300)).sqrt()
+
+
+def product_err(proj, req) -> tuple[float, float]:
+    """(scaled error, tolerance) of the request's cross product R = a·Hᵀ
+    through its kernel (ts_matmul, or spmm for a sparse request) against
+    the plain version."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    tol = SERVE_TOL["product"]
+    if req.layout == torch.strided:
+        got, want = ops.ts_matmul(req, proj.Ht), ref.ts_matmul(req, proj.Ht)
+        if req.shape[1] > LONG_CONTRACTION:
+            tol = SERVE_TOL["long product"]
+    else:
+        idx = req._indices().to(torch.int32)
+        args = (req._values(), idx[0].contiguous(), idx[1].contiguous(),
+                proj.Ht, req.shape[0])
+        got, want = ops.spmm(*args), ref.spmm(*args)
+    return scaled_err(got, want)[1], tol
+
+
+def serve_batches(proj, requests, label: str, algo: str, kernel_of: dict,
+                  iters: int) -> tuple[dict, dict]:
+    """Answer each (b, request) of ``requests`` with ``proj``: one warm-up
+    call, then a host-clock timed, synchronised call with the launch
+    counters reset just before it and read just after, then the checks of
+    SERVE_TOL (outside the counted window).  Returns (per-b latency ms,
+    launches of the timed calls) and the last batch's codes."""
+    import torch
+    from repro_torch.kernels import ops
+    lat, launches, codes = {}, {}, None
+    for b, req, product in requests:
+        proj.project(req)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        got = proj.project(req)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(ops.LAUNCHES)
+        with plain_luc():
+            want = proj.project(req)
+        torch.cuda.synchronize()
+        _, err = scaled_err(got, want)
+        r_err, r_tol = product_err(proj, req)
+        res_got, res_want = (fold_residual(proj, req, X) for X in (got, want))
+        res_diff = (res_got - res_want).abs().max().item()
+        kernel = kernel_of.get(algo)
+        luc = counts.get(kernel, 0) if kernel else 0
+        ok = (tuple(got.shape) == (b, K) and bool(torch.isfinite(got).all())
+              and got.min().item() >= 0 and err <= SERVE_TOL["codes"]
+              and r_err <= r_tol
+              and res_diff <= SERVE_TOL["residual"]
+              and counts[product] == 1
+              and (luc == iters if algo in ("mu", "hals") else
+                   1 <= luc <= iters if kernel else
+                   counts["mu_update"] == counts["hals_sweep"] == 0))
+        log(f"[{label}] {algo:5s} b={b:4d} {ms:9.3f} ms; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; against the plain "
+            f"versions: codes {err:.2e} (tol {SERVE_TOL['codes']:.0e}), R "
+            f"{r_err:.2e} (tol {r_tol:.0e}), rel residual {res_diff:.2e} "
+            f"(tol {SERVE_TOL['residual']:.0e}, of max "
+            f"{res_got.max().item():.6f}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"{label} {algo} b={b}: shape {tuple(got.shape)}, "
+                    f"launches {counts}, codes {err:.3e}, R {r_err:.3e}, "
+                    f"residual {res_diff:.3e}")
+        lat[b] = ms
+        add_launches(launches, counts)
+        codes = got
+    return lat, launches, codes
+
+
+def check_topk(tk, codes, label: str) -> dict:
+    """TopK over all of W (timed, host clock, synchronised), and the
+    streaming scan over W's first rows against a direct full-score top-k
+    there: the same scores, and each returned index scoring its value."""
+    import torch
+    from repro_torch.serve.topk import topk_rows
+    tk.query(codes, k=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, idx = tk.query(codes, k=10)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    rows = min(TOPK_CHECK_ROWS, tk.W.shape[0])
+    W, norms = tk.W[:rows], tk.row_norms[:rows]
+    v, i = topk_rows(W, codes, k=10, gram=tk.gram, metric="cosine",
+                     row_norms=norms)
+    Q = codes.float()
+    Qt = Q @ tk.gram
+    qn = torch.clamp_min(torch.sqrt(torch.clamp_min((Qt * Q).sum(1), 0)),
+                         1e-12)
+    full = (Qt @ W.T) / (torch.clamp_min(norms, 1e-12)[None, :] * qn[:, None])
+    dv, _ = torch.topk(full, 10, dim=1)
+    at = torch.gather(full, 1, i)
+    err = max((v - dv).abs().max().item(), (at - v).abs().max().item())
+    ok = (tuple(idx.shape) == (codes.shape[0], 10) and err <= 1e-5
+          and bool((vals[:, :-1] >= vals[:, 1:]).all()))
+    log(f"[{label}] TopK cosine k=10 over {tk.W.shape[0]} rows, "
+        f"b={codes.shape[0]}: {ms:.3f} ms; scan vs direct top-k on the first "
+        f"{rows} rows: max err {err:.2e} (tol 1e-05) {'ok' if ok else 'FAIL'}")
+    require(ok, f"{label}: top-k disagrees with the direct scores: {err}")
+    return {"rows": tk.W.shape[0], "b": codes.shape[0], "ms": ms}
+
+
+def phase_serve_dense(A, res) -> tuple[dict, dict]:
+    """Phase 8b: publish the bpp fit, save and load it (checksums verified),
+    fold new rows and new columns in with every algorithm, then top-k."""
+    import torch
+    from repro_torch.serve.artifact import FactorArtifact
+    from repro_torch.serve.foldin import FoldInProjector
+    from repro_torch.serve.topk import TopK
+    art = FactorArtifact.from_result(res, corpus="chip_smoke video")
+    path = os.path.join(ROOT, "build", "serve", "video_bpp")
+    t0 = time.perf_counter()
+    art.save(path)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = FactorArtifact.load(path)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    HHt = torch.matmul(res.H, res.H.T)
+    _, gerr = scaled_err(loaded.gram, HHt)
+    ok = (torch.equal(loaded.W, art.W) and torch.equal(loaded.H, art.H)
+          and torch.equal(loaded.gram, art.gram) and loaded.algo == "bpp"
+          and loaded.meta == art.meta and gerr <= TOL["float32"])
+    log(f"[serve] artifact W {tuple(art.W.shape)} H {tuple(art.H.shape)}: "
+        f"saved in {t_save:.2f} s, loaded and verified in {t_load:.2f} s; "
+        f"gram vs HHᵀ scaled err {gerr:.2e} {'ok' if ok else 'FAIL'}")
+    require(ok, "the artifact does not round-trip through disk")
+    kernel_of = {"mu": "mu_update", "amu": "mu_update", "hals": "hals_sweep",
+                 "ahals": "hals_sweep"}
+    art_t = loaded.transposed()
+    rows = A[-max(SERVE_BATCHES):]
+    cols = A[:, :max(SERVE_BATCHES)].T.contiguous()
+    launches, summary = {}, {"save_s": t_save, "load_s": t_load}
+    codes = None
+    for algo in SERVE_ALGOS:
+        for label, a, req in (("serve rows", loaded, rows),
+                              ("serve cols", art_t, cols)):
+            proj = FoldInProjector(a, algo=algo, iters=100, backend="cuda")
+            reqs = [(b, req[:b], "ts_matmul") for b in SERVE_BATCHES]
+            lat, counts, last = serve_batches(proj, reqs, label, algo,
+                                              kernel_of, 100)
+            add_launches(launches, counts)
+            summary[f"{label.split()[1]}/{algo}"] = lat
+            if label == "serve rows" and algo == "bpp":
+                codes = last
+            del proj
+    del cols, art_t
+    torch.cuda.empty_cache()
+    summary["topk"] = check_topk(TopK(loaded, metric="cosine"), codes,
+                                 "serve topk")
+    return launches, summary
+
+
+def phase_serve_sparse(res, dim: int, seed: int) -> tuple[dict, dict]:
+    """Phase 14: the sparse mu fit as an artifact in memory; sparse request
+    rows at the matrix's density through the spmm kernel and a hals
+    fold-in; top-k over W's rows."""
+    import torch
+    from repro_torch.data.pipeline import erdos_renyi_bcoo
+    from repro_torch.serve.artifact import FactorArtifact
+    from repro_torch.serve.foldin import FoldInProjector
+    from repro_torch.serve.topk import TopK
+    art = FactorArtifact.from_result(res)
+    gen = torch.Generator(device=res.W.device).manual_seed(seed + 14)
+    density = WEBBASE_NNZ / WEBBASE_ROWS / dim
+    reqs = []
+    for b in (1, 256):
+        req = erdos_renyi_bcoo(gen, b, dim, density)
+        log(f"[serve sparse] request b={b}: {req._nnz()} nonzeros over "
+            f"{dim} columns")
+        reqs.append((b, req, "spmm"))
+    proj = FoldInProjector(art, algo="hals", iters=100)
+    lat, launches, codes = serve_batches(proj, reqs, "serve sparse", "hals",
+                                         {"hals": "hals_sweep"}, 100)
+    del proj
+    torch.cuda.empty_cache()
+    topk = check_topk(TopK(art, metric="cosine"), codes, "serve sparse topk")
+    return launches, {"hals": lat, "topk": topk}
 
 
 def direct_rel_error(A, W, H, rows: int = 32_768) -> float:
@@ -693,6 +1142,7 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    from repro_torch.backends import SparseOps
     from repro_torch.data.pipeline import lowrank_matrix
     torch.backends.cuda.matmul.allow_tf32 = False   # exact fp32 references
     torch.backends.cudnn.allow_tf32 = False
@@ -720,13 +1170,18 @@ def main(argv=None) -> int:
     timings = phase_timings(A, Ht, W, errs)
     del Ht, W
     torch.cuda.empty_cache()
-    launches, summary = phase_main(
+    timings.update(phase_luc(dev, LUC_RAGGED + ((m, K),), errs, "video", m))
+    launches, summary, res_bpp = phase_main(
         A, args.seed, (("bpp", 10), ("mu", 3), ("hals", 3)))
-    breakdown = phase_breakdown(A, args.seed,
-                                (("bpp", 2), ("mu", 3), ("hals", 3)))
-    for algo, per in breakdown.items():
-        summary[algo]["breakdown_ms"] = per
-    del A
+    counts, summary["accel"] = phase_accel(A, args.seed,
+                                           (("amu", 3), ("ahals", 3)))
+    add_launches(launches, counts)
+    summary["breakdown_ms"] = phase_breakdown(
+        A, args.seed, (("bpp", 2), ("mu", 3), ("hals", 3), ("amu", 3),
+                       ("ahals", 3)))
+    counts, summary["serve"] = phase_serve_dense(A, res_bpp)
+    add_launches(launches, counts)
+    del A, res_bpp
     torch.cuda.empty_cache()
 
     if args.sparse_dim != SPARSE_DIM:
@@ -734,18 +1189,27 @@ def main(argv=None) -> int:
     sp = phase_sparse_data(dev, args.seed, args.sparse_dim)
     phase_sparse_kernels(sp["blk"], errs)
     timings.update(phase_sparse_timings(sp["blk"], sp["srt"], errs))
-    sp_launches, sp_summary = phase_sparse_main(
+    for name, row in phase_luc(dev, ((args.sparse_dim, K),), errs,
+                               "webbase", args.sparse_dim).items():
+        timings[name].update({f"{key}_sparse": v for key, v in row.items()})
+    counts, sp_summary, res_mu = phase_sparse_main(
         sp["blk"], sp["srt"], args.seed,
         (("mu", 3, "sorted"), ("mu", 3, "auto"), ("hals", 3, "sorted"),
          ("hals", 3, "auto"), ("bpp", 1, "sorted")))
-    for name in ("spmm", "spmm_sorted"):
-        launches[name] = sp_launches[name]
-    sp_breakdown = phase_sparse_breakdown(
+    add_launches(launches, counts)
+    counts, sp_summary["serve"] = phase_serve_sparse(res_mu, args.sparse_dim,
+                                                     args.seed)
+    add_launches(launches, counts)
+    del res_mu
+    torch.cuda.empty_cache()
+    counts, sp_summary["accel"] = phase_accel(
+        sp["srt"], args.seed, (("ahals", 2),),
+        backend=SparseOps(spmm_impl="sorted"), label="sparse accel")
+    add_launches(launches, counts)
+    sp_summary["breakdown_ms"] = phase_sparse_breakdown(
         sp["blk"], sp["srt"], args.seed,
         (("mu", 2, "sorted"), ("mu", 2, "auto"), ("hals", 2, "sorted"),
-         ("hals", 2, "auto"), ("bpp", 1, "sorted")))
-    for key, per in sp_breakdown.items():
-        sp_summary[key]["breakdown_ms"] = per
+         ("hals", 2, "auto"), ("amu", 2, "sorted"), ("ahals", 2, "sorted")))
     summary["sparse"] = {"shape": sp["blk"].shape, "nnz": sp["blk"].nnz,
                          "sort_s": sp["sort_s"], "fits": sp_summary}
     del sp

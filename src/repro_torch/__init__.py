@@ -16,4 +16,5 @@ This package imports ``torch`` only — never ``jax``, and nothing of
 ``repro``.
 """
 
-__all__ = ["backends", "core", "data", "kernels", "util"]
+__all__ = ["backends", "checkpoint", "core", "data", "kernels", "serve",
+           "util"]

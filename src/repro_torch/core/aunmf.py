@@ -30,6 +30,12 @@ class NMFResult:
     iters: int = 0
     extras: dict = field(default_factory=dict)
 
+    def save_artifact(self, path: str, **meta) -> str:
+        """Persist the trained factors as a serving artifact (factors +
+        precomputed Gram + metadata) — see ``repro_torch.serve.artifact``."""
+        from repro_torch.serve.artifact import FactorArtifact
+        return FactorArtifact.from_result(self, **meta).save(path)
+
 
 def init_h(generator: torch.Generator, n: int, k: int,
            dtype=torch.float32) -> torch.Tensor:

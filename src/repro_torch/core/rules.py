@@ -9,11 +9,21 @@ Both half-updates use a single "row-factor" convention (paper §4):
 
 so one rule works unchanged for the W-step and the H-step.
 
+Beside the two half-updates, a rule serves ``fold_in(G, R, X0)`` (the
+serving half-update against a FIXED factor, ``repro_torch.serve.foldin``)
+and ``partial_update_h(G, R, X, mask, state)`` (a touched-row H refresh).
+
 Built-in rules (resolved by name through the registry): ``mu`` (Lee &
-Seung, paper §4.1), ``hals`` (Cichocki et al., §4.2) and ``bpp`` (exact ANLS
-by block principal pivoting, §4.3; aliases ``abpp`` / ``anls``).  The
-accelerated rules (``amu`` / ``ahals``), ``partial_update_h`` and
-``fold_in`` of the reference are not ported yet.
+Seung, paper §4.1), ``hals`` (Cichocki et al., §4.2), ``bpp`` (exact ANLS
+by block principal pivoting, §4.3; aliases ``abpp`` / ``anls``), and
+``amu`` / ``ahals`` (Gillis & Glineur's accelerated MU / HALS,
+arXiv:1107.5194: repeated inner sweeps per (G, R)).  The cost hooks of the
+reference (``luc_flops``, ``extra_latency_words``) and ``cache_key`` are
+not ported: nothing of the port consumes them yet.
+
+The MU update and the HALS H-step sweep run through the hand-written LUC
+kernels (``kernels.ops.mu_update`` / ``hals_sweep``) with
+ε = ``eps_for(X.dtype)``; on CPU tensors their plain versions.
 
     from repro_torch.core.rules import UpdateRule, register_algorithm
 
@@ -28,12 +38,14 @@ accelerated rules (``amu`` / ``ahals``), ``partial_update_h`` and
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Type, Union
 
 import torch
 
 from repro_torch.core.bpp import solve_bpp
+from repro_torch.kernels import ops
 
 
 def eps_for(dtype: torch.dtype) -> float:
@@ -52,9 +64,10 @@ def _identity(v):
 # ---------------------------------------------------------------------------
 
 def update_mu(G: torch.Tensor, R: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """X ← X ⊙ R / (X G + ε)   (paper eq. (3); F = 2rk² flops)."""
-    denom = X @ G + eps_for(X.dtype)
-    return X * (R / denom)
+    """X ← X ⊙ R / (X G + ε)   (paper eq. (3); F = 2rk² flops), in X's
+    dtype, through the ``mu_update`` kernel."""
+    return ops.mu_update(X.contiguous(), G.contiguous(), R.contiguous(),
+                         eps=eps_for(X.dtype))
 
 
 def update_hals(G: torch.Tensor, R: torch.Tensor, X: torch.Tensor, *,
@@ -67,25 +80,33 @@ def update_hals(G: torch.Tensor, R: torch.Tensor, X: torch.Tensor, *,
     H-step (normalize=False):  h_i ← [h_i + (R^i − X G^i)/G_ii]_+
 
     Columns are updated in order so later columns see earlier updates.
-    ``norm_psum`` threads the W-step's per-column norm reduction (identity
-    when serial).  Returns a new contiguous tensor; X is not modified.
+    The H-step runs through the ``hals_sweep`` kernel.  ``norm_psum``
+    threads the W-step's per-column norm reduction (identity when serial).
+    Returns a new contiguous tensor in X's dtype; X is not modified.
     """
-    k = G.shape[0]
     eps = eps_for(X.dtype)
+    if not normalize:
+        return ops.hals_sweep(X.contiguous(), G.contiguous(), R.contiguous(),
+                              eps=eps)
+    # The W-step stays a plain column loop: column i's norm is a reduction
+    # over ALL rows (over the grid, through norm_psum) that must finish
+    # before column i + 1 starts, so no row panel can sweep on its own.
+    k = G.shape[0]
     X = X.clone(memory_format=torch.contiguous_format)
+    # products in G's precision (fp32 for a bf16 carry, as JAX promotes),
+    # each column rounded to X's dtype before later columns read it
+    Xg = X if X.dtype == G.dtype else X.to(G.dtype)
     for i in range(k):
         gii = G[i, i]
-        if normalize:
-            xi = X[:, i] * gii + R[:, i] - X @ G[:, i]
-            xi = torch.clamp_min(xi, 0.0)
-            sq = norm_psum(torch.sum(torch.square(xi.float())))
-            nrm = torch.sqrt(sq).to(xi.dtype)
-            # Guard the all-zero column (paper's code resets to machine eps).
-            xi = torch.where(nrm > 0, xi / torch.clamp_min(nrm, eps), xi)
-        else:
-            xi = X[:, i] + (R[:, i] - X @ G[:, i]) / torch.clamp_min(gii, eps)
-            xi = torch.clamp_min(xi, 0.0)
+        xi = Xg[:, i] * gii + R[:, i] - Xg @ G[:, i]
+        xi = torch.clamp_min(xi, 0.0)
+        sq = norm_psum(torch.sum(torch.square(xi.float())))
+        nrm = torch.sqrt(sq).to(xi.dtype)
+        # Guard the all-zero column (paper's code resets to machine eps).
+        xi = torch.where(nrm > 0, xi / torch.clamp_min(nrm, eps), xi)
         X[:, i] = xi.to(X.dtype)
+        if Xg is not X:
+            Xg[:, i] = X[:, i].to(Xg.dtype)
     return X
 
 
@@ -119,6 +140,10 @@ class UpdateRule:
 
     #: MU-family rules are multiplicative — W must start strictly positive
     positive_init: bool = False
+
+    #: whether ``update_w`` performs per-column norm reductions over the
+    #: grid (the HALS family)
+    normalizes_w: bool = False
 
     def __init__(self, *, l1: float = 0.0, l2: float = 0.0):
         if l1 < 0 or l2 < 0:
@@ -168,6 +193,38 @@ class UpdateRule:
     def _update_h(self, G, R, X, state, *, norm_psum):
         raise NotImplementedError
 
+    # -- partial (touched-block) refresh -------------------------------------
+
+    def partial_update_h(self, G, R, X, mask=None, state=None, *,
+                         norm_psum=_identity):
+        """Touched-block H refresh (Gao & Chu, arXiv:1802.08938): update
+        only the rows of X selected by the boolean ``mask`` (r,), returning
+        the others as they came in.  The default runs a FULL ``update_h``
+        and merges on ``mask``.  Every built-in H half-update is
+        row-separable, so a caller holding a gather of the touched rows may
+        pass it with ``mask=None`` instead."""
+        Xn, state = self.update_h(G, R, X, state, norm_psum=norm_psum)
+        if mask is None:
+            return Xn, state
+        return torch.where(mask[:, None], Xn, X), state
+
+    # -- serving fold-in -----------------------------------------------------
+
+    def _fold_setup(self, G, R, X0):
+        """(X0, sweep) for iterative fold-in; exact solvers skip this by
+        overriding ``fold_in`` directly."""
+        raise NotImplementedError
+
+    def fold_in(self, G, R, X0=None, *, iters: int = 100):
+        """Project rows onto a FIXED factor: x_i = argmin_{x≥0} ‖a_i − xH‖
+        given G = HHᵀ and R = A_new Hᵀ — the paper's ``SolveBPP(HHᵀ, HAᵀ)``
+        serving half-update.  Iterative rules run ``iters`` sweeps."""
+        G, R = self.regularize(G, R)
+        X, sweep = self._fold_setup(G, R, X0)
+        for _ in range(iters):
+            X = sweep(X)
+        return X
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}(name={self.name!r})"
 
@@ -194,6 +251,17 @@ class MURule(UpdateRule):
 
     _update_h = _update_w
 
+    def _fold_setup(self, G, R, X0):
+        # The multiplicative rule is only defined for positive iterates:
+        # start from a strictly positive Jacobi init (R_i / G_ii).  Zero
+        # (padding) rows start at ε and fall to 0 in the first sweep.
+        Rp = torch.clamp_min(R, 0.0)
+        if X0 is None:
+            eps = eps_for(R.dtype)
+            d = torch.clamp_min(torch.diagonal(G), eps)
+            X0 = torch.clamp_min(Rp / d, eps)
+        return X0, lambda X: update_mu(G, Rp, X)
+
 
 class HALSRule(UpdateRule):
     """Cichocki et al. hierarchical ALS (paper §4.2).  The W-step
@@ -201,6 +269,7 @@ class HALSRule(UpdateRule):
     does."""
 
     name = "hals"
+    normalizes_w = True
 
     def _update_w(self, G, R, X, state, *, norm_psum):
         return update_hals(G, R, X, normalize=True,
@@ -208,6 +277,10 @@ class HALSRule(UpdateRule):
 
     def _update_h(self, G, R, X, state, *, norm_psum):
         return update_hals(G, R, X, normalize=False), state
+
+    def _fold_setup(self, G, R, X0):
+        X0 = torch.zeros_like(R) if X0 is None else X0
+        return X0, lambda X: update_hals(G, R, X, normalize=False)
 
 
 class BPPRule(UpdateRule):
@@ -225,6 +298,157 @@ class BPPRule(UpdateRule):
         return update_bpp(G, R, X, max_iter=self.max_iter), state
 
     _update_h = _update_w
+
+    def fold_in(self, G, R, X0=None, *, iters: int = 100):
+        del X0, iters               # exact solve, no warm start needed
+        G, R = self.regularize(G, R)
+        return solve_bpp(G, R, max_iter=self.max_iter)
+
+
+class _AcceleratedRule(UpdateRule):
+    """Gillis & Glineur acceleration (arXiv:1107.5194), shared machinery.
+
+    The matrix products cost O(mnk) per iteration while one MU/HALS LUC
+    sweep costs O((m+n)k²), so the cheap sweep repeats up to
+    ``inner_iters`` times on the SAME (G, R), stopping early once the inner
+    progress stalls:
+
+        stop after sweep l when ‖X^(l+1) − X^(l)‖_F ≤ delta · ‖X^(2) − X^(1)‖_F
+
+    ``delta=0.0`` disables the early stop: exactly ``inner_iters`` sweeps
+    and no change norms; ``delta>=1`` stops right after the mandatory first
+    sweep that sets the baseline.  The carried state counts the inner sweeps
+    run per half (``inner_w`` / ``inner_h``, host integers), surfaced after
+    a fit in ``NMFResult.extras["rule_state"]``.  Serving fold-in uses the
+    same machinery with the tighter ``fold_delta``.  At ``inner_iters=1``
+    the accelerated rules equal their plain counterparts.
+
+    ``inner_iters=None`` derives each half's budget from the problem size
+    in ``prepare_global`` (their §3.2): ``1 + ⌊α·ρ⌋`` sweeps with
+    ρ_W = 1 + (mn + nk)/(mk + m) (ρ_H swaps m ↔ n) and the rule's
+    ``accel_alpha`` (2.0 for MU, 0.5 for HALS).
+    """
+
+    #: Gillis–Glineur α of the derived inner budget 1 + ⌊α·ρ⌋
+    accel_alpha: float = 2.0
+
+    def __init__(self, *, inner_iters: int | None = 4, delta: float = 0.01,
+                 fold_delta: float = 1e-6, l1: float = 0.0, l2: float = 0.0):
+        super().__init__(l1=l1, l2=l2)
+        if inner_iters is not None and inner_iters < 1:
+            raise ValueError(f"inner_iters must be >= 1 or None (derive the "
+                             f"Gillis–Glineur budget), got {inner_iters}")
+        if delta < 0 or fold_delta < 0:
+            raise ValueError(f"delta must be >= 0, got {delta}/{fold_delta}")
+        self.inner_iters = None if inner_iters is None else int(inner_iters)
+        self.delta = float(delta)
+        self.fold_delta = float(fold_delta)
+        # Per-half sweep budgets; None resolves in prepare_global.
+        self._budget_w = self._budget_h = self.inner_iters
+
+    def _derived_budget(self, rows: int, cols: int, k: int) -> int:
+        rho = 1.0 + (rows * cols + cols * k) / (rows * k + rows)
+        return 1 + int(self.accel_alpha * rho)
+
+    def prepare_global(self, m, n, k):
+        if self.inner_iters is not None:
+            return self
+        rule = copy.copy(self)
+        rule._budget_w = self._derived_budget(m, n, k)
+        rule._budget_h = self._derived_budget(n, m, k)
+        return rule
+
+    def _budgets(self) -> tuple[int, int]:
+        if self._budget_w is None:
+            raise RuntimeError(
+                f"{self.name}: inner_iters=None derives the sweep budget "
+                f"from the global problem size; call prepare_global(m, n, k) "
+                f"first (NMFSolver does this at fit time)")
+        return self._budget_w, self._budget_h
+
+    def init_state(self, m, n, k, dtype=torch.float32):
+        del m, n, k, dtype
+        return {"inner_w": 0, "inner_h": 0}
+
+    def _accelerate(self, sweep, X, norm_psum, *, budget: int, delta: float):
+        """Run up to ``budget`` sweeps with the stall criterion; returns
+        (X, sweeps run)."""
+        X1 = sweep(X)
+        if budget <= 1:
+            return X1, 1
+        if delta == 0.0:
+            for _ in range(1, budget):
+                X1 = sweep(X1)
+            return X1, budget
+
+        def change(Xn, X):
+            d = torch.sum(torch.square((Xn - X).float()))
+            return torch.sqrt(norm_psum(d))
+
+        d0 = change(X1, X)
+        X, d, sweeps = X1, d0, 1
+        # The stall test reads the change norm back to the host: one sync
+        # per inner sweep (the reference tests it on the device inside a
+        # while_loop).  delta = 0 takes the fixed loop above, with no sync.
+        while sweeps < budget and bool(d > delta * d0):
+            Xn = sweep(X)
+            d = change(Xn, X)
+            X, sweeps = Xn, sweeps + 1
+        return X, sweeps
+
+    def _count(self, state, key, sweeps):
+        if state is None:           # stateless callers
+            return None
+        return {**state, key: state[key] + sweeps}
+
+    def _update_w(self, G, R, X, state, *, norm_psum):
+        X, sweeps = self._accelerate(
+            lambda X: self._sweep_w(G, R, X, norm_psum), X, norm_psum,
+            budget=self._budgets()[0], delta=self.delta)
+        return X, self._count(state, "inner_w", sweeps)
+
+    def _update_h(self, G, R, X, state, *, norm_psum):
+        X, sweeps = self._accelerate(
+            lambda X: self._sweep_h(G, R, X, norm_psum), X, norm_psum,
+            budget=self._budgets()[1], delta=self.delta)
+        return X, self._count(state, "inner_h", sweeps)
+
+    def fold_in(self, G, R, X0=None, *, iters: int = 100):
+        # Up to ``iters`` sweeps with an early exit at fold_delta; a request
+        # batch lives on one device, so the change norms need no reduction.
+        G, R = self.regularize(G, R)
+        X, sweep = self._fold_setup(G, R, X0)
+        X, _ = self._accelerate(sweep, X, _identity, budget=max(iters, 1),
+                                delta=self.fold_delta)
+        return X
+
+
+class AcceleratedMURule(_AcceleratedRule, MURule):
+    """Gillis & Glineur accelerated MU: repeated multiplicative sweeps per
+    (G, R) with the inner stall criterion."""
+
+    name = "amu"
+    accel_alpha = 2.0
+
+    def _sweep_w(self, G, R, X, norm_psum):
+        return update_mu(G, R, X)
+
+    _sweep_h = _sweep_w
+
+
+class AcceleratedHALSRule(_AcceleratedRule, HALSRule):
+    """Gillis & Glineur accelerated HALS: repeated column sweeps per (G, R)
+    with the inner stall criterion (the W-step keeps the paper's
+    per-column normalisation on every sweep)."""
+
+    name = "ahals"
+    accel_alpha = 0.5
+
+    def _sweep_w(self, G, R, X, norm_psum):
+        return update_hals(G, R, X, normalize=True, norm_psum=norm_psum)
+
+    def _sweep_h(self, G, R, X, norm_psum):
+        return update_hals(G, R, X, normalize=False)
 
 
 # ---------------------------------------------------------------------------
@@ -275,3 +499,5 @@ register_algorithm("hals", HALSRule)
 register_algorithm("bpp", BPPRule)
 register_algorithm("abpp", BPPRule)        # the paper's name for ANLS-BPP
 register_algorithm("anls", BPPRule)
+register_algorithm("amu", AcceleratedMURule)
+register_algorithm("ahals", AcceleratedHALSRule)

@@ -28,15 +28,17 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("ts_matmul", "gram", "spmm")
+SOURCES = ("ts_matmul", "gram", "spmm", "luc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the CUDA error code of the launch; 0 is success).  ``<name>_tiles``
-#: writes the tile sizes the library was compiled with.
+#: writes the tile sizes the library was compiled with; ``luc_max_k`` the
+#: largest k of the LUC kernels.
 SIGNATURES = {
     "ts_matmul": {
         "ts_matmul_launch": [_I, _P, _P, _P, _I64, _I64, _I64, _P],
@@ -52,6 +54,10 @@ SIGNATURES = {
         "spmm_launch": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
         "spmm_sorted_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                _I64, _I64, _I64, _P],
+    },
+    "luc": {
+        "luc_launch": [_I, _I, _I, _P, _P, _P, _P, _I64, _I64, _F, _P],
+        "luc_max_k": [_IP],
     },
 }
 

@@ -1,12 +1,14 @@
 """Wrappers around the port's CUDA kernels — the counterpart of
 ``repro/kernels/ops.py`` (``gram`` :109, ``ts_matmul`` :153,
-``ts_matmul_t`` :174, ``spmm`` :195, ``spmm_t`` :230, ``spmm_sorted`` :254).
+``ts_matmul_t`` :174, ``spmm`` :195, ``spmm_t`` :230, ``spmm_sorted`` :254,
+``mu_update`` :306, ``hals_sweep`` :319).
 
 Each wrapper
 
-  * checks device, dtype (fp32 or bf16, the same for every float operand;
-    int32 indices), shape and contiguity, and raises on anything its kernel
-    does not take;
+  * checks device, dtype (fp32 or bf16, the same for every float operand of
+    the products; int32 indices; for the LUC kernels X fp32 or bf16, G fp32
+    and R fp32 or X's dtype, as the update rules hand them over), shape and
+    contiguity, and raises on anything its kernel does not take;
   * on a CPU tensor, runs the plain PyTorch version (``kernels/ref.py``);
   * on a CUDA tensor, allocates the output (and the slab scratch) with
     ``torch.empty``, launches the kernel on the current stream, raises if
@@ -17,7 +19,9 @@ Unlike the reference, nothing is padded: the kernels mask ragged edges
 themselves, so A (56 GB at the paper's Video shape) is never copied.  The
 SpMM kernels skip triplets whose indices fall outside the output or B,
 as the reference's scatter drops out-of-range updates; the plain versions
-raise on them.
+raise on them.  The LUC kernels take ε as an argument (default the TPU
+kernels' 1e-16; the rules pass ``eps_for(X.dtype)``) and k up to
+``luc_max_k()`` (128), neither padded.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from repro_torch.kernels import build, ref
 
 #: launches of each kernel on CUDA tensors since the last reset
 LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0, "spmm": 0,
-            "spmm_sorted": 0}
+            "spmm_sorted": 0, "mu_update": 0, "hals_sweep": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SLABS = 65535                         # gridDim.z limit
@@ -256,3 +260,80 @@ def spmm_sorted(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
             valid.data_ptr(), B.data_ptr(), out.data_ptr(), ntiles, m_out, n,
             k, align)
     return out
+
+
+def luc_max_k() -> int:
+    """The largest k the LUC kernels take, as the library reports it."""
+    if "luc" not in _TILES:
+        out = (ctypes.c_int * 1)()
+        build.load("luc").luc_max_k(out)
+        _TILES["luc"] = tuple(out)
+    return _TILES["luc"][0]
+
+
+def _check_luc(name: str, X: torch.Tensor, G: torch.Tensor,
+               R: torch.Tensor) -> bool:
+    """Validate LUC operands: X (r, k) fp32 or bf16, G (k, k) fp32, R (r, k)
+    fp32 or X's dtype, all contiguous on one device; on CUDA k is at most
+    ``luc_max_k()``.  True on CUDA."""
+    for t in (X, G, R):
+        if not isinstance(t, torch.Tensor) or t.layout != torch.strided:
+            raise TypeError(f"{name}: operands must be dense tensors")
+        if t.dim() != 2 or 0 in t.shape:
+            raise ValueError(f"{name}: operands must be non-empty 2-D, got "
+                             f"shape {tuple(t.shape)}")
+        if t.device != X.device:
+            raise ValueError(f"{name}: operands must share a device, got "
+                             f"{X.device} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    r, k = X.shape
+    if tuple(G.shape) != (k, k) or tuple(R.shape) != (r, k):
+        raise ValueError(f"{name}: X {tuple(X.shape)} needs G {(k, k)} and "
+                         f"R {(r, k)}, got {tuple(G.shape)} and "
+                         f"{tuple(R.shape)}")
+    if X.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: X must be float32 or bfloat16, got "
+                        f"{X.dtype}")
+    if G.dtype != torch.float32:
+        raise TypeError(f"{name}: G must be float32, got {G.dtype}")
+    if R.dtype not in (torch.float32, X.dtype):
+        raise TypeError(f"{name}: R must be float32 or X's dtype {X.dtype}, "
+                        f"got {R.dtype}")
+    if X.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors must be on cpu or cuda, got "
+                         f"{X.device}")
+    on_cuda = X.device.type == "cuda"
+    if on_cuda and k > luc_max_k():
+        raise ValueError(f"{name}: the kernel takes k <= {luc_max_k()}, got "
+                         f"k = {k}")
+    return on_cuda
+
+
+def _luc(name: str, op: int, X: torch.Tensor, G: torch.Tensor,
+         R: torch.Tensor, eps: float) -> torch.Tensor:
+    r, k = X.shape
+    out = torch.empty_like(X)
+    _launch(build.load("luc"), "luc_launch", name, X.device, op,
+            _DTYPE_CODES[X.dtype], _DTYPE_CODES[R.dtype], X.data_ptr(),
+            G.data_ptr(), R.data_ptr(), out.data_ptr(), r, k, float(eps))
+    return out
+
+
+def mu_update(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor, *,
+              eps: float = ref.LUC_EPS) -> torch.Tensor:
+    """The fused MU update X ⊙ (R / (X·G + ε)), (r, k) in X's dtype: one
+    read of X and R, one write."""
+    if not _check_luc("mu_update", X, G, R):
+        return ref.mu_update(X, G, R, eps)
+    return _luc("mu_update", 0, X, G, R, eps)
+
+
+def hals_sweep(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor, *,
+               eps: float = ref.LUC_EPS) -> torch.Tensor:
+    """The sequential HALS column sweep, H-step form, (r, k) in X's dtype:
+    column i sees the updated columns 0..i-1; one read of X and R, one
+    write."""
+    if not _check_luc("hals_sweep", X, G, R):
+        return ref.hals_sweep(X, G, R, eps)
+    return _luc("hals_sweep", 1, X, G, R, eps)

@@ -16,6 +16,10 @@ import torch
 #: elements of one (triplets, k) fp32 temporary of the SpMMs (256 MiB)
 _CHUNK_ELEMS = 1 << 26
 
+#: the TPU kernels' fixed division guard (``repro/kernels/ref.py:13``); the
+#: update rules pass ``rules.eps_for(X.dtype)`` instead
+LUC_EPS = 1e-16
+
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype == torch.float32 else x.float()
@@ -72,4 +76,35 @@ def spmm_sorted(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
         v = vals[span][keep].float()
         out.index_add_(0, rows[span][keep].long(),
                        v[:, None] * B32[cols[span][keep].long()])
+    return out
+
+
+def mu_update(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor,
+              eps: float = LUC_EPS) -> torch.Tensor:
+    """X ⊙ (R / (X·G + ε)) (paper eq. (3)) in fp32, returned in X's dtype,
+    in the reference's order of operations ``x * (r / (xg + eps))``."""
+    X32 = _f32(X)
+    denom = X32 @ _f32(G) + eps
+    return (X32 * (_f32(R) / denom)).to(X.dtype)
+
+
+def hals_sweep(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor,
+               eps: float = LUC_EPS) -> torch.Tensor:
+    """Sequential fast-HALS column sweep, H-step form (no normalisation):
+
+        x_i ← max(0, x_i + (R_i − X·G_i) / max(G_ii, ε))   for i = 0..k-1
+
+    in order, in fp32.  It follows the kernel, not ``repro/kernels/ref.py``
+    (which returns fp32): the result has X's dtype, and each new column is
+    rounded to X's dtype before later columns read it, as the update rule
+    ``rules.update_hals`` does (a no-op in fp32)."""
+    G32, R32 = _f32(G), _f32(R)
+    out = X.clone(memory_format=torch.contiguous_format)
+    X32 = out if out.dtype == torch.float32 else out.float()
+    for i in range(G.shape[0]):
+        gii = torch.clamp_min(G32[i, i], eps)
+        xi = X32[:, i] + (R32[:, i] - X32 @ G32[:, i]) / gii
+        out[:, i] = torch.clamp_min(xi, 0.0).to(out.dtype)
+        if X32 is not out:
+            X32[:, i] = out[:, i].float()
     return out

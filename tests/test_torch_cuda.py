@@ -15,9 +15,12 @@ import pytest
 import torch
 
 from repro_torch.backends import SparseOps
-from repro_torch.core import blocksparse
+from repro_torch.core import blocksparse, rules
 from repro_torch.core.engine import NMFSolver
 from repro_torch.kernels import ops, ref
+from repro_torch.serve.artifact import FactorArtifact
+from repro_torch.serve.foldin import FoldInProjector
+from repro_torch.serve.topk import TopK
 
 # The shapes of tests/test_kernels.py, the main path's widths on a
 # 65,536-row slice, and ragged edges on every axis (k > 64 takes a second
@@ -42,6 +45,11 @@ def _inputs(seed, *shapes):
     return [rng.uniform(size=s).astype(np.float32) for s in shapes]
 
 
+def _launches(**counts):
+    """ops.LAUNCHES as it should read: ``counts``, every other kernel 0."""
+    return {name: counts.get(name, 0) for name in ops.LAUNCHES}
+
+
 def _assert_scaled(got, want, atol):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     assert got.shape == want.shape
@@ -63,8 +71,7 @@ def test_kernels_match_plain_versions(cuda_device, m, n, k, dt):
         torch.cuda.synchronize()
         assert got.dtype == torch.float32 and got.is_cuda
         _assert_scaled(got.cpu(), want.cpu(), TOL[dt])
-    assert ops.LAUNCHES == {"gram": 1, "ts_matmul": 1, "ts_matmul_t": 1,
-                            "spmm": 0, "spmm_sorted": 0}
+    assert ops.LAUNCHES == _launches(gram=1, ts_matmul=1, ts_matmul_t=1)
 
 
 @pytest.mark.cuda
@@ -84,8 +91,20 @@ def test_wrappers_refuse_strided_cuda_operands(cuda_device):
         ops.ts_matmul(A.T, torch.rand(64, 4, device=cuda_device))
 
 
+# LUC launches per iteration of a 3-iteration fit (amu/ahals: inner_iters=2,
+# delta=0, so exactly 2 sweeps per half)
+LUC_PER_ITER = {"mu": {"mu_update": 2}, "hals": {"hals_sweep": 1},
+                "bpp": {}, "amu": {"mu_update": 4}, "ahals": {"hals_sweep": 2}}
+
+
+def _algo(name):
+    if name in ("amu", "ahals"):
+        return type(rules.get_rule(name))(inner_iters=2, delta=0.0)
+    return name
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("algo", ["mu", "hals", "bpp"])
+@pytest.mark.parametrize("algo", ["mu", "hals", "bpp", "amu", "ahals"])
 def test_fit_on_the_card_matches_the_cpu_path(cuda_device, algo):
     rng = np.random.default_rng(9)
     m, n, k = 96, 64, 6
@@ -94,12 +113,14 @@ def test_fit_on_the_card_matches_the_cpu_path(cuda_device, algo):
     W0 = rng.uniform(0.1, 1.0, size=(m, k)).astype(np.float32)
     H0 = rng.uniform(size=(k, n)).astype(np.float32)
     ops.reset_launches()
-    res = NMFSolver(k, algo=algo, max_iters=3).fit(A, W0=W0, H0=H0)
-    assert ops.LAUNCHES == {"gram": 9, "ts_matmul": 3, "ts_matmul_t": 3,
-                            "spmm": 0, "spmm_sorted": 0}
+    res = NMFSolver(k, algo=_algo(algo), max_iters=3).fit(A, W0=W0, H0=H0)
+    luc = {name: 3 * c for name, c in LUC_PER_ITER[algo].items()}
+    assert ops.LAUNCHES == _launches(gram=9, ts_matmul=3, ts_matmul_t=3,
+                                     **luc)
     assert res.W.is_cuda and res.extras["backend"] == "cuda"
-    cpu = NMFSolver(k, algo=algo, device="cpu", max_iters=3).fit(
+    cpu = NMFSolver(k, algo=_algo(algo), device="cpu", max_iters=3).fit(
         A, W0=W0, H0=H0)
+    assert res.extras["rule_state"] == cpu.extras["rule_state"]
     np.testing.assert_allclose(res.rel_errors.numpy(),
                                cpu.rel_errors.numpy(), rtol=1e-4)
     _assert_scaled(res.W.cpu(), cpu.W, 1e-4)
@@ -191,7 +212,8 @@ def test_sparse_fit_on_the_card_matches_the_cpu_path(cuda_device, algo,
     res = NMFSolver(k, algo=algo, backend=SparseOps(spmm_impl=impl),
                     max_iters=3).fit(A, W0=W0, H0=H0)
     kernel = "spmm_sorted" if impl == "sorted" else "spmm"
-    assert ops.LAUNCHES[kernel] == 6 and sum(ops.LAUNCHES.values()) == 6
+    luc = {name: 3 * c for name, c in LUC_PER_ITER[algo].items()}
+    assert ops.LAUNCHES == _launches(**{kernel: 6}, **luc)
     assert res.W.is_cuda and res.extras["backend"] == "sparse"
     cpu = NMFSolver(k, algo=algo, backend="sparse", device="cpu",
                     max_iters=3).fit(A, W0=W0, H0=H0)
@@ -199,3 +221,110 @@ def test_sparse_fit_on_the_card_matches_the_cpu_path(cuda_device, algo,
                                cpu.rel_errors.numpy(), rtol=1e-4)
     _assert_scaled(res.W.cpu(), cpu.W, 1e-4)
     _assert_scaled(res.H.cpu(), cpu.H, 1e-4)
+
+
+# LUC shapes (r, k): test_kernels.py's, ragged r at the main path's width, k
+# = 1 and k = 128 (the largest the kernels take), and a 65,536-row slice
+LUC_SHAPES = [(64, 8), (100, 10), (128, 50), (4_099, 50), (4_099, 1),
+              (4_099, 128), (1, 70), (65_536, 50)]
+# (X dtype, R dtype): an fp32 carry, a bf16 carry with fp32 R from the
+# products, and all-bf16
+LUC_DTYPES = {"f32": (torch.float32, torch.float32),
+              "bf16_f32": (torch.bfloat16, torch.float32),
+              "bf16": (torch.bfloat16, torch.bfloat16)}
+
+
+def _luc_problem(seed, r, k):
+    """X with a zero row (X·G = 0: the ε guard), G a Gram with a zero
+    diagonal entry when k > 2, R."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(size=(r, k)).astype(np.float32)
+    X[r // 2] = 0.0
+    C = rng.uniform(size=(30, k)).astype(np.float32)
+    if k > 2:
+        C[:, 2] = 0.0
+    R = rng.uniform(size=(r, k)).astype(np.float32) * 5
+    return X, C.T @ C, R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", ["fixed", "eps_for"])
+@pytest.mark.parametrize("r,k", LUC_SHAPES)
+@pytest.mark.parametrize("dt", LUC_DTYPES)
+def test_luc_kernels_match_plain_versions(cuda_device, r, k, dt, eps):
+    x, g, rr = _luc_problem(11, r, k)
+    xdt, rdt = LUC_DTYPES[dt]
+    X = torch.from_numpy(x).to(cuda_device, xdt)
+    G = torch.from_numpy(g).to(cuda_device)
+    R = torch.from_numpy(rr).to(cuda_device, rdt)
+    e = ref.LUC_EPS if eps == "fixed" else rules.eps_for(xdt)
+    ops.reset_launches()
+    for name in ("mu_update", "hals_sweep"):
+        got = getattr(ops, name)(X, G, R, eps=e)
+        want = getattr(ref, name)(X, G, R, e)
+        torch.cuda.synchronize()
+        assert got.dtype == xdt and got.is_cuda
+        assert torch.isfinite(got.float()).all()
+        _assert_scaled(got.float().cpu(), want.float().cpu(),
+                       TOL["f32" if dt == "f32" else "bf16"])
+    assert ops.LAUNCHES == _launches(mu_update=1, hals_sweep=1)
+
+
+@pytest.mark.cuda
+def test_hals_sweep_kernel_is_sequential(cuda_device):
+    x, g, rr = (torch.from_numpy(a).to(cuda_device)
+                for a in _luc_problem(12, 40, 6))
+    seq = ops.hals_sweep(x, g, rr)
+    jacobi = torch.clamp_min(x + (rr - x @ g) / torch.clamp_min(
+        torch.diagonal(g), ref.LUC_EPS), 0.0)
+    assert not torch.allclose(seq, jacobi, atol=1e-5)
+    _assert_scaled(seq.cpu(), ref.hals_sweep(x, g, rr).cpu(), 1e-5)
+
+
+@pytest.mark.cuda
+def test_luc_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    X = torch.rand(64, 129, device=cuda_device)
+    G = torch.rand(129, 129, device=cuda_device)
+    with pytest.raises(ValueError, match="k <= 128"):
+        ops.mu_update(X, G, X)
+    X = torch.rand(64, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        ops.hals_sweep(X, torch.rand(8, 8, device=cuda_device).bfloat16(), X)
+    with pytest.raises(ValueError):
+        ops.hals_sweep(X, torch.rand(8, 8), X)          # G on the CPU
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,kernel", [("mu", "mu_update"),
+                                         ("hals", "hals_sweep"),
+                                         ("amu", "mu_update"),
+                                         ("ahals", "hals_sweep"),
+                                         ("bpp", None)])
+def test_foldin_on_the_card_launches_and_matches_the_cpu(cuda_device, algo,
+                                                         kernel):
+    rng = np.random.default_rng(13)
+    W = rng.uniform(size=(200, 6)).astype(np.float32)
+    H = rng.uniform(size=(6, 300)).astype(np.float32)
+    rows = (rng.uniform(size=(7, 6)) @ H).astype(np.float32)
+    art = FactorArtifact.from_factors(W, H, algo="bpp", device=cuda_device)
+    proj = FoldInProjector(art, algo=algo, iters=20)
+    for sparse in (False, True):
+        req = torch.from_numpy(rows)
+        if sparse:
+            req = req.to_sparse_coo()
+        ops.reset_launches()
+        got = proj.project(req)
+        torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
+        assert counts["spmm" if sparse else "ts_matmul"] == 1
+        if kernel is None:
+            assert counts["mu_update"] == counts["hals_sweep"] == 0
+        else:
+            assert 1 <= counts[kernel] <= 20
+        want = FoldInProjector(FactorArtifact.from_factors(W, H,
+                                                           device="cpu"),
+                               algo=algo, iters=20,
+                               device="cpu").project(rows)
+        _assert_scaled(got.cpu(), want, 1e-4)
+    vals, idx = TopK(art, chunk=64).query(got, k=3)
+    assert idx.is_cuda and idx.shape == (7, 3)

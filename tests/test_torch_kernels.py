@@ -92,8 +92,12 @@ def test_cpu_path_counts_no_launch():
     ops.spmm(vals, idx, idx, B, 40)
     ops.spmm_sorted(vals, idx, idx, torch.zeros(1, dtype=torch.int32),
                     torch.full((1,), 8, dtype=torch.int32), B, 8, align=8)
+    G = ops.gram(B)
+    ops.mu_update(B, G, B)
+    ops.hals_sweep(B, G, B)
     assert ops.LAUNCHES == {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0,
-                            "spmm": 0, "spmm_sorted": 0}
+                            "spmm": 0, "spmm_sorted": 0, "mu_update": 0,
+                            "hals_sweep": 0}
 
 
 @pytest.mark.parametrize("case", ["strided", "dtype_mix", "f16", "shape",
