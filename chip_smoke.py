@@ -29,7 +29,10 @@ Phases, each of which raises on failure:
   5. small     the dense path on the card against the CPU path at 96×64;
   6. timings   each dense kernel at the full shape in fp32 against its plain
                version, then timed with CUDA events beside its bound, its
-               plain version and one torch.matmul call;
+               plain version and one torch.matmul call; ts_matmul also at a
+               served column batch's shape (256 × 1,013,400 · W), gram's
+               slab kernel and reduction apart, and ts_matmul and gram
+               (and their plain versions) against float64 on 2,048 rows;
   4b. luc      mu_update and hals_sweep against their plain versions in fp32
                and bf16, with ε = 1e-16 and ε = eps_for, at ragged shapes
                (k = 1, 50, 128) and at Video's W (1,013,400 × 50), with a
@@ -98,6 +101,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 M_FULL, N_FULL, K = 1_013_400, 13_824, 50     # benchmarks/bench_datasets.py:19
 CHECK_ROWS = 65_536
+F64_ROWS = 2_048                              # rows held against float64
 RAGGED = (4_099, 1_001, 70)                   # every axis ragged, k > 64
 NOISE = 0.5
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}     # scaled atol of test_kernels.py
@@ -109,9 +113,13 @@ WEBBASE_ROWS, WEBBASE_NNZ = 118_142_155, 1_019_903_190
 SPARSE_DIM = 1 << 24
 SPARSE_ALIGN = 64                             # blocksparse.DEFAULT_ALIGN
 SPARSE_CHECK_ROWS = 65_536
+F64_ROWS = 2_048                              # rows held against float64
 
-# H100 SXM (NVIDIA data sheet): fp32 outside the tensor cores, HBM3.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM (NVIDIA data sheet): fp32 outside the tensor cores, dense TF32
+# and bf16 on them, HBM3.  ts_matmul and gram run fp32 as three TF32
+# products (3xTF32), so their bounds count three times the useful
+# operations at the TF32 rate.
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
 
 KERNELS = {
@@ -147,6 +155,7 @@ SERVE_TOL = {"codes": 1e-3, "product": 1e-5, "long product": 1e-4,
              "residual": 1e-5}
 LONG_CONTRACTION = 65_536
 TOPK_CHECK_ROWS = 65_536
+F64_ROWS = 2_048                              # rows held against float64
 
 
 def require(cond: bool, msg: str) -> None:
@@ -226,6 +235,25 @@ def phase_card() -> str:
     return out
 
 
+def kernel_label(mangled: str) -> str:
+    """A short name for a mangled kernel of ptxas's log, e.g.
+    ``ts_matmul_tc_kernel<f32,7>``."""
+    import re
+    for num in re.finditer(r"\d+", mangled):
+        end = num.end() + int(num.group())
+        name, rest = mangled[num.end():end], mangled[end:]
+        if not name.endswith("_kernel"):
+            continue
+        if not rest.startswith("I") or "EEv" not in rest:
+            return name
+        names = {"13__nv_bfloat16": "bf16", "f": "f32", "Lb1E": "true",
+                 "Lb0E": "false"}
+        args = [names.get(a, a[2:-1]) for a in re.findall(
+            r"13__nv_bfloat16|Li\d+E|Lb[01]E|f", rest[1:rest.index("EEv")])]
+        return f"{name}<{','.join(args)}>"
+    return mangled
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -233,9 +261,12 @@ def phase_build() -> None:
     log(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.1f} s "
         f"into {build.BUILD_DIR}")
     for name in paths:
+        kernel = ""
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = kernel_label(line.split("'")[1])
+            elif "registers" in line or "spill" in line or "error" in line:
+                log(f"[build] {name}: {kernel}: {line.strip()}")
 
 
 def phase_kernels(A, Ht, W, errs: dict) -> None:
@@ -376,59 +407,115 @@ def phase_small() -> None:
 
 
 def phase_timings(A, Ht, W, errs: dict) -> dict:
-    """Each kernel at the full shape: held against its plain version there
-    (the slab plan and 64-bit offsets of A differ from the slice's), then
-    timed beside its bound, its plain version and one torch.matmul call."""
+    """Each kernel at the full shape, and ts_matmul at a served column
+    batch's shape: held against its plain version there (the slab plan and
+    64-bit offsets of A differ from the slice's), then timed beside its
+    bound, its plain version and one torch.matmul call; gram's slab kernel
+    and reduction are also timed apart.  ts_matmul and gram, and their
+    plain versions, are held against float64 on the first rows."""
     import torch
     from repro_torch.kernels import ops, ref
     m, n = A.shape
     k = Ht.shape[1]
     f4 = 4
-    # XᵀX is symmetric: its k·(k+1)/2 distinct entries need r multiply-adds each
+    b = max(SERVE_BATCHES)
+    C = A[:, :b].T.contiguous()      # b request columns, as phase 8b serves
+    # (key, kernel, plain, library call, bytes read, bytes written, useful
+    # flops, the units' rate, reps).  ts_matmul and gram run three TF32
+    # products on the tensor cores; XᵀX is symmetric: its k·(k+1)/2
+    # distinct entries need r multiply-adds each.
     plans = {
         "ts_matmul": (lambda: ops.ts_matmul(A, Ht),
                       lambda: ref.ts_matmul(A, Ht),
                       lambda: torch.matmul(A, Ht),
-                      (m * n + n * k) * f4, m * k * f4, 2.0 * m * n * k, 3),
+                      (m * n + n * k) * f4, m * k * f4, 2.0 * m * n * k,
+                      "tf32", 3),
+        "ts_matmul serve": (lambda: ops.ts_matmul(C, W),
+                            lambda: ref.ts_matmul(C, W),
+                            lambda: torch.matmul(C, W),
+                            (b * m + m * k) * f4, b * k * f4,
+                            2.0 * b * m * k, "tf32", 20),
         "ts_matmul_t": (lambda: ops.ts_matmul_t(A, W),
                         lambda: ref.ts_matmul_t(A, W),
                         lambda: torch.matmul(A.T, W),
-                        (m * n + m * k) * f4, n * k * f4, 2.0 * m * n * k, 3),
+                        (m * n + m * k) * f4, n * k * f4, 2.0 * m * n * k,
+                        "float32", 3),
         "gram": (lambda: ops.gram(W), lambda: ref.gram(W),
                  lambda: torch.matmul(W.T, W),
-                 m * k * f4, k * k * f4, 1.0 * m * k * (k + 1), 20),
+                 m * k * f4, k * k * f4, 1.0 * m * k * (k + 1), "tf32", 20),
     }
     for name, (kern, plain, *_) in plans.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         abs_err, err = scaled_err(got, want)
         ok = err <= TOL["float32"]
-        log(f"[kernels] {name:12s} float32  full   "
-            f"{tuple(A.shape) if name != 'gram' else tuple(got.shape)} scaled "
+        shape = {"gram": tuple(got.shape), "ts_matmul serve": tuple(C.shape)}
+        log(f"[kernels] {name:15s} float32  full   "
+            f"{shape.get(name, tuple(A.shape))} scaled "
             f"err {err:.3e} (tol {TOL['float32']:.0e}) abs {abs_err:.3e} "
             f"{'ok' if ok else 'FAIL'}")
         require(ok, f"{name} float32 at the full shape disagrees with its "
                     f"plain version: {err:.3e} > {TOL['float32']}")
-        e = errs.setdefault(name, [0.0, 0.0])
+        e = errs.setdefault(name.split()[0], [0.0, 0.0])
         e[0], e[1] = max(e[0], abs_err), max(e[1], err)
         del got, want
-    out = {}
-    for name, (kern, plain, lib, rb, wb, flops, reps) in plans.items():
+    # both against float64 on a slice: the distance to the plain version
+    # above is that version's own fp32 rounding as much as the kernel's
+    rows = min(F64_ROWS, m)
+    a_s, w_s = A[:rows], W[:rows]
+    f64 = {"ts_matmul": (ops.ts_matmul(a_s, Ht), ref.ts_matmul(a_s, Ht),
+                         a_s.double() @ Ht.double()),
+           "gram": (ops.gram(w_s), ref.gram(w_s), w_s.double().T @ w_s.double())}
+    for name, (got, plain, want) in f64.items():
+        torch.cuda.synchronize()
+        k_err, p_err = (scaled_err(x.double(), want)[1] for x in (got, plain))
+        log(f"[kernels] {name:15s} float32  vs float64 on {rows} rows: kernel "
+            f"{k_err:.3e}, plain version {p_err:.3e} (scaled)")
+        f64[name] = {"f64_err": k_err, "plain_f64_err": p_err}
+    del a_s, w_s
+    out = {name: dict(errs64) for name, errs64 in f64.items()}
+    for name, (kern, plain, lib, rb, wb, flops, units, reps) in plans.items():
         # in turns: plain, kernel, kernel, plain (then the library call)
         p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kern, kern, plain))
         lib_ms = time_ms(lib, reps)
-        b_ms, b_by = bound_ms(rb, wb, flops, "float32")
-        out[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                     "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
-        log(f"[timings] {name:12s} fp32 kernel {k1:.3f}/{k2:.3f} ms, plain "
+        # the bound at the rate of the units the kernel uses (3xTF32: three
+        # products on the tensor cores)
+        n_ops = 3 * flops if units == "tf32" else flops
+        b_ms, b_by = bound_ms(rb, wb, n_ops, units)
+        key, suffix = (name.split()[0],
+                       "_serve" if name.endswith("serve") else "")
+        row = out.setdefault(key, {})
+        row.update({f"ms{suffix}": min(k1, k2), f"plain_ms{suffix}": min(p1, p2),
+                    f"library_ms{suffix}": lib_ms,
+                    f"bound_ms{suffix}": b_ms, f"bound_by{suffix}": b_by})
+        extra = ""
+        if units == "tf32":
+            cores_ms, _ = bound_ms(rb, wb, flops, "float32")
+            row[f"bound_ms_fp32_cores{suffix}"] = cores_ms
+            extra = f" (on the fp32 cores {cores_ms:.3f} ms)"
+        log(f"[timings] {name:15s} fp32 kernel {k1:.3f}/{k2:.3f} ms, plain "
             f"{p1:.3f}/{p2:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by}); {flops / (min(k1, k2) * 1e-3) / 1e12:.1f}"
-            f" TFLOP/s, {(rb + wb) / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s")
+            f"{b_ms:.3f} ms ({b_by}){extra}; "
+            f"{flops / (min(k1, k2) * 1e-3) / 1e12:.1f} TFLOP/s useful, "
+            f"{(rb + wb) / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s")
+    out["ts_matmul"]["serve_shape"] = [b, m, k]
+    del C
+    main, reduce = ops.gram_parts(W)
+    main_ms, reduce_ms = time_ms(main, 20), time_ms(reduce, 20)
+    plan = ops.plan_gram(m, k, W.element_size(),
+                         torch.cuda.get_device_properties(
+                             W.device).multi_processor_count)
+    out["gram"].update({"main_ms": main_ms, "reduce_ms": reduce_ms,
+                        "slabs": plan.slabs})
+    log(f"[timings] gram(W) apart: slab kernel {main_ms:.4f} ms ({plan.slabs} "
+        f"slabs of {plan.slab} rows, panels of {plan.panel}), reduction "
+        f"{reduce_ms:.4f} ms")
     g_ht = time_ms(lambda: ops.gram(Ht), 50)
-    b_ht, by_ht = bound_ms(n * k * f4, k * k * f4, 1.0 * n * k * (k + 1),
-                           "float32")
-    log(f"[timings] gram(Ht)     fp32 kernel {g_ht:.4f} ms at {(n, k)}, bound "
-        f"{b_ht:.4f} ms ({by_ht})")
+    b_ht, by_ht = bound_ms(n * k * f4, k * k * f4, 3.0 * n * k * (k + 1),
+                           "tf32")
+    out["gram"]["ms_gram_ht"] = g_ht
+    log(f"[timings] gram(Ht)        fp32 kernel {g_ht:.4f} ms at {(n, k)}, "
+        f"bound {b_ht:.4f} ms ({by_ht})")
     return out
 
 

@@ -41,13 +41,15 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: largest k of the LUC kernels.
 SIGNATURES = {
     "ts_matmul": {
-        "ts_matmul_launch": [_I, _P, _P, _P, _I64, _I64, _I64, _P],
+        "ts_matmul_launch": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                             _I64, _I, _I, _P],
         "ts_matmul_t_launch": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                                _I64, _P],
         "ts_matmul_tiles": [_IP],
     },
     "gram": {
-        "gram_launch": [_I, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+        "gram_launch": [_I, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _I, _I,
+                        _P],
         "gram_tiles": [_IP],
     },
     "spmm": {

@@ -27,6 +27,7 @@ kernels' 1e-16; the rules pass ``eps_for(X.dtype)``) and k up to
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +39,24 @@ LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0, "spmm": 0,
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SLABS = 65535                         # gridDim.z limit
-_TILE_COUNTS = {"ts_matmul": 3, "gram": 2}
+
+#: the kernels' fixed sizes, as their ``<name>_tiles`` entry points report
+#: them (checked on first use): gram (ring stages, super-tile edge, threads
+#: per block); ts_matmul (BM rows, BN columns of k, BK contraction depth per
+#: stage, ring stages), the first three shared with ts_matmul_t
+GRAM_TILES = (4, 64, 128)
+TS_TILES = (128, 64, 32, 4)
+#: shared memory one block may use on the H100 (227 KB)
+SMEM_PER_BLOCK = 232_448
+#: gram: bytes of X per ring buffer, and the fewest rows a slab takes
+GRAM_PANEL_BYTES = 16_384
+GRAM_MIN_SLAB = 512
+#: blocks per SM that the persistent gram grid and ts_matmul's split
+#: contraction aim at: gram three resident blocks; ts_matmul two waves of two
+GRAM_BLOCKS_PER_SM = 3
+TS_SPLIT_BLOCKS_PER_SM = 4
+
+_TILES_EXPECTED = {"gram": GRAM_TILES, "ts_matmul": TS_TILES}
 _TILES: dict[str, tuple[int, ...]] = {}
 
 
@@ -84,22 +102,83 @@ def plan_slabs(depth: int, tiles: int, sm_count: int, *, step: int,
     return slab, -(-depth // slab)
 
 
+class GramPlan(NamedTuple):
+    """How the gram kernel cuts X (r, k): ``slabs`` blocks of ``slab`` rows
+    (a multiple of ``panel``) per block column, ring buffers of ``panel``
+    rows, ``pairs`` block columns (pairs a ≥ b of 64-column super tiles;
+    1 for k ≤ 64)."""
+    panel: int
+    slab: int
+    slabs: int
+    pairs: int
+
+
+def plan_gram(r: int, k: int, itemsize: int, sm_count: int) -> GramPlan:
+    """The persistent grid of gram: about GRAM_BLOCKS_PER_SM blocks per SM
+    in all, each a contiguous slab of at least GRAM_MIN_SLAB rows, streamed
+    in panels of about GRAM_PANEL_BYTES, at most 128 rows: a multiple of 32
+    (one 8-row step for each of the block's 4 warps), or of 8 for wide k.
+    Raises for a k whose ring of 8-row panels exceeds shared memory."""
+    stages, sup, threads = GRAM_TILES
+    step = 8 * threads // 32
+    panel = max(8, min(128, GRAM_PANEL_BYTES // (k * itemsize)))
+    panel -= panel % (step if panel >= step else 8)
+    # a ring buffer: the panel, a super tile's overrun, a copy's lead-in
+    stage = -(-((panel * k + sup) * itemsize + 16) // 16) * 16
+    if stages * stage > SMEM_PER_BLOCK:
+        raise ValueError(f"gram: k = {k} is too wide for the kernel (a ring "
+                         f"of {stages} panels of {panel} rows of {k} needs "
+                         f"more than {SMEM_PER_BLOCK} bytes of shared "
+                         f"memory)")
+    tiles = -(-k // sup)
+    pairs = tiles * (tiles + 1) // 2
+    slab, slabs = plan_slabs(r, pairs, sm_count, step=panel,
+                             min_slab=max(panel, GRAM_MIN_SLAB),
+                             blocks_per_sm=GRAM_BLOCKS_PER_SM)
+    return GramPlan(panel, slab, slabs, pairs)
+
+
+def plan_ts_matmul(m: int, n: int, k: int, sm_count: int) -> tuple[int, int]:
+    """(slab, slabs) of ts_matmul's contraction over n: one slab when the
+    output's BM-row × BN-column tiles fill TS_SPLIT_BLOCKS_PER_SM blocks per
+    SM (two waves of two resident blocks); else n is split into slabs of a
+    BK multiple (at least 4·BK) until they do."""
+    bm, bn, bk, _ = TS_TILES
+    tiles = -(-m // bm) * -(-k // bn)
+    if tiles >= TS_SPLIT_BLOCKS_PER_SM * sm_count:
+        return n, 1
+    return plan_slabs(n, tiles, sm_count, step=bk, min_slab=4 * bk,
+                      blocks_per_sm=TS_SPLIT_BLOCKS_PER_SM)
+
+
+def copy_width(ptr: int, stride: int) -> int:
+    """Bytes per asynchronous copy (16 or 4) for rows or panels of
+    ``stride`` bytes that start at address ``ptr``: 16 only when every one
+    of them starts 16-byte aligned."""
+    return 16 if ptr % 16 == 0 and stride % 16 == 0 else 4
+
+
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def tiles(name: str) -> tuple[int, ...]:
-    """The tile sizes library ``name`` was compiled with, as its
-    ``<name>_tiles`` entry point reports them: ts_matmul (BM, BN, BK), gram
-    (T, K)."""
+    """The fixed sizes library ``name`` was compiled with, as its
+    ``<name>_tiles`` entry point reports them; raises if they are not the
+    ones this module plans with (GRAM_TILES, TS_TILES)."""
     if name not in _TILES:
-        out = (ctypes.c_int * _TILE_COUNTS[name])()
+        want = _TILES_EXPECTED[name]
+        out = (ctypes.c_int * len(want))()
         getattr(build.load(name), f"{name}_tiles")(out)
+        if tuple(out) != want:
+            raise RuntimeError(f"{name}: the library reports sizes "
+                               f"{tuple(out)}, the wrapper plans with {want}")
         _TILES[name] = tuple(out)
     return _TILES[name]
 
 
-def _launch(lib, fn: str, name: str, device: torch.device, *args) -> None:
+def _launch(lib, fn: str, name: str, device: torch.device, *args,
+            count: bool = True) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn)(*args, stream)
@@ -107,29 +186,52 @@ def _launch(lib, fn: str, name: str, device: torch.device, *args) -> None:
         msg = lib.cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed with error "
                            f"{rc} ({msg})")
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _gram_launcher(X: torch.Tensor):
+    """launch(parts, count) -> G for X on CUDA, on the plan, output and slab
+    scratch allocated here: the slab kernel (parts 1), the reduction (2) or
+    both (3)."""
+    r, k = X.shape
+    tiles("gram")
+    plan = plan_gram(r, k, X.element_size(), _sm_count(X.device))
+    vec = copy_width(X.data_ptr(), plan.panel * k * X.element_size()) == 16
+    G = torch.empty((k, k), dtype=torch.float32, device=X.device)
+    scratch = (torch.empty((plan.slabs, k, k), dtype=torch.float32,
+                           device=X.device) if plan.slabs > 1 else None)
+
+    def launch(parts: int = 3, count: bool = True) -> torch.Tensor:
+        _launch(build.load("gram"), "gram_launch", "gram", X.device,
+                _DTYPE_CODES[X.dtype], X.data_ptr(), G.data_ptr(),
+                _ptr(scratch), r, k, plan.slab, plan.slabs, plan.panel,
+                int(vec), parts, count=count)
+        return G
+    return launch
+
+
 def gram(X: torch.Tensor) -> torch.Tensor:
     """XᵀX (fp32, (k, k)) for X (r, k)."""
     if not _check("gram", X):
         return ref.gram(X)
-    r, k = X.shape
-    edge, depth = tiles("gram")
-    # one wave of blocks: each output sums every slab, so slabs stay few
-    slab, slabs = plan_slabs(r, (-(-k // edge)) ** 2, _sm_count(X.device),
-                             step=depth, min_slab=4 * depth, blocks_per_sm=8)
-    G = torch.empty((k, k), dtype=torch.float32, device=X.device)
-    scratch = (torch.empty((slabs, k, k), dtype=torch.float32,
-                           device=X.device) if slabs > 1 else None)
-    _launch(build.load("gram"), "gram_launch", "gram", X.device,
-            _DTYPE_CODES[X.dtype], X.data_ptr(), G.data_ptr(), _ptr(scratch),
-            r, k, slab, slabs)
-    return G
+    return _gram_launcher(X)()
+
+
+def gram_parts(X: torch.Tensor):
+    """The two launches of ``gram(X)`` on a CUDA X, apart, for timing: (slab
+    kernel, reduction), zero-argument callables on buffers allocated once,
+    counted in no ``LAUNCHES``; each returns the output G, which holds XᵀX
+    once both have run.  The reduction launches nothing when the plan has a
+    single slab (the slab kernel then writes G itself)."""
+    if not _check("gram", X):
+        raise ValueError("gram_parts: X must lie on a CUDA device")
+    launch = _gram_launcher(X)
+    return (lambda: launch(1, False)), (lambda: launch(2, False))
 
 
 def ts_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -142,10 +244,16 @@ def ts_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         return ref.ts_matmul(A, B)
     m, n = A.shape
     k = B.shape[1]
+    tiles("ts_matmul")
+    slab, slabs = plan_ts_matmul(m, n, k, _sm_count(A.device))
+    a16 = copy_width(A.data_ptr(), n * A.element_size()) == 16
     C = torch.empty((m, k), dtype=torch.float32, device=A.device)
+    scratch = (torch.empty((slabs, m, k), dtype=torch.float32,
+                           device=A.device) if slabs > 1 else None)
     _launch(build.load("ts_matmul"), "ts_matmul_launch", "ts_matmul",
             A.device, _DTYPE_CODES[A.dtype], A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), m, n, k)
+            C.data_ptr(), _ptr(scratch), m, n, k, slab, slabs, int(a16),
+            int(copy_width(B.data_ptr(), 16) == 16))
     return C
 
 
@@ -159,7 +267,7 @@ def ts_matmul_t(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         return ref.ts_matmul_t(A, B)
     m, n = A.shape
     k = B.shape[1]
-    bm, bn, bk = tiles("ts_matmul")
+    bm, bn, bk, _ = tiles("ts_matmul")
     # ~16 waves at 2 resident blocks per SM, so the last, partial wave
     # costs little; the (slabs, n, k) partials stay small beside A
     slab, slabs = plan_slabs(m, -(-n // bm) * -(-k // bn), _sm_count(A.device),

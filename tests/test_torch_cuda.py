@@ -91,6 +91,85 @@ def test_wrappers_refuse_strided_cuda_operands(cuda_device):
         ops.ts_matmul(A.T, torch.rand(64, 4, device=cuda_device))
 
 
+# The gram and ts_matmul designs: a served column batch (b rows of Video's
+# 1,013,400-long contraction against W: ts_matmul splits the contraction),
+# k from 1 to 128, and shapes whose rows are not 16-byte aligned (n not a
+# multiple of 4, or a view one element off the grid: 4-byte copies).
+SERVE_N = 1_013_400
+REDESIGN_K = [1, 50, 56, 64, 70, 128]
+REDESIGN_MN = [(300, 1_003), (129, 4_096), (5, 70_001)]
+
+
+def _device_inputs(device, seed, *shapes):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.rand(s, generator=gen, device=device) for s in shapes]
+
+
+def _off_grid(x):
+    """x's values in a contiguous tensor that starts one element past a
+    16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 7, 64, 256])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_ts_matmul_at_the_served_column_shapes(cuda_device, b, dt):
+    C, W = (x.to(DTYPES[dt]) for x in _device_inputs(
+        cuda_device, 21 + b, (b, SERVE_N), (SERVE_N, 50)))
+    ops.reset_launches()
+    got = ops.ts_matmul(C, W)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == _launches(ts_matmul=1)
+    _assert_scaled(got.cpu(), ref.ts_matmul(C, W).cpu(), TOL[dt])
+    assert torch.equal(got, ops.ts_matmul(C, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", REDESIGN_MN)
+@pytest.mark.parametrize("k", REDESIGN_K)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_gram_and_ts_matmul_over_k_and_unaligned_rows(cuda_device, m, n, k,
+                                                      dt):
+    a, b, w = _inputs(22, (m, n), (n, k), (m, k))
+    A, B, W = (torch.from_numpy(x).to(cuda_device, DTYPES[dt])
+               for x in (a, b, w))
+    for A_, B_, W_ in ((A, B, W), (_off_grid(A), _off_grid(B), _off_grid(W))):
+        for got, want in ((ops.ts_matmul(A_, B_), ref.ts_matmul(A_, B_)),
+                          (ops.gram(W_), ref.gram(W_)),
+                          (ops.gram(B_), ref.gram(B_))):
+            torch.cuda.synchronize()
+            _assert_scaled(got.cpu(), want.cpu(), TOL[dt])
+        G = ops.gram(B_)
+        assert torch.equal(G, G.T) and torch.equal(G, ops.gram(B_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [13_824, 1_013_400])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_gram_is_exactly_symmetric_and_bit_reproducible(cuda_device, r, dt):
+    (X,) = _device_inputs(cuda_device, 23, (r, 50))
+    X = X.to(DTYPES[dt])
+    G = ops.gram(X)
+    torch.cuda.synchronize()
+    assert torch.equal(G, G.T)
+    assert torch.equal(G, ops.gram(X))
+    _assert_scaled(G.cpu(), ref.gram(X).cpu(), TOL[dt])
+    main, reduce = ops.gram_parts(X)          # the two launches, apart
+    main()
+    assert torch.equal(reduce(), G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(256, SERVE_N), (20_000, 13_824)])
+def test_ts_matmul_is_bit_reproducible(cuda_device, m, n):
+    A, B = _device_inputs(cuda_device, 24, (m, n), (n, 50))
+    assert torch.equal(ops.ts_matmul(A, B), ops.ts_matmul(A, B))
+
+
 # LUC launches per iteration of a 3-iteration fit (amu/ahals: inner_iters=2,
 # delta=0, so exactly 2 sweeps per half)
 LUC_PER_ITER = {"mu": {"mu_update": 2}, "hals": {"hals_sweep": 1},
