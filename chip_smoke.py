@@ -31,8 +31,9 @@ Phases, each of which raises on failure:
                version, then timed with CUDA events beside its bound, its
                plain version and one torch.matmul call; ts_matmul also at a
                served column batch's shape (256 × 1,013,400 · W), gram's
-               slab kernel and reduction apart, and ts_matmul and gram
-               (and their plain versions) against float64 on 2,048 rows;
+               slab kernel and reduction apart, and ts_matmul, ts_matmul_t
+               and gram (and their plain versions) against float64 on 2,048
+               rows;
   4b. luc      mu_update and hals_sweep against their plain versions in fp32
                and bf16, with ε = 1e-16 and ε = eps_for, at ragged shapes
                (k = 1, 50, 128) and at Video's W (1,013,400 × 50), with a
@@ -63,7 +64,10 @@ Phases, each of which raises on failure:
                at a ragged shape with a hot row and empty tiles;
  11. sparse timings   both kernels and both products at full size in fp32:
                checked, then timed beside their bound, their plain versions
-               and one torch.sparse.mm call on a CSR copy;
+               and one torch.sparse.mm call on a CSR copy; spmm on the plan
+               its wrapper chooses and on the other one (the L2-blocked
+               scatter or a single pass), each checked and timed, with the
+               plan and the rate printed;
  12. sparse main      fit() at full size: mu and hals for 3 iterations with
                spmm_impl="sorted" and with "auto" on an unsorted BlockCOO
                (the spmm kernel), bpp for 1 with "sorted"; launch counts,
@@ -77,7 +81,10 @@ Phases, each of which raises on failure:
                phase 12 times its iteration whole);
  14. sparse serve  an artifact of the sparse mu fit, in memory; sparse
                request rows at the matrix's density (b = 1, 256) through
-               the spmm kernel and a hals fold-in; TopK over W's 2^24 rows.
+               the spmm kernel (checked to take its single pass) and a
+               hals fold-in, and each request's product timed on its
+               single pass and on a forced L2-blocked scatter; TopK over
+               W's 2^24 rows.
 
 Before the last line it prints the kernels as one JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -421,8 +428,8 @@ def phase_timings(A, Ht, W, errs: dict) -> dict:
     b = max(SERVE_BATCHES)
     C = A[:, :b].T.contiguous()      # b request columns, as phase 8b serves
     # (key, kernel, plain, library call, bytes read, bytes written, useful
-    # flops, the units' rate, reps).  ts_matmul and gram run three TF32
-    # products on the tensor cores; XᵀX is symmetric: its k·(k+1)/2
+    # flops, the units' rate, reps).  ts_matmul, ts_matmul_t and gram run
+    # three TF32 products on the tensor cores; XᵀX is symmetric: its k·(k+1)/2
     # distinct entries need r multiply-adds each.
     plans = {
         "ts_matmul": (lambda: ops.ts_matmul(A, Ht),
@@ -439,7 +446,7 @@ def phase_timings(A, Ht, W, errs: dict) -> dict:
                         lambda: ref.ts_matmul_t(A, W),
                         lambda: torch.matmul(A.T, W),
                         (m * n + m * k) * f4, n * k * f4, 2.0 * m * n * k,
-                        "float32", 3),
+                        "tf32", 3),
         "gram": (lambda: ops.gram(W), lambda: ref.gram(W),
                  lambda: torch.matmul(W.T, W),
                  m * k * f4, k * k * f4, 1.0 * m * k * (k + 1), "tf32", 20),
@@ -465,6 +472,8 @@ def phase_timings(A, Ht, W, errs: dict) -> dict:
     a_s, w_s = A[:rows], W[:rows]
     f64 = {"ts_matmul": (ops.ts_matmul(a_s, Ht), ref.ts_matmul(a_s, Ht),
                          a_s.double() @ Ht.double()),
+           "ts_matmul_t": (ops.ts_matmul_t(a_s, w_s), ref.ts_matmul_t(a_s, w_s),
+                           a_s.double().T @ w_s.double()),
            "gram": (ops.gram(w_s), ref.gram(w_s), w_s.double().T @ w_s.double())}
     for name, (got, plain, want) in f64.items():
         torch.cuda.synchronize()
@@ -733,10 +742,13 @@ def sparse_cases(blk, srt, B, C):
     col = [t.reshape(-1) for t in (srt.t_vals, srt.t_rows, srt.t_cols,
                                    srt.col_tiles, srt.col_valid)]
     a = srt.align
+    # A·B as local_spmm calls it, with the BlockCOO's row order
     return [
-        ("spmm", "A·B", lambda: ops.spmm(v, r, c, B, m),
+        ("spmm", "A·B",
+         lambda **plan: ops.spmm(v, r, c, B, m, row_major=blk.row_major,
+                                 **plan),
          lambda: ref.spmm(v, r, c, B, m)),
-        ("spmm", "Aᵀ·C", lambda: ops.spmm_t(v, r, c, C, n),
+        ("spmm", "Aᵀ·C", lambda **plan: ops.spmm_t(v, r, c, C, n, **plan),
          lambda: ref.spmm(v, c, r, C, n)),
         ("spmm_sorted", "A·B", lambda: ops.spmm_sorted(*row, B, m, align=a),
          lambda: ref.spmm_sorted(*row, B, m, align=a)),
@@ -810,7 +822,7 @@ def phase_sparse_kernels(blk, errs: dict) -> None:
     cut = int((rows < SPARSE_CHECK_ROWS).sum())   # triplets are row-major
     head = blocksparse._pack_triplets(
         blk.vals.reshape(-1)[:cut], rows[:cut], blk.cols.reshape(-1)[:cut],
-        SPARSE_CHECK_ROWS, n, 1, 1, cut)
+        SPARSE_CHECK_ROWS, n, 1, 1, cut, row_major=blk.row_major)
     m_r, n_r, k_r = RAGGED
     dense = torch.rand((m_r, n_r), generator=gen, device=dev)
     dense *= torch.rand((m_r, n_r), generator=gen, device=dev) < 0.002
@@ -838,6 +850,7 @@ def phase_sparse_timings(blk, srt, errs: dict) -> dict:
     import torch
     gen = torch.Generator(device=blk.device).manual_seed(3)
     m, n = blk.shape
+    sms = torch.cuda.get_device_properties(blk.device).multi_processor_count
     B = torch.rand((n, K), generator=gen, device=blk.device)
     C = torch.rand((m, K), generator=gen, device=blk.device)
     check_sparse("full", blk, srt, B, C, errs)
@@ -882,9 +895,48 @@ def phase_sparse_timings(blk, srt, errs: dict) -> dict:
                 f"({b_by}); {(rb + wb) / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s "
                 f"compulsory, {gather_gb / (min(k1, k2) * 1e-3):.0f} GB/s of "
                 f"B-row gathers")
+            if name == "spmm":
+                out[name].update(spmm_plans(
+                    prod, kern, plain, rb + wb, suffix,
+                    (nnz, m if prod == "A·B" else n, K, 4, sms,
+                     prod == "A·B" and blk.row_major)))
     del B, C
     torch.cuda.empty_cache()
     return out
+
+
+def spmm_plans(prod: str, kern, plain, nbytes: int, suffix: str,
+               plan_args: tuple) -> dict:
+    """spmm on the plan its wrapper chose for ``kern`` and on the other one
+    (the L2-blocked scatter, or a single pass): the other checked against
+    the plain version, both timed in turns, both plans printed.
+    ``plan_args``: (nnz, m_out, k, itemsize, SMs, row_major) of the call."""
+    import torch
+    from repro_torch.kernels import ops
+    nnz, m_out, k, size, sms, row_major = plan_args
+    chosen = ops.plan_spmm(nnz, m_out, k, size, sms, row_major=row_major)
+    other = ops.plan_spmm(nnz, m_out, k, size, sms, row_major=row_major,
+                          bucketed=chosen.buckets == 1)
+    other_call = lambda: kern(plan=other)
+    _, err = scaled_err(other_call(), plain())
+    torch.cuda.synchronize()
+    require(err <= TOL["float32"], f"spmm {prod} on the other plan {other} "
+                                   f"disagrees with its plain version: {err}")
+    c1, o1, o2, c2 = (time_ms(f, 3) for f in (kern, other_call, other_call,
+                                              kern))
+    res = {}
+    for tag, plan, t1, t2 in (("plan", chosen, c1, c2),
+                              ("other", other, o1, o2)):
+        log(f"[sparse timings] spmm        {prod:4s} {tag:5s} buckets "
+            f"{plan.buckets} (2^{plan.shift} rows), scratch "
+            f"{plan.scratch_bytes / 1e9:.3f} GB, {plan.per_warp} triplets a "
+            f"warp: {t1:.3f}/{t2:.3f} ms, "
+            f"{nbytes / (min(t1, t2) * 1e-3) / 1e9:.0f} GB/s compulsory"
+            + (f"; scaled err {err:.3e}" if tag == "other" else ""))
+        res[f"{tag}_ms{suffix}"] = min(t1, t2)
+        res[f"{tag}_buckets{suffix}"] = plan.buckets
+        res[f"{tag}_scratch_bytes{suffix}"] = plan.scratch_bytes
+    return res
 
 
 def direct_sparse_rel_error(blk, W, H, chunk: int = 1 << 22) -> float:
@@ -1057,6 +1109,12 @@ def serve_batches(proj, requests, label: str, algo: str, kernel_of: dict,
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         counts = dict(ops.LAUNCHES)
+        # a sparse batch's output (b ≤ 256 rows, padded to its bucket) fits
+        # L2: spmm's single pass
+        single = product != "spmm" or ops.plan_spmm(
+            req._nnz(), next(s for s in proj.buckets if s >= b), K, 4,
+            torch.cuda.get_device_properties(0).multi_processor_count
+        ).buckets == 1
         with plain_luc():
             want = proj.project(req)
         torch.cuda.synchronize()
@@ -1070,7 +1128,7 @@ def serve_batches(proj, requests, label: str, algo: str, kernel_of: dict,
               and got.min().item() >= 0 and err <= SERVE_TOL["codes"]
               and r_err <= r_tol
               and res_diff <= SERVE_TOL["residual"]
-              and counts[product] == 1
+              and counts[product] == 1 and single
               and (luc == iters if algo in ("mu", "hals") else
                    1 <= luc <= iters if kernel else
                    counts["mu_update"] == counts["hals_sweep"] == 0))
@@ -1079,10 +1137,12 @@ def serve_batches(proj, requests, label: str, algo: str, kernel_of: dict,
             f"versions: codes {err:.2e} (tol {SERVE_TOL['codes']:.0e}), R "
             f"{r_err:.2e} (tol {r_tol:.0e}), rel residual {res_diff:.2e} "
             f"(tol {SERVE_TOL['residual']:.0e}, of max "
-            f"{res_got.max().item():.6f}) {'ok' if ok else 'FAIL'}")
+            f"{res_got.max().item():.6f})"
+            + ("; spmm single pass" if product == "spmm" and single else "")
+            + f" {'ok' if ok else 'FAIL'}")
         require(ok, f"{label} {algo} b={b}: shape {tuple(got.shape)}, "
                     f"launches {counts}, codes {err:.3e}, R {r_err:.3e}, "
-                    f"residual {res_diff:.3e}")
+                    f"residual {res_diff:.3e}, spmm single pass {single}")
         lat[b] = ms
         add_launches(launches, counts)
         codes = got
@@ -1194,10 +1254,58 @@ def phase_serve_sparse(res, dim: int, seed: int) -> tuple[dict, dict]:
     proj = FoldInProjector(art, algo="hals", iters=100)
     lat, launches, codes = serve_batches(proj, reqs, "serve sparse", "hals",
                                          {"hals": "hals_sweep"}, 100)
+    plans = served_spmm_plans(proj.Ht, reqs)
     del proj
     torch.cuda.empty_cache()
     topk = check_topk(TopK(art, metric="cosine"), codes, "serve sparse topk")
-    return launches, {"hals": lat, "topk": topk}
+    return launches, {"hals": lat, "topk": topk, "spmm_plans": plans}
+
+
+def served_spmm_plans(Ht, reqs) -> dict:
+    """Each sparse request's product a·Hᵀ through spmm on the plan its
+    wrapper chooses (one pass: b ≤ 256 rows fit L2) and on the L2-blocked
+    scatter forced onto the same output (buckets of the most rows, a power
+    of two, that b // 37 holds, as the card tests force it), checked
+    against the plain version and timed in turns.  b = 1 has no bucketed
+    plan: its one row is one bucket."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for b, req, _ in reqs:
+        idx = req._indices().to(torch.int32)
+        v, r, c = req._values(), idx[0].contiguous(), idx[1].contiguous()
+        nnz, size = v.numel(), Ht.element_size()
+        chosen = ops.plan_spmm(nnz, b, K, size, sms)
+        require(chosen.buckets == 1, f"served spmm b={b}: plan {chosen} is "
+                                     f"not a single pass")
+        shift = max(1, b // 37).bit_length() - 1
+        buckets = -(-b // (1 << shift))
+
+        def call(plan=None):
+            return ops.spmm(v, r, c, Ht, b, plan=plan)
+        if buckets == 1:
+            t = time_ms(call, 50)
+            log(f"[serve sparse] spmm b={b:4d} ({nnz} triplets) single pass "
+                f"{t:.4f} ms; no bucketed plan: one row is one bucket")
+            out[b] = {"plan_ms": t, "bucketed_ms": None}
+            continue
+        forced = ops.SpmmPlan(buckets, shift, ops.SPMM_BUCKET_RUN,
+                              ops.SPMM_BUCKET_BLOCKS_PER_SM * sms,
+                              nnz * (8 + size))
+        _, err = scaled_err(call(forced), ref.spmm(v, r, c, Ht, b))
+        require(err <= SERVE_TOL["product"],
+                f"served spmm b={b} on {forced} disagrees with its plain "
+                f"version: {err}")
+        c1, f1, f2, c2 = (time_ms(f, 50) for f in (
+            call, lambda: call(forced), lambda: call(forced), call))
+        log(f"[serve sparse] spmm b={b:4d} ({nnz} triplets) single pass "
+            f"{c1:.4f}/{c2:.4f} ms; forced {buckets} buckets (2^{shift} "
+            f"rows, scratch {forced.scratch_bytes} B) {f1:.4f}/{f2:.4f} ms; "
+            f"scaled err {err:.3e}")
+        out[b] = {"plan_ms": min(c1, c2), "bucketed_ms": min(f1, f2),
+                  "bucketed_buckets": buckets}
+    return out
 
 
 def direct_rel_error(A, W, H, rows: int = 32_768) -> float:

@@ -71,6 +71,9 @@ class BlockCOO:
     (pre-padding) nonzero count.  After ``sort_rows()`` the triplets are in
     the packed layout (module docstring) and the nine metadata leaves are
     set; ``align`` records the packing alignment (0: unsorted).
+    ``row_major`` is true when each block's triplets are known to come in
+    row order (built from a dense tensor, CSR or a coalesced COO, or
+    row-sorted): the unsorted kernel's A·B then takes its single pass.
     """
 
     vals: torch.Tensor
@@ -89,6 +92,7 @@ class BlockCOO:
     col_tiles: Any = None
     col_valid: Any = None
     align: int = 0
+    row_major: bool = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -143,9 +147,11 @@ class BlockCOO:
 
 
 def _pack_triplets(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-                   m: int, n: int, gr: int, gc: int, nnz: int) -> BlockCOO:
+                   m: int, n: int, gr: int, gc: int, nnz: int,
+                   row_major: bool) -> BlockCOO:
     """Pack global COO triplets (tensors on any device) into the padded
-    per-block layout, stable in the given order within each block.
+    per-block layout, stable in the given order within each block (so
+    ``row_major`` input stays row-major in every block).
     Zero-valued triplets are kept: no-ops under scatter-add."""
     if m % gr or n % gc:
         raise ValueError(f"A of shape {(m, n)} does not tile a "
@@ -179,16 +185,19 @@ def _pack_triplets(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     return BlockCOO(vals=V.reshape(gr, gc, nnz_max),
                     rows=R.reshape(gr, gc, nnz_max),
                     cols=C.reshape(gr, gc, nnz_max),
-                    shape=(m, n), block_shape=(mb, nb), nnz=int(nnz))
+                    shape=(m, n), block_shape=(mb, nb), nnz=int(nnz),
+                    row_major=row_major)
 
 
 def from_bcoo(A: torch.Tensor, gr: int, gc: int) -> BlockCOO:
     """Blockify a ``torch.sparse_coo_tensor`` (PyTorch's counterpart of
     BCOO) for a gr×gc grid, keeping its triplets as stored (an uncoalesced
-    tensor's duplicates add up in the products)."""
+    tensor's duplicates add up in the products).  A coalesced tensor's
+    triplets are row-major."""
     idx, vals = A._indices(), A._values()
     return _pack_triplets(vals, idx[0], idx[1], A.shape[0], A.shape[1],
-                          gr, gc, nnz=vals.numel())
+                          gr, gc, nnz=vals.numel(),
+                          row_major=A.is_coalesced())
 
 
 def blockify(A, gr: int, gc: int) -> BlockCOO:
@@ -217,7 +226,7 @@ def blockify(A, gr: int, gc: int) -> BlockCOO:
         raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
     r, c = torch.nonzero(A, as_tuple=True)
     return _pack_triplets(A[r, c], r, c, A.shape[0], A.shape[1], gr, gc,
-                          nnz=r.numel())
+                          nnz=r.numel(), row_major=True)
 
 
 def sq_norm(A: BlockCOO) -> torch.Tensor:
@@ -350,7 +359,9 @@ def sort_rows(blk: BlockCOO, *, align: int = DEFAULT_ALIGN,
         names = ("t_vals", "t_rows", "t_cols", "col_offsets", "col_tiles",
                  "col_valid")
         kw.update(zip(names, _sorted_leaves(V, C, R, nb, align, gr, gc)))
-    return dataclasses.replace(blk, align=align, **kw)
+    return dataclasses.replace(blk, align=align,
+                               row_major=blk.row_major or orient != "cols",
+                               **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -388,7 +399,7 @@ def local_spmm(blk: BlockCOO, B: torch.Tensor, *,
             align=blk.align)
     v, r, c = blk.vals.reshape(-1), blk.rows.reshape(-1), blk.cols.reshape(-1)
     if impl == "cuda":
-        return ops.spmm(v, r, c, B, m_out)
+        return ops.spmm(v, r, c, B, m_out, row_major=blk.row_major)
     return ref.spmm(v, r, c, B, m_out)
 
 

@@ -44,7 +44,7 @@ SIGNATURES = {
         "ts_matmul_launch": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                              _I64, _I, _I, _P],
         "ts_matmul_t_launch": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                               _I64, _P],
+                               _I64, _I, _I, _P],
         "ts_matmul_tiles": [_IP],
     },
     "gram": {
@@ -53,7 +53,8 @@ SIGNATURES = {
         "gram_tiles": [_IP],
     },
     "spmm": {
-        "spmm_launch": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+        "spmm_launch": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
+                        _I, _I, _I64, _I64, _P, _P, _P, _P, _P],
         "spmm_sorted_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                                _I64, _I64, _I64, _P],
     },

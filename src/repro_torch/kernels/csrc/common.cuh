@@ -5,9 +5,8 @@
 // Kernels that contract over a long axis (ts_matmul_t over m, ts_matmul
 // over n when its output is short, gram over the factor's rows) split that
 // axis into S slabs, one block column each, and write an fp32 partial per
-// slab.  slab_reduce_kernel (a thread per element) or
-// slab_reduce_warp_kernel (a warp per element) then sums the S partials of
-// every output element in a fixed order.  No atomics: the result does not
+// slab.  slab_reduce_warp_kernel (a warp per element) then sums the S
+// partials of every output element in a fixed order (gram has its own).  No atomics: the result does not
 // depend on which block ran first, so runs are reproducible bit for bit.
 #pragma once
 
@@ -27,19 +26,6 @@ __host__ __device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// out[e] = sum over s of part[s * len + e], for e < len.
-__global__ void slab_reduce_kernel(const float* __restrict__ part,
-                                   float* __restrict__ out, int64_t len,
-                                   int64_t slabs) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < len;
-       e += stride) {
-    float acc = 0.f;
-    for (int64_t s = 0; s < slabs; ++s) acc += part[s * len + e];
-    out[e] = acc;
-  }
 }
 
 // out[e] = sum over s of part[s * len + e], one warp per element: lane l
@@ -155,17 +141,6 @@ __device__ __forceinline__ void copy_word(char* dst, uintptr_t src,
 
 __device__ __forceinline__ float tf32_big(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-}
-
-inline cudaError_t launch_slab_reduce(const float* part, float* out,
-                                      int64_t len, int64_t slabs,
-                                      cudaStream_t stream) {
-  const int threads = 256;
-  int64_t blocks = (len + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;  // the grid-stride loop covers the rest
-  slab_reduce_kernel<<<(unsigned)blocks, threads, 0, stream>>>(part, out, len,
-                                                               slabs);
-  return cudaGetLastError();
 }
 
 }  // namespace repro_torch

@@ -37,18 +37,23 @@
 //    and slab_reduce_warp_kernel sums them in a fixed order.  No atomics:
 //    runs are reproducible bit for bit.
 //
-// ts_matmul_t (skinny_matmul_kernel<T, true>) — register-tiled fp32 FMAs:
-//  * A is read exactly once.  Each block owns one BM-row tile of the output
-//    and loops over its slab of the contraction; A and B tiles are staged
-//    through shared memory; the (BM × BN) output tile stays in registers,
-//    TM × TN = 8 × 4 per thread.  k is tiled by BN = 64 over blockIdx.y.
-//  * It contracts over m ≈ 1 M rows, and a grid over n-tiles alone has
-//    only ~108 blocks, so m is split into S slabs (blockIdx.z) and
-//    slab_reduce_kernel sums the (S, n, k) partials in a fixed order.
-//  * Ragged edges are masked inside the kernel: A is never padded or
-//    copied.  Loads are scalar and coalesced along A's rows.
-//  * Each thread loads the next stage's A and B elements into registers
-//    while it runs the current stage's FMAs from shared memory.
+// ts_matmul_t (ts_matmul_tc_kernel<T, NT, true>) — the same kernel with A
+// read transposed:
+//  * The output tile is 128 columns of A (rows of Y) × k; a stage is BK
+//    rows of A × those 128 columns, contiguous 512-byte segments (fp32)
+//    copied in 16-byte chunks when n % 4 = 0 and A is aligned, else in
+//    4-byte words.  Columns past n and rows past the slab arrive as zeros:
+//    A is never padded or copied.
+//  * The A fragments are read down the stage's columns.  The stage's row
+//    stride is 136 elements, ≡ 8 (mod 32) words, so the 32 lanes of a
+//    fragment read (4 rows × 8 consecutive columns) hit 32 banks.
+//    (ldmatrix.trans cannot transpose 32-bit elements.)
+//  * B (W) is (m, k): a stage of it is BK rows of k, one contiguous range,
+//    as Hᵀ's is for ts_matmul.
+//  * n = 13,824 gives only 108 output tiles, so m is always split into
+//    slabs on blockIdx.z (ops.plan_ts_matmul_t: about four blocks per SM,
+//    the count that wastes least of the last wave) and
+//    slab_reduce_warp_kernel sums the (S, n, k) partials in a fixed order.
 #include "common.cuh"
 
 namespace {
@@ -59,118 +64,6 @@ using repro_torch::to_f32;
 constexpr int BM = 128;     // output rows per block
 constexpr int BN = 64;      // output columns (of k) per block
 constexpr int BK = 32;      // contraction depth per shared-memory stage
-constexpr int TM = 8;       // output rows per thread
-constexpr int TN = 4;       // output columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
-constexpr int AS_LD = BM + 4;                    // keeps float4 reads aligned
-
-static_assert(THREADS == 256, "tile shape");
-static_assert((BM * BK) % THREADS == 0 && (BK * BN) % THREADS == 0, "tiles");
-
-// out[z] (rows, k) = sum over d in slab z of op(A)[r, d] · B[d, c], where
-// op(A)[r, d] = A[r * lda + d] (TRANS = false) or A[d * lda + r] (TRANS).
-// B is (depth, k) row-major.  Slab z covers d in [z·slab, (z+1)·slab).
-template <typename T, bool TRANS>
-__global__ void __launch_bounds__(THREADS, 2)
-skinny_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                     float* __restrict__ out, int64_t rows, int64_t depth,
-                     int64_t k, int64_t lda, int64_t slab) {
-  __shared__ __align__(16) float As[BK][AS_LD];
-  __shared__ __align__(16) float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int64_t row0 = (int64_t)blockIdx.x * BM;
-  const int64_t col0 = (int64_t)blockIdx.y * BN;
-  const int64_t d_begin = (int64_t)blockIdx.z * slab;
-  const int64_t d_end = d_begin + slab < depth ? d_begin + slab : depth;
-  float* dst = out + (int64_t)blockIdx.z * rows * k;
-
-  // The A elements this thread stages, (a_r + it·A_RSTEP, a_d + it·A_DSTEP)
-  // for it < A_LOADS.  ts_matmul: a warp reads 4 rows × 8 consecutive
-  // elements of A (full 32-byte sectors) and stores them to As without bank
-  // conflicts; ts_matmul_t: a warp reads 32 consecutive elements of a row.
-  constexpr int A_LOADS = BM * BK / THREADS;                // 16
-  constexpr int A_RSTEP = TRANS ? 0 : THREADS / BK;         // 8 rows
-  constexpr int A_DSTEP = TRANS ? THREADS / BM : 0;         // 2 rows of A
-  const int a_r = TRANS ? tid % BM : (warp / 4) * 4 + lane / 8;
-  const int a_d = TRANS ? tid / BM : (warp % 4) * 8 + lane % 8;
-  const int64_t a_step = TRANS ? A_DSTEP * lda : A_RSTEP * lda;
-  const T* a_ptr = TRANS ? A + (d_begin + a_d) * lda + row0 + a_r
-                         : A + (row0 + a_r) * lda + d_begin + a_d;
-  // The B elements: column b_c, rows b_d + it·B_DSTEP for it < B_LOADS.
-  constexpr int B_LOADS = BK * BN / THREADS;                // 8
-  constexpr int B_DSTEP = THREADS / BN;                     // 4
-  const int b_c = tid % BN;
-  const int b_d = tid / BN;
-  const bool b_ok = col0 + b_c < k;
-  const T* b_ptr = B + (d_begin + b_d) * k + col0 + b_c;
-
-  float a_reg[A_LOADS], b_reg[B_LOADS];
-  // Global -> registers for the stage starting at d0 (masked at the edges).
-  auto load = [&](int64_t d0) {
-    const int64_t off = d0 - d_begin;
-    const T* pa = a_ptr + (TRANS ? off * lda : off);
-    const T* pb = b_ptr + off * k;
-#pragma unroll
-    for (int it = 0; it < A_LOADS; ++it) {
-      const bool ok = row0 + a_r + it * A_RSTEP < rows &&
-                      d0 + a_d + it * A_DSTEP < d_end;
-      a_reg[it] = ok ? to_f32(pa[it * a_step]) : 0.f;
-    }
-#pragma unroll
-    for (int it = 0; it < B_LOADS; ++it) {
-      const bool ok = b_ok && d0 + b_d + it * B_DSTEP < d_end;
-      b_reg[it] = ok ? to_f32(pb[(int64_t)it * B_DSTEP * k]) : 0.f;
-    }
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  if (d_begin < d_end) load(d_begin);
-  for (int64_t d0 = d_begin; d0 < d_end; d0 += BK) {
-#pragma unroll
-    for (int it = 0; it < A_LOADS; ++it)
-      As[a_d + it * A_DSTEP][a_r + it * A_RSTEP] = a_reg[it];
-#pragma unroll
-    for (int it = 0; it < B_LOADS; ++it) Bs[b_d + it * B_DSTEP][b_c] = b_reg[it];
-    __syncthreads();
-    // The next stage's loads are in flight while this stage's FMAs run.
-    if (d0 + BK < d_end) load(d0 + BK);
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * TM + 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[TN] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t gr = row0 + ty * TM + i;
-    if (gr >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t gc = col0 + tx * TN + j;
-      if (gc < k) dst[gr * k + gc] = acc[i][j];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // ts_matmul on the tensor cores
@@ -180,18 +73,25 @@ constexpr int STAGES = 4;            // ring buffers of A and B tiles
 constexpr int TC_WARPS = BM / 32;    // each warp: 32 rows of the tile
 constexpr int TC_THREADS = TC_WARPS * 32;
 
-// Shared-memory row strides in elements: a row of BK (A) or BN (B) values
-// plus the lead-in of a 4-byte copy, 16-byte aligned, and chosen so the
-// mma fragment reads fall on distinct banks.
+// Shared-memory row strides in elements: a row of BK (A) or BN (B) values,
+// or for ts_matmul_t a row of BM values of A's BK-row stage (AT), plus the
+// lead-in of a 4-byte copy, 16-byte aligned, and chosen so the mma fragment
+// reads fall on distinct banks.  AT: the transposed fragment reads take
+// rows t (4 of them) × columns g (8 consecutive), so a stride of 8 (mod 32)
+// words puts the 32 lanes on 32 banks (fp32 136 words; bf16 68 words,
+// lanes 2j and 2j + 1 sharing one).
 template <typename T> struct Lds;
-template <> struct Lds<float> { static constexpr int A = BK + 4, B = BN + 8; };
+template <> struct Lds<float> {
+  static constexpr int A = BK + 4, B = BN + 8, AT = BM + 8;
+};
 template <> struct Lds<__nv_bfloat16> {
-  static constexpr int A = BK + 8, B = BN + 8;
+  static constexpr int A = BK + 8, B = BN + 8, AT = BM + 8;
 };
 
-template <typename T>
+template <typename T, bool TRANS>
 __host__ __device__ constexpr int stage_bytes() {
-  return (BM * Lds<T>::A + BK * Lds<T>::B) * (int)sizeof(T);
+  return ((TRANS ? BK * Lds<T>::AT : BM * Lds<T>::A) + BK * Lds<T>::B) *
+         (int)sizeof(T);
 }
 
 // d += a·b on the tensor cores (m16n8k8, tf32 in, fp32 accumulate).
@@ -203,31 +103,36 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// out[z] (m, k) = sum over d in slab z of A[r, d] · B[d, c], for the
+// out[z] (m, k) = sum over d in slab z of op(A)[r, d] · B[d, c], for the
 // BN-column tile blockIdx.y, of which the first NT n8 tiles are computed
 // (NT is a template parameter: guards around single mma instructions would
-// stop the compiler from pipelining them).  A is copied in 16-byte chunks
-// when `a16` (every row of A starts 16-byte aligned), else in 4-byte words;
-// B likewise by `b16`.  For k ≤ BN a stage of B — BK rows of k — is one
-// contiguous range, copied flat (row stride k in shared memory); wider k
-// copies each row's 64-column segment in 4-byte words.
-template <typename T, int NT>
+// stop the compiler from pipelining them).  m counts the output's rows and
+// n the contraction: op(A)[r, d] = A[r·n + d] for ts_matmul (A (m, n)), and
+// A[d·m + r] for ts_matmul_t (TRANS; A (n, m), so Aᵀ·B with A's rows
+// contracted).  A is copied in 16-byte chunks when `a16` (every row of A
+// starts 16-byte aligned), else in 4-byte words; B likewise by `b16`.  For
+// k ≤ BN a stage of B — BK rows of k — is one contiguous range, copied flat
+// (row stride k in shared memory); wider k copies each row's 64-column
+// segment in 4-byte words.
+template <typename T, int NT, bool TRANS>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 ts_matmul_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
                     float* __restrict__ out, int64_t m, int64_t n, int64_t k,
                     int64_t slab, bool a16, bool b16) {
   constexpr bool SPLIT = sizeof(T) == 4;                 // fp32: 3xTF32
   constexpr bool BF16 = sizeof(T) == 2;                  // lead-ins possible
-  constexpr int LA = Lds<T>::A, LB = Lds<T>::B;
+  constexpr int LA = TRANS ? Lds<T>::AT : Lds<T>::A, LB = Lds<T>::B;
   constexpr int ES = (int)sizeof(T);
+  // A's stage in shared memory: AROWS rows of ACOLS elements
+  constexpr int AROWS = TRANS ? BK : BM, ACOLS = TRANS ? BM : BK;
   // words per row of a 4-byte copy: the row's bytes plus a lead-in word
-  constexpr int NWA = BK * ES / 4 + 1;
+  constexpr int NWA = ACOLS * ES / 4 + 1;
   constexpr int NWB = BN * ES / 4 + 1;
   // 16-byte copies of A: chunks per row, and a thread's chunks, RSTEP rows
   // apart in one chunk column
-  constexpr int CPR = BK * ES / 16;
+  constexpr int CPR = ACOLS * ES / 16;
   constexpr int RSTEP = TC_THREADS / CPR;
-  constexpr int ACH = BM / RSTEP;
+  constexpr int ACH = AROWS / RSTEP;
   extern __shared__ __align__(16) char smem[];
 
   const int tid = threadIdx.x;
@@ -255,21 +160,46 @@ ts_matmul_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int kpart = warp % kw;
   const bool busy = tile_rows - wrow > 0;
 
-  // this thread's 16-byte A chunks: column a_c, rows a_r + i·RSTEP
+  // this thread's 16-byte A chunks: column a_c, rows a_r + i·RSTEP (of A's
+  // rows, or with TRANS of the stage's BK rows)
   const int a_c = tid % CPR;
   const int a_r = tid / CPR;
-  const T* a_src = A + (row0 + a_r) * n + a_c * (16 / ES);
+  const T* a_src = TRANS ? A + a_r * m + row0 + a_c * (16 / ES)
+                         : A + (row0 + a_r) * n + a_c * (16 / ES);
   const int64_t a_left = m - row0 - a_r;
   const int a_rows = a_left <= 0 ? 0
                      : (int)lmin(ACH, (a_left + RSTEP - 1) / RSTEP);
+  // TRANS: the bytes of each stage row that lie in A (columns below m)
+  const int64_t t_cbytes = (m - row0 - a_c * (16 / ES)) * ES;
+  const int t_cv = t_cbytes <= 0 ? 0 : (t_cbytes >= 16 ? 16 : (int)t_cbytes);
+  const int64_t t_row_bytes = lmin(m - row0, BM) * ES;
 
   // Stage st (contraction [d0, d0 + BK)) → ring buffer st % STAGES.
   auto fetch = [&](int64_t st) {
     const int64_t d0 = d_begin + st * BK;
     const int64_t dk = d_end - d0 < BK ? d_end - d0 : BK;
-    char* as = smem + (st % STAGES) * stage_bytes<T>();
-    char* bs = as + BM * LA * ES;
-    if (a16) {
+    char* as = smem + (st % STAGES) * stage_bytes<T, TRANS>();
+    char* bs = as + AROWS * LA * ES;
+    if (TRANS && a16) {
+      // row a_r + i·RSTEP of the stage: A row d0 + a_r + i·RSTEP, BM
+      // columns from row0; rows past the slab and columns past m are zeros
+#pragma unroll
+      for (int i = 0; i < ACH; ++i) {
+        const bool ok = a_r + i * RSTEP < dk && t_cv > 0;
+        repro_torch::cp_async16(
+            as + ((a_r + i * RSTEP) * LA + a_c * (16 / ES)) * ES,
+            ok ? (const void*)(a_src + (d0 + (int64_t)i * RSTEP) * m) : A,
+            ok ? t_cv : 0);
+      }
+    } else if (TRANS) {
+      for (int idx = tid; idx < BK * NWA; idx += TC_THREADS) {
+        const int r = idx / NWA, j = idx % NWA;
+        const uintptr_t src = a_base + ((d0 + r) * m + row0) * ES;
+        if (j < repro_torch::words_for<4>(src, BM * ES))
+          repro_torch::copy_word<4>(as + r * LA * ES, src,
+                                    r < dk ? t_row_bytes : 0, j, A);
+      }
+    } else if (a16) {
       const int64_t cbytes = (dk - a_c * (16 / ES)) * ES;
       const int cv = cbytes <= 0 ? 0 : (cbytes >= 16 ? 16 : (int)cbytes);
 #pragma unroll
@@ -315,10 +245,15 @@ ts_matmul_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   // warp·32 + 8i + g, i < 4: nonzero only for bf16 in 4-byte words, and
   // constant over the stages (d0 is a multiple of BK).  B's flat stage
   // starts at b_base + d0·k·ES, a multiple of 16 bytes past b_base: one
-  // lead-in for every stage; B's rows (k > BN) each have their own.
+  // lead-in for every stage; B's rows (k > BN) each have their own.  With
+  // TRANS the lane reads stage rows ks·8 + t (+ 4): their lead-in depends
+  // only on t's parity (row0·ES and d0·m·ES are multiples of 4), held in
+  // sha[0].
   int sha[4] = {0, 0, 0, 0};
   int shb_flat = 0;
-  if (BF16 && !a16) {
+  if (BF16 && !a16 && TRANS) {
+    sha[0] = (int)(((a_base + t * m * ES) & 3) / ES);
+  } else if (BF16 && !a16) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       sha[i] = (int)(((a_base + (row0 + wrow + 8 * i + g) * n * ES) & 3) / ES);
@@ -345,9 +280,9 @@ ts_matmul_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
     repro_torch::cp_async_commit();
     if (!busy) continue;
 
-    const T* as = reinterpret_cast<const T*>(smem + (st % STAGES) *
-                                                        stage_bytes<T>());
-    const T* bs = as + BM * LA;
+    const T* as = reinterpret_cast<const T*>(
+        smem + (st % STAGES) * stage_bytes<T, TRANS>());
+    const T* bs = as + AROWS * LA;
     const int64_t d0 = d_begin + st * BK;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -359,7 +294,8 @@ ts_matmul_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
     for (int ks = 0; ks < BK / 8; ++ks) {
       if (ks % kw != kpart) continue;
       // A fragments (row-major 16×8): a0 (g, t), a1 (g+8, t), a2 (g, t+4),
-      // a3 (g+8, t+4) of each m16 tile.
+      // a3 (g+8, t+4) of each m16 tile; with TRANS read down the stage's
+      // columns (Aᵀ's rows).
       unsigned abig[2][4], asmall[2][4];
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
@@ -368,7 +304,8 @@ ts_matmul_tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
           const int ri = 2 * mt + (e & 1);                 // row 8·ri + g
           const int r = wrow + 8 * ri + g;
           const int c = ks * 8 + t + (e >> 1) * 4;
-          const float x = to_f32(as[r * LA + sha[ri] + c]);
+          const float x = TRANS ? to_f32(as[c * LA + sha[0] + r])
+                                : to_f32(as[r * LA + sha[ri] + c]);
           if (SPLIT) {
             const float big = repro_torch::tf32_big(x);
             abig[mt][e] = __float_as_uint(big);
@@ -482,12 +419,12 @@ inline int n8_tiles(int64_t k) {
   return need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : need <= 7 ? 7 : 8;
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool TRANS>
 cudaError_t launch_tc(const void* A, const void* B, float* out, int64_t m,
                       int64_t n, int64_t k, int64_t slab, int64_t slabs,
                       bool a16, bool b16, cudaStream_t stream) {
-  auto kern = ts_matmul_tc_kernel<T, NT>;
-  const int smem = STAGES * stage_bytes<T>();
+  auto kern = ts_matmul_tc_kernel<T, NT, TRANS>;
+  const int smem = STAGES * stage_bytes<T, TRANS>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -499,48 +436,57 @@ cudaError_t launch_tc(const void* A, const void* B, float* out, int64_t m,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool TRANS>
 cudaError_t launch_tc(bool a16, bool b16, const void* A, const void* B,
                       float* out, int64_t m, int64_t n, int64_t k,
                       int64_t slab, int64_t slabs, cudaStream_t stream) {
   switch (n8_tiles(k)) {
     case 1:
-      return launch_tc<T, 1>(A, B, out, m, n, k, slab, slabs, a16, b16, stream);
+      return launch_tc<T, 1, TRANS>(A, B, out, m, n, k, slab, slabs, a16, b16,
+                                    stream);
     case 2:
-      return launch_tc<T, 2>(A, B, out, m, n, k, slab, slabs, a16, b16, stream);
+      return launch_tc<T, 2, TRANS>(A, B, out, m, n, k, slab, slabs, a16, b16,
+                                    stream);
     case 4:
-      return launch_tc<T, 4>(A, B, out, m, n, k, slab, slabs, a16, b16, stream);
+      return launch_tc<T, 4, TRANS>(A, B, out, m, n, k, slab, slabs, a16, b16,
+                                    stream);
     case 7:
-      return launch_tc<T, 7>(A, B, out, m, n, k, slab, slabs, a16, b16, stream);
+      return launch_tc<T, 7, TRANS>(A, B, out, m, n, k, slab, slabs, a16, b16,
+                                    stream);
     default:
-      return launch_tc<T, 8>(A, B, out, m, n, k, slab, slabs, a16, b16, stream);
+      return launch_tc<T, 8, TRANS>(A, B, out, m, n, k, slab, slabs, a16, b16,
+                                    stream);
   }
 }
 
-cudaError_t launch_t(int dtype, const void* A, const void* B, float* out,
-                     int64_t rows, int64_t depth, int64_t k, int64_t lda,
-                     int64_t slab, int64_t slabs, cudaStream_t stream) {
-  const dim3 grid((unsigned)((rows + BM - 1) / BM),
-                  (unsigned)((k + BN - 1) / BN), (unsigned)slabs);
-  if (dtype == repro_torch::kF32) {
-    skinny_matmul_kernel<float, true><<<grid, THREADS, 0, stream>>>(
-        static_cast<const float*>(A), static_cast<const float*>(B), out, rows,
-        depth, k, lda, slab);
-  } else if (dtype == repro_torch::kBF16) {
-    skinny_matmul_kernel<__nv_bfloat16, true><<<grid, THREADS, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(A),
-        static_cast<const __nv_bfloat16*>(B), out, rows, depth, k, lda, slab);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+// Either product, split or not: with slabs > 1 the slab kernel writes its
+// partials to scratch (slabs, rows, k) and slab_reduce_warp_kernel sums them
+// into out in a fixed order.
+template <bool TRANS>
+int launch(int dtype, const void* A, const void* B, void* out, void* scratch,
+           int64_t rows, int64_t depth, int64_t k, int64_t slab,
+           int64_t slabs, int a16, int b16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dst = static_cast<float*>(slabs > 1 ? scratch : out);
+  cudaError_t err;
+  if (dtype == repro_torch::kF32)
+    err = launch_tc<float, TRANS>(a16 != 0, b16 != 0, A, B, dst, rows, depth,
+                                  k, slab, slabs, s);
+  else if (dtype == repro_torch::kBF16)
+    err = launch_tc<__nv_bfloat16, TRANS>(a16 != 0, b16 != 0, A, B, dst, rows,
+                                          depth, k, slab, slabs, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess || slabs == 1) return (int)err;
+  return (int)repro_torch::launch_slab_reduce_warp(
+      dst, static_cast<float*>(out), rows * k, slabs, s);
 }
 
 }  // namespace
 
 // The tile sizes the wrapper plans its slabs with: (rows, columns of k,
-// contraction depth per stage) of a block, shared by both kernels; and the
-// ring's stages of ts_matmul.
+// contraction depth per stage) of a block and the ring's stages, shared by
+// both products.
 extern "C" int ts_matmul_tiles(int* out) {
   out[0] = BM;
   out[1] = BN;
@@ -558,32 +504,19 @@ extern "C" int ts_matmul_launch(int dtype, const void* A, const void* B,
                                 void* C, void* scratch, int64_t m, int64_t n,
                                 int64_t k, int64_t slab, int64_t slabs,
                                 int a16, int b16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = static_cast<float*>(slabs > 1 ? scratch : C);
-  cudaError_t err;
-  if (dtype == repro_torch::kF32)
-    err = launch_tc<float>(a16 != 0, b16 != 0, A, B, dst, m, n, k, slab,
-                           slabs, s);
-  else if (dtype == repro_torch::kBF16)
-    err = launch_tc<__nv_bfloat16>(a16 != 0, b16 != 0, A, B, dst, m, n, k,
-                                   slab, slabs, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess || slabs == 1) return (int)err;
-  return (int)repro_torch::launch_slab_reduce_warp(
-      dst, static_cast<float*>(C), m * k, slabs, s);
+  return launch<false>(dtype, A, B, C, scratch, m, n, k, slab, slabs, a16,
+                       b16, stream);
 }
 
-// Y (n, k) fp32 = Aᵀ · B for A (m, n), B (m, k).  With slabs > 1 the slab
-// partials go to scratch (slabs, n, k) and are then reduced into Y.
+// Y (n, k) fp32 = Aᵀ · B for A (m, n), B (m, k); the contraction over m is
+// cut into `slabs` slabs of `slab` rows (a multiple of BK), partials in
+// scratch (slabs, n, k) when slabs > 1.  a16: 16-byte copies of A (every
+// row of A starts 16-byte aligned); b16: B 16-byte aligned.
 extern "C" int ts_matmul_t_launch(int dtype, const void* A, const void* B,
                                   void* Y, void* scratch, int64_t m,
                                   int64_t n, int64_t k, int64_t slab,
-                                  int64_t slabs, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = static_cast<float*>(slabs > 1 ? scratch : Y);
-  cudaError_t err = launch_t(dtype, A, B, dst, n, m, k, n, slab, slabs, s);
-  if (err != cudaSuccess || slabs == 1) return (int)err;
-  return (int)repro_torch::launch_slab_reduce(dst, static_cast<float*>(Y),
-                                              n * k, slabs, s);
+                                  int64_t slabs, int a16, int b16,
+                                  void* stream) {
+  return launch<true>(dtype, A, B, Y, scratch, n, m, k, slab, slabs, a16, b16,
+                      stream);
 }

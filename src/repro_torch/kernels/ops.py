@@ -10,8 +10,8 @@ Each wrapper
     and R fp32 or X's dtype, as the update rules hand them over), shape and
     contiguity, and raises on anything its kernel does not take;
   * on a CPU tensor, runs the plain PyTorch version (``kernels/ref.py``);
-  * on a CUDA tensor, allocates the output (and the slab scratch) with
-    ``torch.empty``, launches the kernel on the current stream, raises if
+  * on a CUDA tensor, allocates the output (and the slab or bucket scratch)
+    with ``torch.empty``, launches the kernel on the current stream, raises if
     the launch returned a CUDA error, and adds one to ``LAUNCHES[name]``.
     There is no fallback: a CUDA tensor gets the kernel or an exception.
 
@@ -27,6 +27,7 @@ kernels' 1e-16; the rules pass ``eps_for(X.dtype)``) and k up to
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -42,8 +43,8 @@ _MAX_SLABS = 65535                         # gridDim.z limit
 
 #: the kernels' fixed sizes, as their ``<name>_tiles`` entry points report
 #: them (checked on first use): gram (ring stages, super-tile edge, threads
-#: per block); ts_matmul (BM rows, BN columns of k, BK contraction depth per
-#: stage, ring stages), the first three shared with ts_matmul_t
+#: per block); ts_matmul and ts_matmul_t (BM output rows, BN columns of k,
+#: BK contraction depth per stage, ring stages)
 GRAM_TILES = (4, 64, 128)
 TS_TILES = (128, 64, 32, 4)
 #: shared memory one block may use on the H100 (227 KB)
@@ -55,6 +56,21 @@ GRAM_MIN_SLAB = 512
 #: contraction aim at: gram three resident blocks; ts_matmul two waves of two
 GRAM_BLOCKS_PER_SM = 3
 TS_SPLIT_BLOCKS_PER_SM = 4
+#: blocks of the tensor-core products resident on one SM (a ring of four
+#: ≈ 27 KB stages each: two share an SM's shared memory)
+TS_RESIDENT_PER_SM = 2
+
+#: spmm: the bytes of output one bucket of the L2-blocked scatter may cover
+#: (of the H100's 50 MB L2), the most buckets its shared-memory cursors
+#: hold (spmm.cu's MAX_BUCKETS), triplets per warp of its scatter pass (short,
+#: so the blocks in flight stay within a bucket or two), its counting and
+#: copying passes' blocks per SM, and the warps per SM a single pass is
+#: spread over
+SPMM_L2_SHARE = 16 << 20
+SPMM_MAX_BUCKETS = 512
+SPMM_BUCKET_RUN = 32
+SPMM_BUCKET_BLOCKS_PER_SM = 2
+SPMM_WARPS_PER_SM = 64
 
 _TILES_EXPECTED = {"gram": GRAM_TILES, "ts_matmul": TS_TILES}
 _TILES: dict[str, tuple[int, ...]] = {}
@@ -149,6 +165,87 @@ def plan_ts_matmul(m: int, n: int, k: int, sm_count: int) -> tuple[int, int]:
         return n, 1
     return plan_slabs(n, tiles, sm_count, step=bk, min_slab=4 * bk,
                       blocks_per_sm=TS_SPLIT_BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_ts_matmul_t(m: int, n: int, k: int,
+                     sm_count: int) -> tuple[int, int]:
+    """(slab, slabs) of ts_matmul_t's contraction over m: one slab when the
+    output's BM-row × BN-column tiles (rows of Y: A's columns) fill
+    TS_SPLIT_BLOCKS_PER_SM blocks per SM; else m is split into slabs of a BK
+    multiple (at least 4·BK, at most _MAX_SLABS of them) for at least that
+    many blocks.  Among 1–4 times that many slabs it takes the count whose
+    last wave of TS_RESIDENT_PER_SM blocks per SM wastes least: the fewest
+    waves × rows per slab (Video's 108 tiles: 17 slabs, 7 waves, where 5
+    would leave a third wave of 12 blocks)."""
+    bm, bn, bk, _ = TS_TILES
+    tiles = -(-n // bm) * -(-k // bn)
+    want = -(-TS_SPLIT_BLOCKS_PER_SM * sm_count // tiles)
+    most = max(1, min(-(-m // (4 * bk)), _MAX_SLABS))
+    if want <= 1 or most == 1:
+        return m, 1
+    slots = TS_RESIDENT_PER_SM * sm_count
+    best = None
+    for s in range(min(want, most), min(4 * want, most) + 1):
+        slab = max(4 * bk, -(-(-(-m // s)) // bk) * bk)
+        slabs = -(-m // slab)
+        cost = -(-tiles * slabs // slots) * slab
+        if best is None or cost < best[0]:
+            best = (cost, slab, slabs)
+    _, slab, slabs = best
+    return (m, 1) if slabs == 1 else (slab, slabs)
+
+
+class SpmmPlan(NamedTuple):
+    """How the spmm kernel adds nnz triplets into an (m_out, k) output.
+    ``buckets`` ≤ 1: one pass, ``per_warp`` triplets per warp, no scratch.
+    Else the L2-blocked scatter: the triplets are first copied, grouped by
+    bucket of ``2**shift`` output rows, into ``scratch_bytes`` of scratch
+    (rows, cols, vals: nnz × (4 + 4 + itemsize)) by ``blocks`` blocks,
+    then added ``per_warp`` triplets a warp."""
+    buckets: int
+    shift: int
+    per_warp: int
+    blocks: int
+    scratch_bytes: int
+
+
+def plan_spmm(nnz: int, m_out: int, k: int, itemsize: int, sm_count: int,
+              *, row_major: bool = False,
+              bucketed: bool | None = None) -> SpmmPlan:
+    """The spmm plan for nnz triplets into (m_out, k) fp32.  By default
+    (``bucketed=None``) one pass when the output fits SPMM_L2_SHARE bytes
+    (every served batch: b ≤ 256 rows) or when ``row_major`` says the
+    triplets of one output row come together (``BlockCOO.row_major``, A·B:
+    the reductions then stream through the output, one per row), else the
+    L2-blocked scatter with buckets of the most rows, a power of two, whose
+    slice of the output fits SPMM_L2_SHARE (k = 50: 2^16 rows, 13.1 MB),
+    at most SPMM_MAX_BUCKETS of them.  ``bucketed`` True or False forces
+    the choice (to time both ways); an output that one bucket covers, and
+    more than 2^31 − 2 triplets (the scratch offsets are int32), always
+    take one pass."""
+    rows = max(1, SPMM_L2_SHARE // (k * 4))
+    shift = rows.bit_length() - 1
+    while -(-m_out // (1 << shift)) > SPMM_MAX_BUCKETS:
+        shift += 1
+    buckets = -(-m_out // (1 << shift))
+    one = (bucketed is False or buckets == 1 or nnz == 0
+           or nnz >= 2 ** 31 - 1)
+    if bucketed is None:
+        one = one or row_major or m_out * k * 4 <= SPMM_L2_SHARE
+    if one:
+        warps = SPMM_WARPS_PER_SM * sm_count
+        per_warp = max(32, -(-nnz // warps // 32) * 32)
+        return SpmmPlan(1, 0, per_warp, 0, 0)
+    return SpmmPlan(buckets, shift, SPMM_BUCKET_RUN,
+                    SPMM_BUCKET_BLOCKS_PER_SM * sm_count, nnz * (8 + itemsize))
+
+
+def vector_width(ptr: int, k: int, itemsize: int) -> int:
+    """Elements per gather and reduction of spmm (2 or 1): 2 only when k is
+    even and B (at ``ptr``) starts aligned to two elements, so every row of
+    B and of the fp32 output starts so aligned."""
+    return 2 if k % 2 == 0 and ptr % (2 * itemsize) == 0 else 1
 
 
 def copy_width(ptr: int, stride: int) -> int:
@@ -267,17 +364,16 @@ def ts_matmul_t(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         return ref.ts_matmul_t(A, B)
     m, n = A.shape
     k = B.shape[1]
-    bm, bn, bk, _ = tiles("ts_matmul")
-    # ~16 waves at 2 resident blocks per SM, so the last, partial wave
-    # costs little; the (slabs, n, k) partials stay small beside A
-    slab, slabs = plan_slabs(m, -(-n // bm) * -(-k // bn), _sm_count(A.device),
-                             step=bk, min_slab=4 * bk, blocks_per_sm=32)
+    tiles("ts_matmul")
+    slab, slabs = plan_ts_matmul_t(m, n, k, _sm_count(A.device))
+    a16 = copy_width(A.data_ptr(), n * A.element_size()) == 16
     Y = torch.empty((n, k), dtype=torch.float32, device=A.device)
     scratch = (torch.empty((slabs, n, k), dtype=torch.float32,
                            device=A.device) if slabs > 1 else None)
     _launch(build.load("ts_matmul"), "ts_matmul_t_launch", "ts_matmul_t",
             A.device, _DTYPE_CODES[A.dtype], A.data_ptr(), B.data_ptr(),
-            Y.data_ptr(), _ptr(scratch), m, n, k, slab, slabs)
+            Y.data_ptr(), _ptr(scratch), m, n, k, slab, slabs, int(a16),
+            int(copy_width(B.data_ptr(), 16) == 16))
     return Y
 
 
@@ -313,26 +409,47 @@ def _check_sparse(name: str, vals: torch.Tensor, rows: torch.Tensor,
 
 
 def spmm(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-         B: torch.Tensor, m_out: int) -> torch.Tensor:
+         B: torch.Tensor, m_out: int, *, row_major: bool = False,
+         plan: SpmmPlan | None = None) -> torch.Tensor:
     """A @ B (fp32, (m_out, k)) from COO triplets (duplicates add up) and
-    B (n, k): the unsorted kernel.  Its fp32 atomics add in an order that
-    changes from run to run, so results agree to rounding, not bitwise."""
+    B (n, k): the unsorted kernel, on ``plan`` (default ``plan_spmm``'s;
+    ``row_major``: the caller knows the triplets of one row come together,
+    as ``BlockCOO.row_major`` records — only the speed depends on it).  Its fp32
+    reductions add in an order that changes from run to run, so results
+    agree to rounding, not bitwise.  One launch is counted however many
+    passes the plan makes."""
     if not _check_sparse("spmm", vals, rows, cols, B, m_out):
         return ref.spmm(vals, rows, cols, B, m_out)
     n, k = B.shape
-    out = torch.empty((m_out, k), dtype=torch.float32, device=B.device)
-    _launch(build.load("spmm"), "spmm_launch", "spmm", B.device,
+    nnz, size = vals.numel(), B.element_size()
+    if plan is None:
+        plan = plan_spmm(nnz, m_out, k, size, _sm_count(B.device),
+                         row_major=row_major)
+    dev = B.device
+    out = torch.empty((m_out, k), dtype=torch.float32, device=dev)
+    s_vals = s_rows = s_cols = counts = None
+    if plan.buckets > 1:
+        s_vals = torch.empty(nnz, dtype=B.dtype, device=dev)
+        s_rows = torch.empty(nnz, dtype=torch.int32, device=dev)
+        s_cols = torch.empty(nnz, dtype=torch.int32, device=dev)
+        counts = torch.empty(plan.buckets * plan.blocks + 1,
+                             dtype=torch.int32, device=dev)
+    _launch(build.load("spmm"), "spmm_launch", "spmm", dev,
             _DTYPE_CODES[B.dtype], vals.data_ptr(), rows.data_ptr(),
-            cols.data_ptr(), B.data_ptr(), out.data_ptr(), vals.numel(),
-            m_out, n, k)
+            cols.data_ptr(), B.data_ptr(), out.data_ptr(), nnz, m_out, n, k,
+            int(vector_width(B.data_ptr(), k, size) == 2), plan.shift,
+            plan.buckets, plan.blocks, plan.per_warp, _ptr(s_vals),
+            _ptr(s_rows), _ptr(s_cols), _ptr(counts))
     return out
 
 
 def spmm_t(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-           B: torch.Tensor, n_out: int) -> torch.Tensor:
+           B: torch.Tensor, n_out: int, *,
+           plan: SpmmPlan | None = None) -> torch.Tensor:
     """Aᵀ @ B (fp32, (n_out, k)): the same kernel with rows and cols
-    swapped, so Aᵀ is never formed."""
-    return spmm(vals, cols, rows, B, n_out)
+    swapped, so Aᵀ is never formed.  Its targets (A's columns) come in no
+    order, so the default plan buckets an output beyond the L2 share."""
+    return spmm(vals, cols, rows, B, n_out, plan=plan)
 
 
 def spmm_sorted(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,

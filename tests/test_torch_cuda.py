@@ -407,3 +407,116 @@ def test_foldin_on_the_card_launches_and_matches_the_cpu(cuda_device, algo,
         _assert_scaled(got.cpu(), want, 1e-4)
     vals, idx = TopK(art, chunk=64).query(got, k=3)
     assert idx.is_cuda and idx.shape == (7, 3)
+
+
+# ts_matmul_t on the tensor cores: k from 1 to 128, A's rows 16-byte aligned
+# (n % 4 = 0) or not (4-byte copies), a ragged m, m below one 32-row stage
+T_K = [1, 8, 50, 64, 100, 128]
+T_MN = [(4_099, 1_024), (20_001, 1_001), (1_003, 301), (17, 130)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", T_MN)
+@pytest.mark.parametrize("k", T_K)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_ts_matmul_t_over_k_and_unaligned_rows(cuda_device, m, n, k, dt):
+    a, w = _inputs(25, (m, n), (m, k))
+    A, W = (torch.from_numpy(x).to(cuda_device, DTYPES[dt]) for x in (a, w))
+    for A_, W_ in ((A, W), (_off_grid(A), _off_grid(W))):
+        ops.reset_launches()
+        got = ops.ts_matmul_t(A_, W_)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == _launches(ts_matmul_t=1)
+        assert got.dtype == torch.float32 and got.shape == (n, k)
+        _assert_scaled(got.cpu(), ref.ts_matmul_t(A_, W_).cpu(), TOL[dt])
+        # the inputs as the kernel reads them, multiplied in float64: only
+        # the kernel's fp32 sums differ from it
+        want = A_.double().T @ W_.double()
+        _assert_scaled(got.cpu(), want.cpu(), 1e-5)
+        assert torch.equal(got, ops.ts_matmul_t(A_, W_))
+
+
+def _triplets(seed, m, n, nnz, *, hot=False, dup=False, outside=0):
+    """nnz COO triplets of an (m, n) matrix in random order: all in row 0
+    (hot), or drawn with repeats (dup), plus ``outside`` triplets whose row
+    or column lies outside it; returns (vals, rows, cols, kept), kept
+    masking the in-range ones."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros(nnz, np.int64) if hot else rng.integers(0, m, nnz)
+    cols = rng.integers(0, n, nnz)
+    if dup and nnz:
+        rows[nnz // 2:] = rows[:nnz - nnz // 2]
+        cols[nnz // 2:] = cols[:nnz - nnz // 2]
+    if outside:
+        rows = np.concatenate([rows, rng.choice([-1, m, m + 7], outside)])
+        cols = np.concatenate([cols, rng.integers(0, n, outside)])
+        rows = np.concatenate([rows, rng.integers(0, m, outside)])
+        cols = np.concatenate([cols, rng.choice([-3, n, n + 1], outside)])
+    vals = rng.uniform(size=rows.size).astype(np.float32)
+    kept = (rows >= 0) & (rows < m) & (cols >= 0) & (cols < n)
+    return vals, rows.astype(np.int32), cols.astype(np.int32), kept
+
+
+# (m, n, k, nnz, case): odd k (scalar reductions), one hot row, duplicates,
+# out-of-range triplets, nnz = 0, an output past the default bucketing
+# threshold (100,000 × 50 fp32: 20 MB, both products), the served b = 1
+# shape
+SPMM_CASES = [(3_001, 2_003, 51, 40_000, "odd k"),
+              (3_001, 2_003, 50, 20_000, "hot"),
+              (3_001, 2_003, 50, 20_000, "dup"),
+              (3_001, 2_003, 70, 20_000, "outside"),
+              (3_001, 2_003, 50, 0, "empty"),
+              (100_000, 100_000, 50, 800_000, "past threshold"),
+              (1, 1_000_000, 50, 9, "served b=1")]
+
+
+def _many_buckets(nnz, m_out, k, size, sms):
+    """The L2-blocked scatter with at least 37 buckets (buckets of the most
+    rows, a power of two, that m_out // 37 holds), so a small output still
+    crosses many bucket edges; one pass where no two buckets exist."""
+    shift = max(1, m_out // 37).bit_length() - 1
+    buckets = -(-m_out // (1 << shift))
+    if nnz == 0 or buckets == 1:
+        return ops.plan_spmm(nnz, m_out, k, size, sms, bucketed=True)
+    return ops.SpmmPlan(buckets, shift, ops.SPMM_BUCKET_RUN,
+                        ops.SPMM_BUCKET_BLOCKS_PER_SM * sms, nnz * (8 + size))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,nnz,case", SPMM_CASES)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_spmm_both_products_both_plans(cuda_device, m, n, k, nnz, case, dt):
+    vals, rows, cols, kept = _triplets(
+        31, m, n, nnz, hot=case == "hot", dup=case == "dup",
+        outside=50 if case == "outside" else 0)
+    v, r, c = (torch.from_numpy(x).to(cuda_device)
+               for x in (vals, rows, cols))
+    v = v.to(DTYPES[dt])
+    keep = torch.from_numpy(kept).to(cuda_device)
+    B, C = (x.to(DTYPES[dt]) for x in _device_inputs(
+        cuda_device, 32, (n, k), (m, k)))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    size = B.element_size()
+    for name, call, want, (m_out, rhs) in (
+            ("A·B", ops.spmm, ref.spmm(v[keep], r[keep], c[keep], B, m),
+             (m, B)),
+            ("Aᵀ·C", ops.spmm_t, ref.spmm(v[keep], c[keep], r[keep], C, n),
+             (n, C))):
+        plans = [None, ops.plan_spmm(v.numel(), m_out, k, size, sms,
+                                     bucketed=False),
+                 _many_buckets(v.numel(), m_out, k, size, sms)]
+        if plans[2].buckets > 1:
+            assert plans[2].buckets >= 37 or m_out < 37
+        for plan in plans:
+            ops.reset_launches()
+            got = call(v, r, c, rhs, m_out, plan=plan)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES == _launches(spmm=1), (name, plan)
+            assert got.dtype == torch.float32 and got.shape == (m_out, k)
+            _assert_scaled(got.cpu(), want.cpu(), TOL[dt])
+            if plan is None:          # the plan the wrapper chose
+                chosen = ops.plan_spmm(v.numel(), m_out, k, size, sms)
+                if m_out * k * 4 <= ops.SPMM_L2_SHARE:   # served shapes
+                    assert chosen.buckets == 1
+                if case == "past threshold":
+                    assert chosen.buckets > 1

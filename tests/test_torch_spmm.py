@@ -86,7 +86,8 @@ def _sub(blk, i, j, cls):
     """The (i, j) grid block as its own 1×1 BlockCOO, sort leaves too."""
     leaves = {f.name: getattr(blk, f.name)[i:i + 1, j:j + 1]
               for f in dataclasses.fields(blk)
-              if f.name not in ("shape", "block_shape", "nnz", "align")
+              if f.name not in ("shape", "block_shape", "nnz", "align",
+                                "row_major")
               and getattr(blk, f.name) is not None}
     return cls(shape=blk.block_shape, block_shape=blk.block_shape,
                nnz=blk.nnz, align=blk.align, **leaves)
