@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Three paths run, at k = 50:
+Three paths run, at k = 50, and the dense one again at k = 160:
 
 * dense: the paper's serial loop, ``NMFSolver(k, algo=...).fit(A)``, on a
   dense fp32 A at the paper's Video shape (m = 1,013,400, n = 13,824; A is
@@ -38,7 +38,8 @@ Phases, each of which raises on failure:
                and bf16, with ε = 1e-16 and ε = eps_for, at ragged shapes
                (k = 1, 50, 128) and at Video's W (1,013,400 × 50), with a
                row whose X·G is 0 and a zero diagonal entry of G; timed at
-               full width beside their bound and plain versions;
+               full width beside their bound and plain versions, mu_update
+               also at k = 64 and 128 (fp32 and a bf16 carry);
   7. main      fit() at the full shape: bpp for 10 iterations, then mu and
                hals for 3 each, with the launch counters reset just before
                each fit and read just after; the last rel error is checked
@@ -57,6 +58,14 @@ Phases, each of which raises on failure:
                product, and both results' residuals ||a − xH||; TopK
                (cosine, k = 10) over W's rows, checked against a direct
                top-k;
+  8c. wide    k = 160, past hals_sweep's register-resident kernel (its
+               row-per-warp variant, hals_sweep_wide): mu_update and
+               hals_sweep at Video's W rows against their plain versions
+               (fp32, bf16 carry; the fp32 sweep on the scale of what each
+               column's update adds and cancels, and against float64) and
+               timed; dense mu and hals fits for 2
+               iterations, launches counted and the rel error checked
+               against the direct value; a 64-row fold-in with mu and hals;
   9. sparse data      the sparse A as a BlockCOO, its nnz and bytes, and the
                time to build its sorted layout on the device;
  10. sparse kernels   spmm and spmm_sorted, A·B and Aᵀ·C, against their
@@ -64,7 +73,8 @@ Phases, each of which raises on failure:
                at a ragged shape with a hot row and empty tiles;
  11. sparse timings   both kernels and both products at full size in fp32:
                checked, then timed beside their bound, their plain versions
-               and one torch.sparse.mm call on a CSR copy; spmm on the plan
+               and one torch.sparse.mm call on a CSR copy, spmm_sorted
+               checked bit-identical across two runs; spmm on the plan
                its wrapper chooses and on the other one (the L2-blocked
                scatter or a single pass), each checked and timed, with the
                plan and the rate printed;
@@ -73,7 +83,8 @@ Phases, each of which raises on failure:
                (the spmm kernel), bpp for 1 with "sorted"; launch counts,
                finiteness, nonnegativity and a direct float64 error;
  12b. sparse accel / luc  ahals for 2 iterations; mu_update and hals_sweep
-               at the 2^24 × 50 factor, checked and timed;
+               at the 2^24 × 50 factor, checked and timed (mu_update also
+               with a bf16 carry);
  13. sparse breakdown ms per iteration in mm, mm_t, each half-update, the
                grams and the rest, for mu and hals with each impl and for
                amu and ahals with the sorted one (bpp's
@@ -144,9 +155,17 @@ KERNELS = {
                   "replaces": "src/repro/kernels/mu_update.py:36"},
     "hals_sweep": {"source": "src/repro_torch/kernels/csrc/luc.cu",
                    "replaces": "src/repro/kernels/hals_sweep.py:53"},
+    # hals_sweep's row-per-warp kernel for k > 128 (ops.LUC_HALS_KMAX)
+    "hals_sweep_wide": {"source": "src/repro_torch/kernels/csrc/luc.cu",
+                        "replaces": "src/repro/kernels/hals_sweep.py:53"},
 }
+# The wide-k phase: k past hals_sweep's register-resident kernel
+K_WIDE = 160
 
 LUC_RAGGED = ((4_099, 50), (4_099, 1), (4_099, 128))
+# Common ranks whose X mu_update widens to fp32 (gcd(k, 32) > 2), timed at
+# Video's W rows beside k = 50
+MU_TIMED_KS = (64, 128)
 SERVE_BATCHES = (1, 7, 64, 256)
 SERVE_ALGOS = ("bpp", "mu", "hals", "amu", "ahals")
 # A served batch is held against the same projection with the LUC kernels
@@ -209,6 +228,26 @@ def col_scaled_err(got, want) -> tuple[float, float]:
     diff = (got.float() - want.float()).abs()
     scale = want.float().abs().amax(0).clamp_min(1e-30)
     return diff.max().item(), (diff.amax(0) / scale).max().item()
+
+
+def sweep_scaled_err(got, want, X, G, R, eps: float) -> float:
+    """The largest over columns i of a HALS sweep of column i's max |got −
+    want| over the size of what its update adds and cancels: max over rows
+    of |x_i| + (|r_i| + Σ_l |x_l|·|G_li|) / max(G_ii, ε), x the sweep's
+    state when column i is updated (columns before i new, from ``want``;
+    the others from X).  An fp32 sum's rounding is relative to that size,
+    not to the new x_i, which cancellation can leave small."""
+    import torch
+    k = G.shape[0]
+    Ga = G.double().abs()
+    before = torch.ones(k, k, dtype=torch.bool, device=G.device).triu(1)
+    cancel = (want.double().abs() @ (Ga * before)
+              + X.double().abs() @ (Ga * ~before))
+    cancel += R.double().abs()
+    cancel /= G.double().diagonal().clamp_min(eps)
+    cancel += X.double().abs()
+    diff = (got.double() - want.double()).abs().amax(0)
+    return (diff / cancel.amax(0).clamp_min(1e-30)).max().item()
 
 
 @contextlib.contextmanager
@@ -327,11 +366,14 @@ def luc_problem(gen, r: int, k: int, x_dtype, r_dtype):
     return X.to(x_dtype), C.T @ C, R.to(r_dtype)
 
 
-def phase_luc(dev, cases, errs: dict, label: str, time_rows: int) -> dict:
+def phase_luc(dev, cases, errs: dict, label: str, time_rows: int,
+              mu_ks: tuple = ()) -> dict:
     """mu_update and hals_sweep against their plain versions: each case
     (r, k) in fp32 and with a bf16 carry (fp32 R), with ε = 1e-16 and
     ε = eps_for; then both timed in fp32 at (time_rows, 50) beside their
-    bound, their plain versions and (mu) the three-op torch expression."""
+    bound, their plain versions and (mu) the three-op torch expression;
+    mu_update also with a bf16 carry, and at (time_rows, k) for each k of
+    ``mu_ks`` in fp32 and bf16, each checked against its plain version."""
     import torch
     from repro_torch.core.rules import eps_for
     from repro_torch.kernels import ops, ref
@@ -384,8 +426,74 @@ def phase_luc(dev, cases, errs: dict, label: str, time_rows: int) -> dict:
             f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms{extra}, "
             f"bound {b_ms:.3f} ms ({b_by}); "
             f"{12 * r * k / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s")
-    del X, G, R
+    # mu_update with a bf16 carry (fp32 R): X read and written in 2 bytes
+    Xb = X.bfloat16()
+    eps = eps_for(torch.bfloat16)
+    kern = lambda: ops.mu_update(Xb, G, R, eps=eps)
+    plain = lambda: ref.mu_update(Xb, G, R, eps)
+    p1, k1, k2, p2 = (time_ms(f, n) for f, n in (
+        (plain, 3), (kern, 20), (kern, 20), (plain, 3)))
+    b_ms, b_by = bound_ms(6 * r * k, 2 * r * k, 2.0 * r * k * k, "float32")
+    out["mu_update"].update({"ms_bf16": min(k1, k2),
+                             "plain_ms_bf16": min(p1, p2),
+                             "bound_ms_bf16": b_ms})
+    log(f"[luc timings] mu_update  bf16 {label} {(r, k)} kernel "
+        f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}); {8 * r * k / (min(k1, k2) * 1e-3) / 1e9:.0f}"
+        f" GB/s")
+    del X, G, R, Xb
     torch.cuda.empty_cache()
+    for k in mu_ks:
+        for dname, xdt in (("float32", torch.float32),
+                           ("bfloat16", torch.bfloat16)):
+            X, G, R = luc_problem(gen, r, k, xdt, torch.float32)
+            eps = eps_for(xdt)
+            got = ops.mu_update(X, G, R, eps=eps)
+            abs_err, err = col_scaled_err(got, ref.mu_update(X, G, R, eps))
+            require(err <= TOL[dname], f"mu_update {dname} {(r, k)} "
+                    f"disagrees with its plain version: {err:.3e}")
+            e = errs.setdefault("mu_update", [0.0, 0.0])
+            e[0], e[1] = max(e[0], abs_err), max(e[1], err)
+            del got
+            kern = lambda: ops.mu_update(X, G, R, eps=eps)
+            plain = lambda: ref.mu_update(X, G, R, eps)
+            p1, k1, k2, p2 = (time_ms(f, n) for f, n in (
+                (plain, 3), (kern, 10), (kern, 10), (plain, 3)))
+            size = X.element_size()
+            nbytes = r * k * (2 * size + 4)
+            b_ms, b_by = bound_ms(nbytes - size * r * k, size * r * k,
+                                  2.0 * r * k * k, "float32")
+            plan = ops.plan_mu_update(r, k, size, torch.cuda
+                                      .get_device_properties(dev)
+                                      .multi_processor_count)
+            tag = "" if dname == "float32" else "_bf16"
+            out["mu_update"].update({f"ms_k{k}{tag}": min(k1, k2),
+                                     f"plain_ms_k{k}{tag}": min(p1, p2),
+                                     f"bound_ms_k{k}{tag}": b_ms})
+            short = "fp32" if dname == "float32" else "bf16"
+            log(f"[luc timings] mu_update  {short} {label} {(r, k)} "
+                f"kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, "
+                f"bound {b_ms:.3f} ms ({b_by}); "
+                f"{nbytes / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s; plan "
+                f"{plan.rows} rows x {plan.stages} stages, {plan.blocks} "
+                f"blocks, direct {plan.direct}; column-scaled err "
+                f"{err:.3e} ok")
+            del X, G, R
+            torch.cuda.empty_cache()
+    return out
+
+
+def luc_f64(name: str, X, G, R, eps: float):
+    """mu_update or hals_sweep in float64, the exact value both the kernel
+    and its plain version are held against where fp32 sums cancel."""
+    X64, G64, R64 = X.double(), G.double(), R.double()
+    if name == "mu_update":
+        return X64 * (R64 / (X64 @ G64 + eps))
+    out = X64.clone()
+    for i in range(G.shape[0]):
+        xi = out[:, i] + (R64[:, i] - out @ G64[:, i]) / max(
+            G64[i, i].item(), eps)
+        out[:, i] = xi.clamp_min(0.0)
     return out
 
 
@@ -742,7 +850,9 @@ def sparse_cases(blk, srt, B, C):
     col = [t.reshape(-1) for t in (srt.t_vals, srt.t_rows, srt.t_cols,
                                    srt.col_tiles, srt.col_valid)]
     a = srt.align
-    # A·B as local_spmm calls it, with the BlockCOO's row order
+    # as local_spmm calls them: A·B with the BlockCOO's row order, the
+    # sorted products with the layout's cached first units
+    rf, cf = srt.row_first.reshape(-1), srt.col_first.reshape(-1)
     return [
         ("spmm", "A·B",
          lambda **plan: ops.spmm(v, r, c, B, m, row_major=blk.row_major,
@@ -750,10 +860,11 @@ def sparse_cases(blk, srt, B, C):
          lambda: ref.spmm(v, r, c, B, m)),
         ("spmm", "Aᵀ·C", lambda **plan: ops.spmm_t(v, r, c, C, n, **plan),
          lambda: ref.spmm(v, c, r, C, n)),
-        ("spmm_sorted", "A·B", lambda: ops.spmm_sorted(*row, B, m, align=a),
+        ("spmm_sorted", "A·B",
+         lambda: ops.spmm_sorted(*row, B, m, align=a, first=rf),
          lambda: ref.spmm_sorted(*row, B, m, align=a)),
         ("spmm_sorted", "Aᵀ·C",
-         lambda: ops.spmm_sorted(*col, C, n, align=a),
+         lambda: ops.spmm_sorted(*col, C, n, align=a, first=cf),
          lambda: ref.spmm_sorted(*col, C, n, align=a)),
     ]
 
@@ -866,6 +977,10 @@ def phase_sparse_timings(blk, srt, errs: dict) -> dict:
         f"full bandwidth")
     out = {name: {"bound_ms": b_ms, "bound_by": b_by}
            for name in ("spmm", "spmm_sorted")}
+    # what the gathers make the kernels move: a B row per nonzero, the
+    # triplets and the output once
+    moved = nnz * K * 4 + nnz * 12 + m * K * 4
+    out["spmm_sorted"]["gathered_bytes_ms"] = moved / HBM_BYTES_PER_S * 1e3
     for prod, rhs, offsets, vals, cols, tiles, valid, size in (
             ("A·B", B, srt.row_offsets, srt.vals, srt.cols, srt.row_tiles,
              srt.row_valid, (m, n)),
@@ -895,6 +1010,11 @@ def phase_sparse_timings(blk, srt, errs: dict) -> dict:
                 f"({b_by}); {(rb + wb) / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s "
                 f"compulsory, {gather_gb / (min(k1, k2) * 1e-3):.0f} GB/s of "
                 f"B-row gathers")
+            if name == "spmm_sorted":
+                same = torch.equal(kern(), kern())
+                log(f"[sparse timings] spmm_sorted {prod:4s} bit-identical "
+                    f"across two runs: {same}")
+                require(same, f"spmm_sorted {prod} differs between runs")
             if name == "spmm":
                 out[name].update(spmm_plans(
                     prod, kern, plain, rb + wb, suffix,
@@ -1112,7 +1232,7 @@ def serve_batches(proj, requests, label: str, algo: str, kernel_of: dict,
         # a sparse batch's output (b ≤ 256 rows, padded to its bucket) fits
         # L2: spmm's single pass
         single = product != "spmm" or ops.plan_spmm(
-            req._nnz(), next(s for s in proj.buckets if s >= b), K, 4,
+            req._nnz(), next(s for s in proj.buckets if s >= b), proj.k, 4,
             torch.cuda.get_device_properties(0).multi_processor_count
         ).buckets == 1
         with plain_luc():
@@ -1124,7 +1244,8 @@ def serve_batches(proj, requests, label: str, algo: str, kernel_of: dict,
         res_diff = (res_got - res_want).abs().max().item()
         kernel = kernel_of.get(algo)
         luc = counts.get(kernel, 0) if kernel else 0
-        ok = (tuple(got.shape) == (b, K) and bool(torch.isfinite(got).all())
+        ok = (tuple(got.shape) == (b, proj.k)
+              and bool(torch.isfinite(got).all())
               and got.min().item() >= 0 and err <= SERVE_TOL["codes"]
               and r_err <= r_tol
               and res_diff <= SERVE_TOL["residual"]
@@ -1231,6 +1352,136 @@ def phase_serve_dense(A, res) -> tuple[dict, dict]:
     summary["topk"] = check_topk(TopK(loaded, metric="cosine"), codes,
                                  "serve topk")
     return launches, summary
+
+
+def phase_wide(A, seed: int, errs: dict) -> tuple[dict, dict, dict]:
+    """Phase 8c, k = 160 (past hals_sweep's register-resident kernel):
+    mu_update and hals_sweep at Video's W rows against their plain versions
+    in fp32 and with a bf16 carry, then timed in fp32 beside their bound
+    and plain versions; dense mu and hals fits for 2 iterations (launch
+    counters reset just before each fit, read just after; the last rel
+    error against a direct ||A − WH|| / ||A||); one fold-in batch of 64 rows
+    with each of mu and hals on the hals fit's factors.  Returns
+    (launches, summary, timings)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.core.rules import eps_for
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.artifact import FactorArtifact
+    from repro_torch.serve.foldin import FoldInProjector
+    t_phase = time.perf_counter()
+    m, n = A.shape
+    k = K_WIDE
+    kernel_of = {"mu_update": "mu_update", "hals_sweep": "hals_sweep_wide"}
+    gen = torch.Generator(device=A.device).manual_seed(seed + 8)
+    for dname, xdt in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        X, G, R = luc_problem(gen, m, k, xdt, torch.float32)
+        eps = eps_for(xdt)
+        for name, key in kernel_of.items():
+            got = getattr(ops, name)(X, G, R, eps=eps)
+            want = getattr(ref, name)(X, G, R, eps)
+            torch.cuda.synchronize()
+            abs_err, err = col_scaled_err(got, want)
+            extra = ""
+            if name == "hals_sweep" and dname == "float32":
+                # The sweep's x_i + (r_i − (X·G)_i) / G_ii cancels: at k =
+                # 160 here (X·G)_i reaches 10³ while the new x_i clamp to 0
+                # or stay ≈ 10⁻², so a column's maximum is no measure of
+                # its sums' rounding.  The kernel is held against the plain
+                # version and against float64 on the scale of what each
+                # update adds and cancels (sweep_scaled_err), at TOL.
+                exact = luc_f64(name, X, G, R, eps)
+                err = sweep_scaled_err(got, want, X, G, R, eps)
+                k64 = sweep_scaled_err(got, exact, X, G, R, eps)
+                p64 = sweep_scaled_err(want, exact, X, G, R, eps)
+                extra = (f"; on the sweep's scale vs the plain version "
+                         f"{err:.3e}, vs float64: kernel {k64:.3e}, plain "
+                         f"version {p64:.3e}; column-scaled vs float64: "
+                         f"kernel {col_scaled_err(got.double(), exact)[1]:.3e}"
+                         f", plain version "
+                         f"{col_scaled_err(want.double(), exact)[1]:.3e}")
+                err = max(err, k64)
+                del exact
+            ok = (err <= TOL[dname] and got.dtype == xdt
+                  and bool(torch.isfinite(got.float()).all()))
+            log(f"[wide] {key:15s} {dname:8s} {(m, k)} column-scaled err "
+                f"vs the plain version {col_scaled_err(got, want)[1]:.3e} "
+                f"abs {abs_err:.3e}{extra} (tol {TOL[dname]:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"{key} {dname} at k = {k} disagrees with its plain "
+                        f"version: {err:.3e}")
+            e = errs.setdefault(key, [0.0, 0.0])
+            e[0], e[1] = max(e[0], abs_err), max(e[1], err)
+            del got, want
+        del X, G, R
+    torch.cuda.empty_cache()
+    X, G, R = luc_problem(gen, m, k, torch.float32, torch.float32)
+    eps = eps_for(torch.float32)
+    b_ms, b_by = bound_ms(8 * m * k, 4 * m * k, 2.0 * m * k * k, "float32")
+    timings = {}
+    for name, key in kernel_of.items():
+        kern = lambda: getattr(ops, name)(X, G, R, eps=eps)
+        plain = lambda: getattr(ref, name)(X, G, R, eps)
+        p1, k1, k2, p2 = (time_ms(f, n) for f, n in (
+            (plain, 2), (kern, 5), (kern, 5), (plain, 2)))
+        timings[key] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None, "shape": [m, k]}
+        log(f"[wide timings] {key:15s} fp32 {(m, k)} kernel {k1:.3f}/"
+            f"{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}); {12 * m * k / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s")
+    del X, G, R
+    torch.cuda.empty_cache()
+    launches, summary, kept = {}, {}, None
+    for algo, iters in (("mu", 2), ("hals", 2)):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = NMFSolver(k, algo=algo, max_iters=iters).fit(A, seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        rels = res.rel_errors.numpy()
+        want = dict.fromkeys(counts, 0)
+        want.update(gram=3 * iters, ts_matmul=iters, ts_matmul_t=iters)
+        want.update({kernel_of[name]: c * iters
+                     for name, c in LUC_PER_ITER[algo].items()})
+        direct = direct_rel_error(A, res.W, res.H)
+        log(f"[wide] {algo:4s} k={k} {iters} iters: fit {wall:.2f} s incl. "
+            f"set-up, launches {counts}; rel errors {rels.tolist()}, direct "
+            f"||A-WH||/||A|| {direct:.6f}")
+        require(counts == want, f"wide {algo}: launches {counts} != {want}")
+        require(np.isfinite(rels).all() and bool(
+            torch.isfinite(res.W).all() and torch.isfinite(res.H).all()
+            and res.W.min() >= 0 and res.H.min() >= 0),
+            f"wide {algo}: factors or rel errors not finite and nonnegative")
+        require(abs(direct - rels[-1]) <= 1e-2 * direct,
+                f"wide {algo}: rel error {rels[-1]} disagrees with the direct "
+                f"value {direct}")
+        add_launches(launches, counts)
+        summary[algo] = {"iters": iters, "s_per_iter": wall / iters,
+                         "rel_errors": rels.tolist(), "direct": direct}
+        if algo == "hals":
+            kept = res
+        del res
+        torch.cuda.empty_cache()
+    art = FactorArtifact.from_result(kept)
+    rows = A[-64:]
+    for algo in ("mu", "hals"):
+        proj = FoldInProjector(art, algo=algo, iters=100, backend="cuda")
+        lat, counts, _ = serve_batches(
+            proj, [(64, rows, "ts_matmul")], "serve wide", algo,
+            {"mu": "mu_update", "hals": "hals_sweep_wide"}, 100)
+        add_launches(launches, counts)
+        summary[f"foldin/{algo}"] = lat
+        del proj
+    del kept, art
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[wide] phase 8c took {summary['phase_s']:.1f} s")
+    return launches, summary, timings
 
 
 def phase_serve_sparse(res, dim: int, seed: int) -> tuple[dict, dict]:
@@ -1365,7 +1616,8 @@ def main(argv=None) -> int:
     timings = phase_timings(A, Ht, W, errs)
     del Ht, W
     torch.cuda.empty_cache()
-    timings.update(phase_luc(dev, LUC_RAGGED + ((m, K),), errs, "video", m))
+    timings.update(phase_luc(dev, LUC_RAGGED + ((m, K),), errs, "video", m,
+                             MU_TIMED_KS))
     launches, summary, res_bpp = phase_main(
         A, args.seed, (("bpp", 10), ("mu", 3), ("hals", 3)))
     counts, summary["accel"] = phase_accel(A, args.seed,
@@ -1376,7 +1628,14 @@ def main(argv=None) -> int:
                        ("ahals", 3)))
     counts, summary["serve"] = phase_serve_dense(A, res_bpp)
     add_launches(launches, counts)
-    del A, res_bpp
+    del res_bpp
+    torch.cuda.empty_cache()
+    counts, summary["wide"], wide = phase_wide(A, args.seed, errs)
+    add_launches(launches, counts)
+    timings["hals_sweep_wide"] = wide["hals_sweep_wide"]
+    timings["mu_update"].update({f"{key}_k{K_WIDE}": v for key, v in
+                                 wide["mu_update"].items()})
+    del A
     torch.cuda.empty_cache()
 
     if args.sparse_dim != SPARSE_DIM:

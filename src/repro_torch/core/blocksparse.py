@@ -19,8 +19,15 @@ tile-aligned packed layout (array for array the same): a stable sort, each
     belongs to (non-decreasing);
   * ``row_valid``   (U,)     how many of the unit's slots are real;
 
+and, not in the reference's pytree (``LEAVES``), the layout's fixed
+per-tile first units that the kernel reads
+
+  * ``row_first``   (mb/8+1,)  tile t owns units [row_first[t],
+                               row_first[t+1]) (``ops.first_units``);
+
 plus a column-sorted transposed copy (``t_vals``/``t_rows``/``t_cols`` with
-``col_offsets``/``col_tiles``/``col_valid``): there the original *columns*
+``col_offsets``/``col_tiles``/``col_valid``, and ``col_first``): there the
+original *columns*
 drive the sort, so ``t_rows`` holds column indices and ``local_spmm_t``
 runs the same kernel on it.  Unlike the reference, which loops over every
 tile on the host, the layout is built with vectorised torch operations on
@@ -58,6 +65,10 @@ _SORT_FIELDS = ("row_offsets", "row_tiles", "row_valid",
                 "t_vals", "t_rows", "t_cols",
                 "col_offsets", "col_tiles", "col_valid")
 LEAVES = ("vals", "rows", "cols") + _SORT_FIELDS
+# Computed from the layout once, where sort_rows builds it; a layout made
+# elsewhere (blockcoo_from_numpy, by hand) lacks them and spmm_sorted then
+# computes them per call.
+FIRST_FIELDS = ("row_first", "col_first")
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -93,6 +104,8 @@ class BlockCOO:
     col_valid: Any = None
     align: int = 0
     row_major: bool = False
+    row_first: Any = None
+    col_first: Any = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -123,7 +136,7 @@ class BlockCOO:
     def to(self, device) -> "BlockCOO":
         """The same matrix with every leaf on ``device``."""
         return dataclasses.replace(self, **{
-            f: getattr(self, f).to(device) for f in LEAVES
+            f: getattr(self, f).to(device) for f in LEAVES + FIRST_FIELDS
             if getattr(self, f) is not None})
 
     def sort_rows(self, *, align: int = DEFAULT_ALIGN,
@@ -316,17 +329,21 @@ def _stack_padded(arrs, gr: int, gc: int, fills=None) -> torch.Tensor:
 
 
 def _sorted_leaves(V, R, C, dim: int, align: int, gr: int, gc: int):
-    """(vals, rows, cols, offsets, tiles, valid), each (gr, gc, ·), of every
-    block sorted by ``R``."""
+    """(vals, rows, cols, offsets, tiles, valid, first), each (gr, gc, ·),
+    of every block sorted by ``R``; ``first`` the per-tile first units of
+    the stacked (tail-padded) tiles."""
     lay = [_sorted_layout(V[b], R[b], C[b], dim, align)
            for b in range(gr * gc)]
     last_tile = [int(x[4][-1]) if x[4].numel() else 0 for x in lay]
+    tiles = _stack_padded([x[4] for x in lay], gr, gc, last_tile)
+    first = ops.first_units(tiles.reshape(gr * gc, -1), -(-dim // ROW_TILE))
     return (_stack_padded([x[0] for x in lay], gr, gc),
             _stack_padded([x[1] for x in lay], gr, gc),
             _stack_padded([x[2] for x in lay], gr, gc),
             torch.stack([x[3] for x in lay]).reshape(gr, gc, -1),
-            _stack_padded([x[4] for x in lay], gr, gc, last_tile),
-            _stack_padded([x[5] for x in lay], gr, gc))
+            tiles,
+            _stack_padded([x[5] for x in lay], gr, gc),
+            first.reshape(gr, gc, -1))
 
 
 def sort_rows(blk: BlockCOO, *, align: int = DEFAULT_ALIGN,
@@ -353,11 +370,11 @@ def sort_rows(blk: BlockCOO, *, align: int = DEFAULT_ALIGN,
     kw: dict = {}
     if orient != "cols":
         names = ("vals", "rows", "cols", "row_offsets", "row_tiles",
-                 "row_valid")
+                 "row_valid", "row_first")
         kw.update(zip(names, _sorted_leaves(V, R, C, mb, align, gr, gc)))
     if orient != "rows":               # Aᵀ: the columns drive the sort
         names = ("t_vals", "t_rows", "t_cols", "col_offsets", "col_tiles",
-                 "col_valid")
+                 "col_valid", "col_first")
         kw.update(zip(names, _sorted_leaves(V, C, R, nb, align, gr, gc)))
     return dataclasses.replace(blk, align=align,
                                row_major=blk.row_major or orient != "cols",
@@ -381,6 +398,10 @@ def _require_sorted(blk: BlockCOO, orientation: bool, leaf) -> None:
             f"leaves blocked {leaf.shape[0]}×{leaf.shape[1]}")
 
 
+def _flat(t):
+    return None if t is None else t.reshape(-1)
+
+
 def _check_impl(impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -396,7 +417,7 @@ def local_spmm(blk: BlockCOO, B: torch.Tensor, *,
         return ops.spmm_sorted(
             blk.vals.reshape(-1), blk.rows.reshape(-1), blk.cols.reshape(-1),
             blk.row_tiles.reshape(-1), blk.row_valid.reshape(-1), B, m_out,
-            align=blk.align)
+            align=blk.align, first=_flat(blk.row_first))
     v, r, c = blk.vals.reshape(-1), blk.rows.reshape(-1), blk.cols.reshape(-1)
     if impl == "cuda":
         return ops.spmm(v, r, c, B, m_out, row_major=blk.row_major)
@@ -415,7 +436,8 @@ def local_spmm_t(blk: BlockCOO, B: torch.Tensor, *,
         return ops.spmm_sorted(
             blk.t_vals.reshape(-1), blk.t_rows.reshape(-1),
             blk.t_cols.reshape(-1), blk.col_tiles.reshape(-1),
-            blk.col_valid.reshape(-1), B, n_out, align=blk.align)
+            blk.col_valid.reshape(-1), B, n_out, align=blk.align,
+            first=_flat(blk.col_first))
     v, r, c = blk.vals.reshape(-1), blk.rows.reshape(-1), blk.cols.reshape(-1)
     if impl == "cuda":
         return ops.spmm_t(v, r, c, B, n_out)

@@ -37,8 +37,8 @@ _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the CUDA error code of the launch; 0 is success).  ``<name>_tiles``
-#: writes the tile sizes the library was compiled with; ``luc_max_k`` the
-#: largest k of the LUC kernels.
+#: writes the tile sizes the library was compiled with (``luc_tiles``: the
+#: widest k of hals_sweep's register-resident kernel).
 SIGNATURES = {
     "ts_matmul": {
         "ts_matmul_launch": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
@@ -56,11 +56,12 @@ SIGNATURES = {
         "spmm_launch": [_I, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I,
                         _I, _I, _I64, _I64, _P, _P, _P, _P, _P],
         "spmm_sorted_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                               _I64, _I64, _I64, _P],
+                               _I64, _I64, _I64, _I, _P],
     },
     "luc": {
-        "luc_launch": [_I, _I, _I, _P, _P, _P, _P, _I64, _I64, _F, _P],
-        "luc_max_k": [_IP],
+        "luc_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _I64, _I64, _F, _I,
+                       _I, _I, _I, _I, _I, _I, _P],
+        "luc_tiles": [_IP],
     },
 }
 

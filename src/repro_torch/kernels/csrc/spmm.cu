@@ -51,12 +51,18 @@
 //    skipped by the scatter (columns).  The reductions add in an order
 //    that changes from run to run, so the fp32 result is reproducible only
 //    to rounding: hold it to a tolerance, never bitwise.
-//  * spmm_sorted: one warp owns one 8-row output tile of the sort_rows packed
-//    layout.  It walks the tile's units in packed order, and only their
-//    `valid` slots, adds into an 8 × 128 accumulator in shared memory, and
-//    writes the tile once.  The grid covers every tile, also those without
-//    units, so rows that own no triplets come out 0 with no masking pass.
-//    No atomics: repeated runs are bit-identical.
+//  * spmm_sorted: one warp owns one 8-row output tile of the sort_rows
+//    packed layout and a 64-column panel (lanes as in spmm_scatter_kernel).
+//    It walks the tile's units in packed order, only their `valid` slots,
+//    with the B rows of SORTED_GATHER triplets in flight before any is
+//    added, and keeps the current row's partial in registers: within a
+//    tile the slots come in row order, so each row is stored once, with a
+//    plain store, when the row changes, and the tile's rows without
+//    triplets are stored as zeros.  The grid covers every tile, also those
+//    without units, so no zeroing pass runs.  With no shared memory, 40
+//    warps per SM keep 8 gathers each in flight.
+//    Each tile's first unit comes from the caller (BlockCOO keeps it beside
+//    the layout).  No atomics: repeated runs are bit-identical.
 //
 // Triplets whose row or column falls outside the output or B are skipped
 // (the reference's scatter drops out-of-range updates too).  All offsets
@@ -71,14 +77,17 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;                  // 8 warps per block
 constexpr int WARPS = THREADS / 32;
 constexpr int TILE_ROWS = 8;                  // blocksparse.ROW_TILE
-constexpr int PANEL = 128;                    // spmm_sorted: output columns per block
-constexpr int COLS_PER_LANE = PANEL / 32;
-constexpr int SPANEL = 64;                    // spmm: output columns per block
+constexpr int SPANEL = 64;                    // output columns per block
 constexpr int GATHER = 8;                     // B rows loaded ahead per warp
 constexpr int MAX_BUCKETS = 512;              // ops.SPMM_MAX_BUCKETS
 constexpr int LOADS = 4;                      // counting: runs loaded ahead
 constexpr int ILOADS = 8;                     // bucketing: runs per warp and tile
 constexpr int TILE = THREADS * ILOADS;        // bucketing: triplets per tile
+// spmm_sorted: B rows gathered ahead per warp, and the blocks per SM its
+// register budget is set for (5 × 256 threads: 40 warps, ≤ 48 registers;
+// the values tried and their times are in PERF.md).
+constexpr int SORTED_GATHER = 8;
+constexpr int SORTED_MIN_BLOCKS = 5;
 
 // out[a], out[a + 1] += x, y in one vector reduction (sm_90, PTX ISA 8.1);
 // a must be 8-byte aligned.
@@ -440,30 +449,51 @@ cudaError_t launch_buckets(const void* vals, const int* rows, const int* cols,
   return cudaGetLastError();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// Two columns of an output row, as load_pair reads them from B.
+template <int VEC>
+__device__ __forceinline__ void store_pair(float* orow, int64_t col,
+                                           int64_t k, float2 v) {
+  if (VEC == 2) {
+    if (col < k) *reinterpret_cast<float2*>(orow + col) = v;
+  } else {
+    if (col < k) orow[col] = v.x;
+    if (col + 32 < k) orow[col + 32] = v.y;
+  }
+}
+
+// out = A · B from the sort_rows packed layout: warp w owns 8-row tile w,
+// panel blockIdx.y of 64 output columns.  It walks the tile's units
+// [first_unit[w], first_unit[w + 1]) in packed order, only their valid
+// slots, 32 triplets loaded coalesced at a time and broadcast by shuffle.
+// The B rows of SORTED_GATHER triplets are loaded before any is added.
+// Within a tile the slots come in row order (sort_rows' stable sort), so
+// the lanes keep the current row's partial in registers and store it with
+// a plain store when the row changes (a row that came back after a later
+// one would be overwritten with its last run alone, and the rows between
+// zeroed: ops.spmm_sorted checks the order of a layout that does not
+// carry its first units); rows of the tile that own no
+// triplet are stored as zeros.  Every output element is written once, by
+// one warp: no atomics, no zeroing pass, and each row sums in packed
+// order, so repeated runs are bit-identical.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS, SORTED_MIN_BLOCKS)
 spmm_sorted_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
                    const int* __restrict__ cols,
                    const int* __restrict__ first_unit,
                    const int* __restrict__ valid, const T* __restrict__ B,
                    float* __restrict__ out, int64_t ntiles, int64_t m_out,
                    int64_t n, int64_t k, int64_t align) {
-  __shared__ float acc[WARPS][TILE_ROWS][PANEL];
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t t = (int64_t)blockIdx.x * WARPS + warp;
-  if (t >= ntiles) return;  // the whole warp: no block-wide barrier follows
-  const int64_t c0 = (int64_t)blockIdx.y * PANEL;
-  const int64_t left = k - c0;  // columns of this panel: min(left, PANEL)
-  float(*a)[PANEL] = acc[warp];
-#pragma unroll
-  for (int rr = 0; rr < TILE_ROWS; ++rr)
-#pragma unroll
-    for (int j = 0; j < COLS_PER_LANE; ++j) a[rr][lane + 32 * j] = 0.f;
-  __syncwarp();
-
+  const int64_t t = ((int64_t)blockIdx.x * THREADS + threadIdx.x) >> 5;
+  if (t >= ntiles) return;  // the whole warp
+  const int64_t col =
+      (int64_t)blockIdx.y * SPANEL + (VEC == 2 ? 2 * lane : lane);
   const int64_t row0 = t * TILE_ROWS;
-  const T* bpanel = B + c0;
+  const int64_t row_end = row0 + TILE_ROWS < m_out ? row0 + TILE_ROWS : m_out;
+  const float2 zero = make_float2(0.f, 0.f);
+  float2 acc = zero;
+  int64_t cur = -1;                 // the row acc belongs to
+  int64_t next = row0;              // the first row not stored yet
   const int u_end = first_unit[t + 1];
   for (int64_t u = first_unit[t]; u < u_end; ++u) {
     const int nv = valid[u];
@@ -471,43 +501,79 @@ spmm_sorted_kernel(const T* __restrict__ vals, const int* __restrict__ rows,
     for (int s0 = 0; s0 < nv; s0 += 32) {
       const int s = s0 + lane;
       float v = 0.f;
-      int r = -1, c = -1;
+      int r = -1, c = 0;
       if (s < nv) {
         v = to_f32(vals[base + s]);
-        r = (int)(rows[base + s] - row0);
+        r = rows[base + s];
         c = cols[base + s];
+        if (r < row0 || r >= row_end || c < 0 || c >= n) r = -1;  // skipped
       }
       const int run = nv - s0 < 32 ? nv - s0 : 32;
-      for (int j = 0; j < run; ++j) {
-        const float vj = __shfl_sync(FULL, v, j);
-        const int rj = __shfl_sync(FULL, r, j);
-        const int cj = __shfl_sync(FULL, c, j);
-        if (rj < 0 || rj >= TILE_ROWS || row0 + rj >= m_out || cj < 0 ||
-            cj >= n)
-          continue;  // warp-uniform
-        const T* brow = bpanel + (int64_t)cj * k;
+      for (int j0 = 0; j0 < run; j0 += SORTED_GATHER) {
+        float2 bj[SORTED_GATHER];
 #pragma unroll
-        for (int jj = 0; jj < COLS_PER_LANE; ++jj) {
-          const int col = lane + 32 * jj;
-          if (col < left)
-            a[rj][col] = fmaf(vj, to_f32(brow[col]), a[rj][col]);
+        for (int q = 0; q < SORTED_GATHER; ++q) {
+          const int src = j0 + q < run ? j0 + q : 0;
+          const int rj = j0 + q < run ? __shfl_sync(FULL, r, src) : -1;
+          const int cj = __shfl_sync(FULL, c, src);
+          bj[q] = rj >= 0 ? load_pair<VEC>(B + (int64_t)cj * k, col, k)
+                          : zero;
+        }
+#pragma unroll
+        for (int q = 0; q < SORTED_GATHER; ++q) {
+          const int src = j0 + q < run ? j0 + q : 0;
+          const int rj = j0 + q < run ? __shfl_sync(FULL, r, src) : -1;
+          const float vj = __shfl_sync(FULL, v, src);
+          if (rj < 0) continue;                   // warp-uniform
+          if (rj != cur) {
+            if (cur >= 0) {
+              store_pair<VEC>(out + cur * k, col, k, acc);
+              next = cur + 1;
+            }
+            for (; next < rj; ++next)
+              store_pair<VEC>(out + next * k, col, k, zero);
+            cur = rj;
+            acc = zero;
+          }
+          acc.x = fmaf(vj, bj[q].x, acc.x);
+          acc.y = fmaf(vj, bj[q].y, acc.y);
         }
       }
     }
   }
-  __syncwarp();
-
-#pragma unroll
-  for (int rr = 0; rr < TILE_ROWS; ++rr) {
-    const int64_t gr = row0 + rr;
-    if (gr >= m_out) break;
-    float* orow = out + gr * k + c0;
-#pragma unroll
-    for (int jj = 0; jj < COLS_PER_LANE; ++jj) {
-      const int col = lane + 32 * jj;
-      if (col < left) orow[col] = a[rr][col];
-    }
+  if (cur >= 0) {
+    store_pair<VEC>(out + cur * k, col, k, acc);
+    next = cur + 1;
   }
+  for (; next < row_end; ++next)
+    store_pair<VEC>(out + next * k, col, k, zero);
+}
+
+template <typename T, int VEC>
+cudaError_t launch_sorted(const void* vals, const int* r, const int* c,
+                          const int* f, const int* vd, const void* B,
+                          float* o, int64_t ntiles, int64_t m_out, int64_t n,
+                          int64_t k, int64_t align, cudaStream_t s) {
+  const int64_t blocks = (ntiles + WARPS - 1) / WARPS;
+  const int64_t panels = (k + SPANEL - 1) / SPANEL;
+  if (blocks > 0x7fffffff || panels > 65535) return cudaErrorInvalidValue;
+  spmm_sorted_kernel<T, VEC><<<dim3((unsigned)blocks, (unsigned)panels),
+                               THREADS, 0, s>>>(
+      static_cast<const T*>(vals), r, c, f, vd, static_cast<const T*>(B), o,
+      ntiles, m_out, n, k, align);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sorted(bool vec, const void* vals, const int* r,
+                          const int* c, const int* f, const int* vd,
+                          const void* B, float* o, int64_t ntiles,
+                          int64_t m_out, int64_t n, int64_t k, int64_t align,
+                          cudaStream_t s) {
+  return vec ? launch_sorted<T, 2>(vals, r, c, f, vd, B, o, ntiles, m_out, n,
+                                   k, align, s)
+             : launch_sorted<T, 1>(vals, r, c, f, vd, B, o, ntiles, m_out, n,
+                                   k, align, s);
 }
 
 }  // namespace
@@ -561,33 +627,27 @@ extern "C" int spmm_launch(int dtype, const void* vals, const void* rows,
 
 // out (m_out, k) fp32 = A · B from the sort_rows packed layout.  first_unit
 // has ntiles + 1 entries: tile t owns units [first_unit[t], first_unit[t+1]),
-// unit u the slots [u·align, u·align + valid[u]).  Every tile is written.
+// unit u the slots [u·align, u·align + valid[u]), in row order within the
+// tile (unordered tiles are mis-summed, not detected here).  Every tile is
+// written.  vec: as for spmm_launch.
 extern "C" int spmm_sorted_launch(int dtype, const void* vals,
                                   const void* rows, const void* cols,
                                   const void* first_unit, const void* valid,
                                   const void* B, void* out, int64_t ntiles,
                                   int64_t m_out, int64_t n, int64_t k,
-                                  int64_t align, void* stream) {
+                                  int64_t align, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t blocks = (ntiles + WARPS - 1) / WARPS;
-  const int64_t panels = (k + PANEL - 1) / PANEL;
-  if (blocks > 0x7fffffff || panels > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks, (unsigned)panels);
   const int* r = static_cast<const int*>(rows);
   const int* c = static_cast<const int*>(cols);
   const int* f = static_cast<const int*>(first_unit);
   const int* vd = static_cast<const int*>(valid);
   float* o = static_cast<float*>(out);
-  if (dtype == repro_torch::kF32) {
-    spmm_sorted_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(vals), r, c, f, vd,
-        static_cast<const float*>(B), o, ntiles, m_out, n, k, align);
-  } else if (dtype == repro_torch::kBF16) {
-    spmm_sorted_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(vals), r, c, f, vd,
-        static_cast<const __nv_bfloat16*>(B), o, ntiles, m_out, n, k, align);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == repro_torch::kF32)
+    return (int)launch_sorted<float>(vec != 0, vals, r, c, f, vd, B, o,
+                                     ntiles, m_out, n, k, align, s);
+  if (dtype == repro_torch::kBF16)
+    return (int)launch_sorted<__nv_bfloat16>(vec != 0, vals, r, c, f, vd, B,
+                                             o, ntiles, m_out, n, k, align,
+                                             s);
+  return (int)cudaErrorInvalidValue;
 }

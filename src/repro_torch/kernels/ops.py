@@ -20,14 +20,16 @@ themselves, so A (56 GB at the paper's Video shape) is never copied.  The
 SpMM kernels skip triplets whose indices fall outside the output or B,
 as the reference's scatter drops out-of-range updates; the plain versions
 raise on them.  The LUC kernels take ε as an argument (default the TPU
-kernels' 1e-16; the rules pass ``eps_for(X.dtype)``) and k up to
-``luc_max_k()`` (128), neither padded.
+kernels' 1e-16; the rules pass ``eps_for(X.dtype)``) and every k, as the
+reference's rules do (``mu_update`` on ``plan_mu_update``'s tiles;
+``hals_sweep`` above k = 128 on a row-per-warp kernel).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -35,8 +37,10 @@ import torch
 from repro_torch.kernels import build, ref
 
 #: launches of each kernel on CUDA tensors since the last reset
+#: (``hals_sweep_wide``: hals_sweep's row-per-warp kernel, k > 128)
 LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0, "spmm": 0,
-            "spmm_sorted": 0, "mu_update": 0, "hals_sweep": 0}
+            "spmm_sorted": 0, "mu_update": 0, "hals_sweep": 0,
+            "hals_sweep_wide": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SLABS = 65535                         # gridDim.z limit
@@ -72,7 +76,23 @@ SPMM_BUCKET_RUN = 32
 SPMM_BUCKET_BLOCKS_PER_SM = 2
 SPMM_WARPS_PER_SM = 64
 
-_TILES_EXPECTED = {"gram": GRAM_TILES, "ts_matmul": TS_TILES}
+#: mu_update: the (rows per tile, ring stages) tried in order; blocks per
+#: SM at most; the rows a thread task's RT rows are spread over (RT =
+#: rows / MU_ROW_SLICES); an SM's shared memory and what the runtime keeps
+#: of it per block.  The row-per-warp LUC kernels: threads and blocks per
+#: SM.  hals_sweep's register-resident kernel takes k up to LUC_HALS_KMAX.
+MU_LADDER = ((128, 2), (64, 3), (64, 2), (32, 3), (32, 2), (32, 1), (16, 1),
+             (8, 1))
+MU_BLOCKS_PER_SM = 4
+MU_ROW_SLICES = 16
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1_024
+LUC_ROWWISE_THREADS = 256
+LUC_ROWWISE_BLOCKS_PER_SM = 8
+LUC_HALS_KMAX = 128
+
+_TILES_EXPECTED = {"gram": GRAM_TILES, "ts_matmul": TS_TILES,
+                   "luc": (LUC_HALS_KMAX,)}
 _TILES: dict[str, tuple[int, ...]] = {}
 
 
@@ -262,7 +282,7 @@ def _sm_count(device: torch.device) -> int:
 def tiles(name: str) -> tuple[int, ...]:
     """The fixed sizes library ``name`` was compiled with, as its
     ``<name>_tiles`` entry point reports them; raises if they are not the
-    ones this module plans with (GRAM_TILES, TS_TILES)."""
+    ones this module plans with (GRAM_TILES, TS_TILES, LUC_HALS_KMAX)."""
     if name not in _TILES:
         want = _TILES_EXPECTED[name]
         out = (ctypes.c_int * len(want))()
@@ -452,55 +472,174 @@ def spmm_t(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     return spmm(vals, cols, rows, B, n_out, plan=plan)
 
 
+def first_units(tiles: torch.Tensor, ntiles: int) -> torch.Tensor:
+    """Each 8-row tile's first unit of a packed layout, (ntiles + 1,) int32
+    on ``tiles``' device: tile t owns units [first[t], first[t + 1]).
+    ``tiles`` (U,) is non-decreasing; (B, U) gives (B, ntiles + 1), a row
+    per block."""
+    want = torch.arange(ntiles + 1, dtype=tiles.dtype, device=tiles.device)
+    if tiles.dim() == 2:
+        want = want.expand(tiles.shape[0], -1).contiguous()
+    return torch.searchsorted(tiles.contiguous(), want, out_int32=True)
+
+
+def rows_in_order(rows: torch.Tensor, cols: torch.Tensor,
+                  tiles: torch.Tensor, valid: torch.Tensor, m_out: int,
+                  n: int, *, align: int) -> bool:
+    """Whether, within each 8-row tile of a packed layout, the live slots
+    (valid, with the row in the tile and the column in [0, n)) come in
+    non-decreasing row order, as ``spmm_sorted``'s kernel needs.  The tiles
+    are non-decreasing and a tile's rows lie below the next tile's, so that
+    holds when the live rows, read in packed order, never decrease."""
+    U = tiles.numel()
+    r = rows.reshape(U, align)
+    lo = tiles.reshape(U, 1).long() * 8
+    c = cols.reshape(U, align)
+    live = ((torch.arange(align, device=tiles.device) < valid.reshape(U, 1))
+            & (r >= lo) & (r < torch.clamp(lo + 8, max=m_out))
+            & (c >= 0) & (c < n))
+    rr = r[live]
+    return bool((rr[1:] >= rr[:-1]).all())
+
+
 def spmm_sorted(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
                 tiles: torch.Tensor, valid: torch.Tensor, B: torch.Tensor,
-                m_out: int, *, align: int) -> torch.Tensor:
+                m_out: int, *, align: int,
+                first: torch.Tensor | None = None) -> torch.Tensor:
     """A @ B (fp32, (m_out, k)) from the ``sort_rows`` packed layout:
     ``vals``/``rows``/``cols`` of U·align slots, and per unit its 8-row
-    tile id (non-decreasing, < ceil(m_out/8)) and valid count.  Each 8-row
-    output tile is summed in packed order by one warp and written once;
-    rows that own no triplets come out 0.  No atomics: repeated runs are
-    bit-identical."""
+    tile id (non-decreasing, < ceil(m_out/8)) and valid count; within a
+    tile the valid slots come in row order.  ``first``: each tile's first
+    unit (``first_units``; ``BlockCOO.row_first``/``col_first`` keep it),
+    computed here when not given.  Each output row is summed in packed
+    order by one warp and written once; rows that own no triplets come out
+    0.  No atomics: repeated runs are bit-identical.  The kernel mis-sums a
+    tile whose rows are out of order, so on CUDA a layout given without
+    ``first`` (not one of ``sort_rows``') is checked (``rows_in_order``)
+    and refused with ValueError; the plain version on the CPU takes any
+    order."""
+    extra = () if first is None else (first,)
     on_cuda = _check_sparse("spmm_sorted", vals, rows, cols, B, m_out,
-                            tiles, valid)
+                            tiles, valid, *extra)
     if align <= 0 or vals.numel() != tiles.numel() * align:
         raise ValueError(f"spmm_sorted: {vals.numel()} packed slots are not "
                          f"{tiles.numel()} units of align={align}")
     if valid.numel() != tiles.numel():
         raise ValueError(f"spmm_sorted: {valid.numel()} valid counts for "
                          f"{tiles.numel()} units")
+    ntiles = -(-m_out // 8)
+    if first is not None and first.numel() != ntiles + 1:
+        raise ValueError(f"spmm_sorted: {first.numel()} first units for "
+                         f"{ntiles} tiles (need {ntiles + 1})")
     if not on_cuda:
         return ref.spmm_sorted(vals, rows, cols, tiles, valid, B, m_out,
                                align=align)
     n, k = B.shape
-    ntiles = -(-m_out // 8)
-    # each tile's first unit; tile t owns units [first[t], first[t + 1])
-    first = torch.searchsorted(
-        tiles, torch.arange(ntiles + 1, dtype=torch.int32, device=B.device),
-        out_int32=True)
+    if first is None:
+        if not rows_in_order(rows, cols, tiles, valid, m_out, n,
+                             align=align):
+            raise ValueError("spmm_sorted: a tile's slots are not in row "
+                             "order (sort_rows makes that layout)")
+        first = first_units(tiles, ntiles)
     out = torch.empty((m_out, k), dtype=torch.float32, device=B.device)
     _launch(build.load("spmm"), "spmm_sorted_launch", "spmm_sorted",
             B.device, _DTYPE_CODES[B.dtype], vals.data_ptr(),
             rows.data_ptr(), cols.data_ptr(), first.data_ptr(),
             valid.data_ptr(), B.data_ptr(), out.data_ptr(), ntiles, m_out, n,
-            k, align)
+            k, align,
+            int(vector_width(B.data_ptr(), k, B.element_size()) == 2))
     return out
 
 
-def luc_max_k() -> int:
-    """The largest k the LUC kernels take, as the library reports it."""
-    if "luc" not in _TILES:
-        out = (ctypes.c_int * 1)()
-        build.load("luc").luc_max_k(out)
-        _TILES["luc"] = tuple(out)
-    return _TILES["luc"][0]
+class MuPlan(NamedTuple):
+    """How mu_update_kernel walks X (r, k): persistent ``blocks`` take
+    tiles of ``rows`` rows (thread tasks of ``rt`` rows × 4 columns)
+    through a ring of ``stages`` stages, with G staged in column chunks of
+    ``chunk`` (k: all of G, once per block); ``direct``: an fp32 X is read
+    where it lands, with no fp32 copy; ``smem`` bytes of shared memory a
+    block.  ``rows`` = 0: the row-per-warp kernel (a k whose G and one
+    8-row tile exceed shared memory) on ``blocks`` blocks."""
+    rows: int
+    stages: int
+    chunk: int
+    rt: int
+    blocks: int
+    smem: int
+    direct: bool = False
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def mu_smem(k: int, rows: int, stages: int, chunk: int, itemsize: int,
+            r_itemsize: int, direct: bool = False) -> int:
+    """Shared memory of mu_update_kernel (luc.cu's mu_layout): G's chunk
+    (k × the chunk rounded up to 4), X's fp32 panel (rows × (k | 1); none
+    when ``direct``), and per stage the X and R panels as they arrive (a
+    lead-in of up to 16 bytes each)."""
+    kcp = -(-chunk // 4) * 4
+    stage = (_align16(rows * k * itemsize + 16)
+             + _align16(rows * k * r_itemsize + 16))
+    xf = 0 if direct else _align16(rows * (k | 1) * 4)
+    return _align16(k * kcp * 4) + xf + stages * stage
+
+
+def _rowwise_blocks(r: int, sm_count: int) -> int:
+    """Blocks of the row-per-warp LUC kernels: a warp per row, at most
+    LUC_ROWWISE_BLOCKS_PER_SM per SM."""
+    return max(1, min(-(-r // (LUC_ROWWISE_THREADS // 32)),
+                      LUC_ROWWISE_BLOCKS_PER_SM * sm_count))
+
+
+def _mu_blocks_per_sm(smem: int) -> int:
+    return min(MU_BLOCKS_PER_SM,
+               SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
+
+
+def plan_mu_update(r: int, k: int, itemsize: int, sm_count: int, *,
+                   r_itemsize: int = 4) -> MuPlan:
+    """The first (rows, stages) of MU_LADDER with a ring of two or more
+    stages whose ring, X panel and whole G fit two blocks on an SM, else
+    the first that fits one; else the first whose ring and X
+    panel leave room for a G chunk of at least 4 columns (the widest
+    multiple of 4 that fits); else the row-per-warp kernel.  An fp32 X with
+    gcd(k, 32) ≤ 2 is read where it lands (``direct``: its rows fall in
+    distinct banks).  Blocks: as many as fit an SM's shared memory, at most
+    MU_BLOCKS_PER_SM, times ``sm_count``, and no more than the tiles.
+    ``itemsize`` is X's, ``r_itemsize`` R's (fp32 by default)."""
+    direct = itemsize == 4 and math.gcd(k, 32) <= 2
+
+    def smem(t, s, chunk):
+        return mu_smem(k, t, s, chunk, itemsize, r_itemsize, direct)
+    choice = None
+    for least, ring in ((2, 2), (1, 1)):
+        for t, s in MU_LADDER:
+            if (choice is None and s >= ring
+                    and _mu_blocks_per_sm(smem(t, s, k)) >= least):
+                choice = (t, s, k)
+    if choice is None:
+        for t, s in MU_LADDER:
+            rest = SMEM_PER_BLOCK - smem(t, s, 0)
+            chunk = max(0, rest) // (16 * k) * 4
+            if chunk >= 4:
+                choice = (t, s, min(chunk, k))
+                break
+    if choice is None:
+        return MuPlan(0, 0, 0, 0, _rowwise_blocks(r, sm_count), 0)
+    t, s, chunk = choice
+    size = smem(t, s, chunk)
+    rt = max(1, min(8, t // MU_ROW_SLICES))
+    blocks = max(1, min(-(-r // t),
+                        max(1, _mu_blocks_per_sm(size)) * sm_count))
+    return MuPlan(t, s, chunk, rt, blocks, size, direct)
 
 
 def _check_luc(name: str, X: torch.Tensor, G: torch.Tensor,
                R: torch.Tensor) -> bool:
     """Validate LUC operands: X (r, k) fp32 or bf16, G (k, k) fp32, R (r, k)
-    fp32 or X's dtype, all contiguous on one device; on CUDA k is at most
-    ``luc_max_k()``.  True on CUDA."""
+    fp32 or X's dtype, all contiguous on one device.  Any k.  True on
+    CUDA."""
     for t in (X, G, R):
         if not isinstance(t, torch.Tensor) or t.layout != torch.strided:
             raise TypeError(f"{name}: operands must be dense tensors")
@@ -528,37 +667,56 @@ def _check_luc(name: str, X: torch.Tensor, G: torch.Tensor,
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: tensors must be on cpu or cuda, got "
                          f"{X.device}")
-    on_cuda = X.device.type == "cuda"
-    if on_cuda and k > luc_max_k():
-        raise ValueError(f"{name}: the kernel takes k <= {luc_max_k()}, got "
-                         f"k = {k}")
-    return on_cuda
+    return X.device.type == "cuda"
 
 
 def _luc(name: str, op: int, X: torch.Tensor, G: torch.Tensor,
-         R: torch.Tensor, eps: float) -> torch.Tensor:
+         R: torch.Tensor, eps: float,
+         plan: MuPlan | None = None) -> torch.Tensor:
     r, k = X.shape
+    tiles("luc")
     out = torch.empty_like(X)
+    sms = _sm_count(X.device)
+    scratch = None
+    if op == 0:
+        if plan is None:
+            plan = plan_mu_update(r, k, X.element_size(), sms,
+                                  r_itemsize=R.element_size())
+        vec = (plan.rows > 0 and all(
+            copy_width(t.data_ptr(), plan.rows * k * t.element_size()) == 16
+            for t in (X, R)))
+        args = (plan.rows, plan.stages, plan.chunk, plan.rt, plan.blocks,
+                int(vec), int(plan.direct))
+    else:
+        if k > LUC_HALS_KMAX:
+            name = "hals_sweep_wide"
+            scratch = torch.empty((k, k), dtype=torch.float32,
+                                  device=X.device)
+        args = (0, 0, 0, 0, _rowwise_blocks(r, sms), 0, 0)
     _launch(build.load("luc"), "luc_launch", name, X.device, op,
             _DTYPE_CODES[X.dtype], _DTYPE_CODES[R.dtype], X.data_ptr(),
-            G.data_ptr(), R.data_ptr(), out.data_ptr(), r, k, float(eps))
+            G.data_ptr(), R.data_ptr(), out.data_ptr(), _ptr(scratch), r, k,
+            float(eps), *args)
     return out
 
 
 def mu_update(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor, *,
-              eps: float = ref.LUC_EPS) -> torch.Tensor:
-    """The fused MU update X ⊙ (R / (X·G + ε)), (r, k) in X's dtype: one
-    read of X and R, one write."""
+              eps: float = ref.LUC_EPS,
+              plan: MuPlan | None = None) -> torch.Tensor:
+    """The fused MU update X ⊙ (R / (X·G + ε)), (r, k) in X's dtype, any k:
+    one read of X and R, one write, on ``plan`` (default
+    ``plan_mu_update``'s)."""
     if not _check_luc("mu_update", X, G, R):
         return ref.mu_update(X, G, R, eps)
-    return _luc("mu_update", 0, X, G, R, eps)
+    return _luc("mu_update", 0, X, G, R, eps, plan)
 
 
 def hals_sweep(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor, *,
                eps: float = ref.LUC_EPS) -> torch.Tensor:
-    """The sequential HALS column sweep, H-step form, (r, k) in X's dtype:
-    column i sees the updated columns 0..i-1; one read of X and R, one
-    write."""
+    """The sequential HALS column sweep, H-step form, (r, k) in X's dtype,
+    any k: column i sees the updated columns 0..i-1; one read of X and R,
+    one write (k > LUC_HALS_KMAX: the row-per-warp kernel, with a k × k
+    scratch for Gᵀ, counted as ``hals_sweep_wide``)."""
     if not _check_luc("hals_sweep", X, G, R):
         return ref.hals_sweep(X, G, R, eps)
     return _luc("hals_sweep", 1, X, G, R, eps)

@@ -10,6 +10,8 @@ imports jax):
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -260,6 +262,34 @@ def test_spmm_sorted_is_bit_identical_across_runs(cuda_device):
 
 
 @pytest.mark.cuda
+def test_spmm_sorted_refuses_a_tile_out_of_row_order(cuda_device):
+    """The kernel needs each tile's rows in order: a layout without cached
+    first units is checked and a row that comes back is refused, where
+    sort_rows' layout is taken; on the CPU the plain version takes both."""
+    a = np.zeros((24, 24), np.float32)
+    a[1, 2], a[3, 4], a[3, 9], a[9, 0], a[20, 5] = 1, 2, 3, 4, 5
+    blk = blocksparse.blockify(torch.from_numpy(a).to(cuda_device), 1,
+                               1).sort_rows(align=8)
+    v, r, c, tiles, valid = (t.reshape(-1) for t in (
+        blk.vals, blk.rows, blk.cols, blk.row_tiles, blk.row_valid))
+    B = torch.rand(24, 4, device=cuda_device)
+    got = ops.spmm_sorted(v, r, c, tiles, valid, B, 24, align=8)
+    torch.testing.assert_close(got, torch.from_numpy(a).to(cuda_device) @ B)
+    live = [i for i in range(r.numel())
+            if i % 8 < valid[i // 8] and tiles[i // 8] == 0]
+    order = torch.tensor([live[2], live[1], live[0]], device=cuda_device)
+    at = torch.tensor(live, device=cuda_device)
+    v2, r2, c2 = v.clone(), r.clone(), c.clone()
+    for new, old in ((v2, v), (r2, r), (c2, c)):
+        new[at] = old[order]             # the same triplets, rows 3, 3, 1
+    with pytest.raises(ValueError, match="row order"):
+        ops.spmm_sorted(v2, r2, c2, tiles, valid, B, 24, align=8)
+    plain = ops.spmm_sorted(*(t.cpu() for t in (v2, r2, c2, tiles, valid,
+                                                B)), 24, align=8)
+    torch.testing.assert_close(plain, got.cpu())
+
+
+@pytest.mark.cuda
 def test_spmm_wrappers_refuse_strided_or_mixed_dtype(cuda_device):
     blk = blocksparse.blockify(torch.eye(16, device=cuda_device), 1,
                                1).sort_rows(align=8)
@@ -303,7 +333,8 @@ def test_sparse_fit_on_the_card_matches_the_cpu_path(cuda_device, algo,
 
 
 # LUC shapes (r, k): test_kernels.py's, ragged r at the main path's width, k
-# = 1 and k = 128 (the largest the kernels take), and a 65,536-row slice
+# = 1 and k = 128 (the widest register-resident sweep), and a 65,536-row
+# slice
 LUC_SHAPES = [(64, 8), (100, 10), (128, 50), (4_099, 50), (4_099, 1),
               (4_099, 128), (1, 70), (65_536, 50)]
 # (X dtype, R dtype): an fp32 carry, a bf16 carry with fp32 R from the
@@ -362,15 +393,151 @@ def test_hals_sweep_kernel_is_sequential(cuda_device):
 
 @pytest.mark.cuda
 def test_luc_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
-    X = torch.rand(64, 129, device=cuda_device)
-    G = torch.rand(129, 129, device=cuda_device)
-    with pytest.raises(ValueError, match="k <= 128"):
-        ops.mu_update(X, G, X)
     X = torch.rand(64, 8, device=cuda_device)
     with pytest.raises(TypeError):
         ops.hals_sweep(X, torch.rand(8, 8, device=cuda_device).bfloat16(), X)
     with pytest.raises(ValueError):
         ops.hals_sweep(X, torch.rand(8, 8), X)          # G on the CPU
+
+
+# k past hals_sweep's register-resident kernel (128): the row-per-warp
+# sweep, and mu_update's plans with G whole (129, 160), in column chunks
+# (256 fp32, 1,000) and the row-per-warp MU kernel (2,100 fp32)
+WIDE_K = [129, 160, 256, 1_000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", WIDE_K)
+@pytest.mark.parametrize("dt", LUC_DTYPES)
+def test_luc_kernels_at_wide_k_match_plain_versions(cuda_device, k, dt):
+    x, g, rr = _luc_problem(14, 301, k)
+    xdt, rdt = LUC_DTYPES[dt]
+    X = torch.from_numpy(x).to(cuda_device, xdt)
+    G = torch.from_numpy(g).to(cuda_device)
+    R = torch.from_numpy(rr).to(cuda_device, rdt)
+    e = rules.eps_for(xdt)
+    ops.reset_launches()
+    for name in ("mu_update", "hals_sweep"):
+        got = getattr(ops, name)(X, G, R, eps=e)
+        want = getattr(ref, name)(X, G, R, e)
+        torch.cuda.synchronize()
+        assert got.dtype == xdt and torch.isfinite(got.float()).all()
+        # column by column: the ε-divided column cannot hide the others
+        for j in range(k):
+            _assert_scaled(got[:, j].float().cpu(), want[:, j].float().cpu(),
+                           TOL["f32" if dt == "f32" else "bf16"])
+        assert torch.equal(got, getattr(ops, name)(X, G, R, eps=e))
+    assert ops.LAUNCHES == _launches(mu_update=2, hals_sweep_wide=2)
+
+
+def _mu_plans(r, k, size, sms):
+    """The default plan, other tiles (G whole; an fp32 X read in place and
+    widened), G forced into column chunks, and the row-per-warp kernel,
+    for mu_update on (r, k)."""
+    plans = [ops.plan_mu_update(r, k, size, sms)]
+    for rows, stages, direct in ((128, 2, size == 4), (128, 2, False),
+                                 (32, 1, False), (64, 3, False)):
+        smem = ops.mu_smem(k, rows, stages, k, size, 4, direct)
+        plans.append(ops.MuPlan(rows, stages, k, rows // ops.MU_ROW_SLICES,
+                                min(-(-r // rows), sms), smem, direct))
+    for chunk in (4, 12):
+        smem = ops.mu_smem(k, 32, 2, chunk, size, 4)
+        plans.append(ops.MuPlan(32, 2, chunk, 1, 5, smem))
+    plans.append(ops.MuPlan(0, 0, 0, 0, 7, 0))
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k", [(4_099, 50), (301, 7), (1, 70), (1_000, 1)])
+@pytest.mark.parametrize("dt", ["f32", "bf16_f32"])
+def test_mu_update_plans_give_the_same_bits(cuda_device, r, k, dt):
+    """Every plan sums (X·G)_j over l in order: the same bits, for 16- and
+    4-byte copies (a view one element off the grid) alike."""
+    x, g, rr = _luc_problem(15, r, k)
+    xdt, rdt = LUC_DTYPES[dt]
+    X = torch.from_numpy(x).to(cuda_device, xdt)
+    G = torch.from_numpy(g).to(cuda_device)
+    R = torch.from_numpy(rr).to(cuda_device, rdt)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    first = ops.mu_update(X, G, R)
+    _assert_scaled(first.float().cpu(), ref.mu_update(X, G, R).float().cpu(),
+                   TOL["f32" if dt == "f32" else "bf16"])
+    for plan in _mu_plans(r, k, X.element_size(), sms):
+        for X_, R_ in ((X, R), (_off_grid(X), _off_grid(R))):
+            assert torch.equal(ops.mu_update(X_, G, R_, plan=plan), first), \
+                plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", LUC_DTYPES)
+def test_mu_update_row_per_warp_kernel_past_the_plans(cuda_device, dt):
+    x, g, rr = _luc_problem(16, 37, 2_100)
+    xdt, rdt = LUC_DTYPES[dt]
+    X = torch.from_numpy(x).to(cuda_device, xdt)
+    G = torch.from_numpy(g).to(cuda_device)
+    R = torch.from_numpy(rr).to(cuda_device, rdt)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if dt == "f32":
+        assert ops.plan_mu_update(37, 2_100, 4, sms).rows == 0
+    got = ops.mu_update(X, G, R, plan=ops.MuPlan(0, 0, 0, 0, 3, 0))
+    torch.cuda.synchronize()
+    _assert_scaled(got.float().cpu(), ref.mu_update(X, G, R).float().cpu(),
+                   TOL["f32" if dt == "f32" else "bf16"])
+    assert torch.equal(got, ops.mu_update(X, G, R))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["mu", "hals", "amu", "ahals"])
+def test_wide_k_fit_on_the_card_matches_the_cpu_path(cuda_device, algo):
+    """k = 160 through the LUC kernels (k > 128: the wide variants).  The
+    rel-error trajectories of 3 iterations and the factors after one agree
+    at 1e-4, the factors after 3 too for the MU rules.  HALS clamps 59 % of
+    W to 0 by its third iteration here, so its factors then move with
+    rounding: a 1-ulp change of A moves the CPU path's W by 7e-7 after one
+    iteration and by 1.6e-3 after three."""
+    rng = np.random.default_rng(17)
+    m, n, k = 400, 300, 160
+    A = (rng.uniform(size=(m, k)) @ rng.uniform(size=(k, n))
+         + 0.5 * k * rng.uniform(size=(m, n))).astype(np.float32)
+    W0 = rng.uniform(0.1, 1.0, size=(m, k)).astype(np.float32)
+    H0 = rng.uniform(size=(k, n)).astype(np.float32)
+    for iters in (1, 3):
+        ops.reset_launches()
+        res = NMFSolver(k, algo=_algo(algo), max_iters=iters).fit(
+            A, W0=W0, H0=H0)
+        luc = {name.replace("hals_sweep", "hals_sweep_wide"): iters * c
+               for name, c in LUC_PER_ITER[algo].items()}
+        assert ops.LAUNCHES == _launches(gram=3 * iters, ts_matmul=iters,
+                                         ts_matmul_t=iters, **luc)
+        cpu = NMFSolver(k, algo=_algo(algo), device="cpu",
+                        max_iters=iters).fit(A, W0=W0, H0=H0)
+        assert res.extras["rule_state"] == cpu.extras["rule_state"]
+        np.testing.assert_allclose(res.rel_errors.numpy(),
+                                   cpu.rel_errors.numpy(), rtol=1e-4)
+        if iters == 1 or algo in ("mu", "amu"):
+            _assert_scaled(res.W.cpu(), cpu.W, 1e-4)
+            _assert_scaled(res.H.cpu(), cpu.H, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,kernel", [("mu", "mu_update"),
+                                         ("hals", "hals_sweep_wide")])
+def test_wide_k_foldin_on_the_card_matches_the_cpu(cuda_device, algo,
+                                                   kernel):
+    rng = np.random.default_rng(18)
+    k = 160
+    W = rng.uniform(size=(500, k)).astype(np.float32)
+    H = rng.uniform(size=(k, 400)).astype(np.float32)
+    rows = (rng.uniform(size=(7, k)) @ H).astype(np.float32)
+    proj = FoldInProjector(FactorArtifact.from_factors(
+        W, H, algo="bpp", device=cuda_device), algo=algo, iters=20)
+    ops.reset_launches()
+    got = proj.project(torch.from_numpy(rows))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == 20 and ops.LAUNCHES["ts_matmul"] == 1
+    want = FoldInProjector(FactorArtifact.from_factors(W, H, device="cpu"),
+                           algo=algo, iters=20, device="cpu").project(rows)
+    _assert_scaled(got.cpu(), want, 1e-4)
 
 
 @pytest.mark.cuda
@@ -520,3 +687,37 @@ def test_spmm_both_products_both_plans(cuda_device, m, n, k, nnz, case, dt):
                     assert chosen.buckets == 1
                 if case == "past threshold":
                     assert chosen.buckets > 1
+
+
+# spmm_sorted on ragged layouts: m not a multiple of 8, empty tiles (rows
+# 8–39 have none), a hot row, k from 1 to 130 (odd k: scalar gathers; k >
+# 64: more than one column panel)
+SORTED_K = [1, 7, 50, 64, 65, 130]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", SORTED_K)
+@pytest.mark.parametrize("m,n", [(301, 77), (13, 1_000)])
+@pytest.mark.parametrize("dt", DTYPES)
+def test_spmm_sorted_on_ragged_layouts(cuda_device, m, n, k, dt):
+    a, _, _ = _sparse_problem(19, m, n, 1, 0.05)
+    a[8:40] = 0.0
+    blk = blocksparse.blockify(torch.from_numpy(a).to(cuda_device,
+                                                      DTYPES[dt]),
+                               1, 1).sort_rows(align=8)
+    B, C = (x.to(DTYPES[dt]) for x in _device_inputs(cuda_device, 20,
+                                                     (n, k), (m, k)))
+    for local, rhs, flat in ((blocksparse.local_spmm, B, "row"),
+                             (blocksparse.local_spmm_t, C, "col")):
+        ops.reset_launches()
+        got = local(blk, rhs, impl="sorted")
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == _launches(spmm_sorted=1)
+        assert torch.equal(got, local(blk, rhs, impl="sorted"))
+        _assert_scaled(got.cpu(), local(blk, rhs, impl="scatter").cpu(),
+                       TOL[dt])
+        # without the cached first units: computed per call, the same bits
+        bare = dataclasses.replace(blk, **{f"{flat}_first": None})
+        assert torch.equal(local(bare, rhs, impl="sorted"), got)
+    empty = torch.from_numpy(np.abs(a).sum(1) == 0).to(cuda_device)
+    assert not blocksparse.local_spmm(blk, B, impl="sorted")[empty].any()

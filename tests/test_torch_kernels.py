@@ -97,7 +97,7 @@ def test_cpu_path_counts_no_launch():
     ops.hals_sweep(B, G, B)
     assert ops.LAUNCHES == {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0,
                             "spmm": 0, "spmm_sorted": 0, "mu_update": 0,
-                            "hals_sweep": 0}
+                            "hals_sweep": 0, "hals_sweep_wide": 0}
 
 
 @pytest.mark.parametrize("case", ["strided", "dtype_mix", "f16", "shape",

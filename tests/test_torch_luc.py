@@ -319,3 +319,36 @@ def test_bf16_carry_fits(algo):
     assert torch.isfinite(res.W.float()).all() and res.W.min() >= 0
     assert np.isfinite(res.rel_errors.numpy()).all()
     assert res.rel_errors[-1] < 0.5
+
+
+# ------------------------------------------------------------ wide k (F1)
+
+def _wide_problem():
+    """k = 160, past hals_sweep's register-resident kernel on the card."""
+    rng = np.random.default_rng(17)
+    m, n, k = 400, 300, 160
+    A = (rng.uniform(size=(m, k)) @ rng.uniform(size=(k, n))
+         + 0.5 * k * rng.uniform(size=(m, n))).astype(np.float32)
+    W0 = rng.uniform(0.1, 1.0, size=(m, k)).astype(np.float32)
+    H0 = rng.uniform(size=(k, n)).astype(np.float32)
+    return A, W0, H0, k
+
+
+@pytest.mark.parametrize("algo", ["mu", "hals"])
+def test_wide_k_fit_matches_jax(algo):
+    """The port at k = 160 against the JAX package: the rel-error
+    trajectories of 3 iterations and the factors after one agree at 1e-4,
+    the factors after 3 too for MU.  HALS clamps 59 % of W to 0 by its
+    third iteration here, so its factors then move with rounding: a 1-ulp
+    change of A moves the port's own W by 1.6e-3 after three iterations."""
+    A, W0, H0, k = _wide_problem()
+    for iters in (1, 3):
+        res = NMFSolver(k, algo=algo, device="cpu", max_iters=iters).fit(
+            A, W0=W0, H0=H0)
+        want = JaxSolver(k, algo=algo, backend="dense", max_iters=iters).fit(
+            jnp.asarray(A), W0=jnp.asarray(W0), H0=jnp.asarray(H0))
+        np.testing.assert_allclose(res.rel_errors.numpy(),
+                                   np.asarray(want.rel_errors), rtol=1e-4)
+        if iters == 1 or algo == "mu":
+            _assert_scaled(res.W.numpy(), np.asarray(want.W), 1e-4)
+            _assert_scaled(res.H.numpy(), np.asarray(want.H), 1e-4)

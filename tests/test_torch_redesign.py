@@ -1,5 +1,5 @@
-"""The plans and the numerics of the port's gram and ts_matmul kernels,
-without a GPU.
+"""The plans and the numerics of the port's redesigned kernels (gram,
+ts_matmul, ts_matmul_t, spmm, spmm_sorted, mu_update), without a GPU.
 
 The kernels (``kernels/csrc/gram.cu``, ``kernels/csrc/ts_matmul.cu``) take
 their grids from plans computed in Python (``kernels/ops.py``): a persistent
@@ -8,6 +8,9 @@ output cannot fill the card.  ts_matmul multiplies fp32 on the tensor cores
 as three TF32 products (3xTF32).  Here the plans are checked for coverage
 and size, and a numpy model of the 3xTF32 split is held against float64 and
 against the JAX package's plain ``ts_matmul`` on the parity inputs.
+mu_update's plan covers every k (tiles, ring stages, G whole or in column
+chunks, or the row-per-warp kernel); torch models of mu_update's and
+spmm_sorted's walks write each output once and match the plain versions.
 """
 
 import pytest
@@ -18,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core import blocksparse  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 H100_SMS = 132
@@ -384,7 +388,6 @@ def _source(kind):
 @pytest.mark.parametrize("grid", [(1, 1), (2, 2), (3, 1)])
 def test_blockify_records_row_order_only_where_it_holds(kind, row_major,
                                                         grid):
-    from repro_torch.core import blocksparse
     blk = blocksparse.blockify(_source(kind), *grid)
     assert blk.row_major is row_major
     assert torch.equal(blk.todense(), torch.from_numpy(_dense_sparse()))
@@ -398,7 +401,6 @@ def test_blockify_records_row_order_only_where_it_holds(kind, row_major,
 
 def test_row_sort_makes_a_blockcoo_row_major_and_spmm_hears_of_it(
         monkeypatch):
-    from repro_torch.core import blocksparse
     blk = blocksparse.blockify(_source("uncoalesced"), 1, 1)
     assert not blk.row_major and not blk.to("cpu").row_major
     assert not blk.sort_rows(align=8, orient="cols").row_major
@@ -417,3 +419,155 @@ def test_row_sort_makes_a_blockcoo_row_major_and_spmm_hears_of_it(
         got = blocksparse.local_spmm(b, B, impl="cuda")
         torch.testing.assert_close(got, b.todense() @ B)
     assert seen == [False, True, True]
+
+
+# ---------------------------------------------------------------------------
+# mu_update's plan (any k) and a model of its tile walk
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 50, 128, 129, 256, 1_000])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("r", [1, 4_099, 1_013_400, 1 << 24])
+def test_mu_plan_fits_shared_memory_for_every_k(k, itemsize, r):
+    plan = ops.plan_mu_update(r, k, itemsize, H100_SMS)
+    assert plan.rows > 0 and plan.rows % plan.rt == 0
+    assert plan.rt in (1, 2, 4, 8) and 1 <= plan.stages <= 3
+    assert plan.smem == ops.mu_smem(k, plan.rows, plan.stages, plan.chunk,
+                                    itemsize, 4, plan.direct)
+    assert plan.smem <= ops.SMEM_PER_BLOCK
+    per_sm = -(-plan.blocks // H100_SMS)
+    assert per_sm * (plan.smem + ops.SMEM_RESERVED_PER_BLOCK) \
+        <= ops.SMEM_PER_SM
+    assert 1 <= plan.blocks <= -(-r // plan.rows)
+    # G whole, or in chunks of a multiple of 4 columns
+    assert plan.chunk == k or (plan.chunk % 4 == 0 and 4 <= plan.chunk < k)
+    # read where it lands only in fp32, where 16 rows fall in 16 banks
+    assert plan.direct == (itemsize == 4 and np.gcd(k, 32) <= 2)
+    if plan.direct:
+        banks = {(i * k) % 32 for i in range(ops.MU_ROW_SLICES)}
+        assert len(banks) == ops.MU_ROW_SLICES
+
+
+def test_mu_plan_at_the_main_paths():
+    for r in (1_013_400, 1 << 24):
+        plan = ops.plan_mu_update(r, 50, 4, H100_SMS)
+        # 128-row tiles, two stages, two blocks per SM, G whole, x in place
+        assert plan[:5] == (128, 2, 50, 8, 2 * H100_SMS) and plan.direct
+        bf16 = ops.plan_mu_update(r, 50, 2, H100_SMS)
+        assert bf16[:5] == (128, 2, 50, 8, 2 * H100_SMS)
+        assert not bf16.direct
+
+
+@pytest.mark.parametrize("k,itemsize", [(2_100, 4), (5_000, 2),
+                                        (100_000, 4)])
+def test_mu_plan_takes_the_row_per_warp_kernel_past_shared_memory(k,
+                                                                  itemsize):
+    plan = ops.plan_mu_update(1_000, k, itemsize, H100_SMS)
+    assert plan.rows == 0 and plan.smem == 0
+    assert plan.blocks == min(-(-1_000 // 8),
+                              ops.LUC_ROWWISE_BLOCKS_PER_SM * H100_SMS)
+
+
+def _mu_walk(X, G, R, eps, plan):
+    """mu_update_kernel's walk in torch: block b takes tiles b, b + blocks,
+    ... of plan.rows rows; per tile, G in column chunks; each (X·G)_j one
+    fp32 chain over l in order.  Also counts the writes of each output."""
+    r, k = X.shape
+    out = torch.full_like(X, float("nan"))
+    writes = torch.zeros(r, k, dtype=torch.int32)
+    ntiles = -(-r // plan.rows)
+    for b in range(plan.blocks):
+        for t in range(b, ntiles, plan.blocks):
+            rows = slice(t * plan.rows, min(r, (t + 1) * plan.rows))
+            x, rr = X[rows].float(), R[rows].float()
+            for c0 in range(0, k, plan.chunk):
+                cols = slice(c0, min(k, c0 + plan.chunk))
+                acc = torch.zeros(x.shape[0], cols.stop - c0)
+                for l in range(k):
+                    acc = torch.addcmul(acc, x[:, l:l + 1], G[l:l + 1, cols])
+                out[rows, cols] = (x[:, cols] * (rr[:, cols] / (acc + eps))
+                                   ).to(X.dtype)
+                writes[rows, cols] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("r,k", [(301, 50), (37, 129), (64, 7), (5, 1_000)])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_mu_walk_covers_each_output_once_and_matches_the_plain_version(
+        r, k, itemsize):
+    rng = np.random.default_rng(40)
+    dt = torch.float32 if itemsize == 4 else torch.bfloat16
+    X = torch.from_numpy(rng.uniform(size=(r, k)).astype(np.float32)).to(dt)
+    C = torch.from_numpy(rng.uniform(size=(30, k)).astype(np.float32))
+    R = torch.from_numpy(rng.uniform(size=(r, k)).astype(np.float32) * 5)
+    G = C.T @ C
+    plan = ops.plan_mu_update(r, k, itemsize, H100_SMS)
+    plan = plan._replace(blocks=min(plan.blocks, 3))   # several tiles a block
+    got, writes = _mu_walk(X, G, R, 1e-16, plan)
+    assert (writes == 1).all()
+    want = ref.mu_update(X, G, R)
+    scale = want.float().abs().max()
+    tol = 1e-5 if itemsize == 4 else 2e-2
+    np.testing.assert_allclose((got.float() / scale).numpy(),
+                               (want.float() / scale).numpy(), atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# spmm_sorted's row-run walk over the packed layout
+# ---------------------------------------------------------------------------
+
+def _sorted_walk(blk, B):
+    """spmm_sorted_kernel's walk in torch: per 8-row tile its units in
+    packed order, a running row sum stored when the row changes and zeros
+    for the tile's rows without triplets; counts each row's stores."""
+    m = blk.block_shape[0]
+    k = B.shape[1]
+    v, r, c = (t.reshape(-1) for t in (blk.vals, blk.rows, blk.cols))
+    valid, first = blk.row_valid.reshape(-1), blk.row_first.reshape(-1)
+    out = torch.full((m, k), float("nan"))
+    stores = torch.zeros(m, dtype=torch.int32)
+
+    def store(row, val):
+        out[row] = val
+        stores[row] += 1
+    for t in range(-(-m // 8)):
+        row0, row_end = 8 * t, min(8 * t + 8, m)
+        cur, nxt, acc = -1, row0, None
+        for u in range(int(first[t]), int(first[t + 1])):
+            for s in range(int(valid[u])):
+                i = u * blk.align + s
+                row = int(r[i])
+                if row != cur:
+                    if cur >= 0:
+                        store(cur, acc)
+                        nxt = cur + 1
+                    while nxt < row:
+                        store(nxt, torch.zeros(k))
+                        nxt += 1
+                    cur, acc = row, torch.zeros(k)
+                acc = acc + v[i].float() * B[int(c[i])].float()
+        if cur >= 0:
+            store(cur, acc)
+            nxt = cur + 1
+        while nxt < row_end:
+            store(nxt, torch.zeros(k))
+            nxt += 1
+    return out, stores
+
+
+@pytest.mark.parametrize("m,n,density", [(43, 30, 0.2), (16, 9, 0.0),
+                                         (61, 200, 0.05)])
+def test_sorted_walk_stores_each_row_once_and_matches_the_plain_version(
+        m, n, density):
+    rng = np.random.default_rng(41)
+    A = rng.uniform(size=(m, n)) * (rng.uniform(size=(m, n)) < density)
+    if m > 20:
+        A[3] = rng.uniform(size=n)                 # a hot row: many units
+        A[9:17] = 0.0                              # an empty tile
+    A = torch.from_numpy(A.astype(np.float32))
+    blk = blocksparse.blockify(A, 1, 1).sort_rows(align=8)
+    B = torch.from_numpy(rng.uniform(size=(n, 5)).astype(np.float32))
+    got, stores = _sorted_walk(blk, B)
+    assert (stores == 1).all()
+    torch.testing.assert_close(got, A @ B, rtol=0, atol=1e-5)
+

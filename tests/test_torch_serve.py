@@ -377,3 +377,20 @@ def test_self_retrieval_end_to_end():
     vals, idx = TopK(art, metric="cosine", chunk=32).query(codes, k=3)
     assert np.array_equal(idx.numpy()[:, 0], np.arange(8))
     assert (vals[:, 0] > 0.999).all()
+
+
+@pytest.mark.parametrize("algo", ["mu", "hals"])
+def test_foldin_at_wide_k_matches_jax(algo):
+    """k = 160 (the card's wide LUC kernels): 7 rows near the span of H."""
+    rng = np.random.default_rng(18)
+    k = 160
+    W = rng.uniform(size=(500, k)).astype(np.float32)
+    H = rng.uniform(size=(k, 400)).astype(np.float32)
+    rows = (rng.uniform(size=(7, k)) @ H).astype(np.float32)
+    got = FoldInProjector(FactorArtifact.from_factors(W, H, device="cpu"),
+                          algo=algo, iters=20, device="cpu").project(rows)
+    want = JaxProjector(JaxArtifact.from_factors(jnp.asarray(W),
+                                                 jnp.asarray(H)),
+                        algo=algo, iters=20).project(jnp.asarray(rows))
+    assert got.shape == (7, k) and (got >= 0).all()
+    _assert_scaled(got.numpy(), want, 1e-4)

@@ -11,6 +11,7 @@ test_torch_cuda.py and chip_smoke.py.
 
 import dataclasses
 import functools
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -237,6 +238,108 @@ def test_blockcoo_round_trips(sort):
     np.testing.assert_allclose(
         tbs.local_spmm(in_port, torch.from_numpy(B), impl="sorted").numpy(),
         Ad @ B, atol=1e-5)
+
+
+@pytest.mark.parametrize("orient", ["both", "rows", "cols"])
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2), (3, 2)])
+def test_sort_rows_caches_each_tiles_first_unit(grid, orient):
+    """row_first / col_first equal searchsorted over each block's tile ids
+    (tail padding included), survive to(), and stay out of the reference's
+    leaves; a layout without them (from the JAX package) gives the same
+    product."""
+    Ad = _er(11, 16 * grid[0] * 2 + 5 * grid[0], 12 * grid[1] * 2, 0.2)
+    Ad[2] = 1.0                                    # a hot row
+    blk = tbs.blockify(Ad, *grid).sort_rows(align=8, orient=orient)
+    mb, nb = blk.block_shape
+    for side, dim in (("row", mb), ("col", nb)):
+        tiles, first = getattr(blk, f"{side}_tiles"), getattr(blk,
+                                                              f"{side}_first")
+        if tiles is None:
+            assert first is None
+            continue
+        assert first.dtype == torch.int32
+        assert first.shape == (*grid, -(-dim // 8) + 1)
+        want = [torch.searchsorted(t.contiguous(), torch.arange(
+            -(-dim // 8) + 1, dtype=torch.int32), out_int32=True)
+            for t in tiles.reshape(grid[0] * grid[1], -1)]
+        np.testing.assert_array_equal(first.reshape(len(want), -1).numpy(),
+                                      torch.stack(want).numpy())
+        assert torch.equal(blk.to("cpu").__getattribute__(f"{side}_first"),
+                           first)
+    assert not set(tbs.FIRST_FIELDS) & set(blockcoo_to_numpy(blk))
+    if grid == (1, 1) and orient == "both":
+        bare = blockcoo_from_numpy(types.SimpleNamespace(
+            **blockcoo_to_numpy(blk)))
+        assert bare.row_first is None and bare.col_first is None
+        B = np.random.default_rng(12).uniform(size=(Ad.shape[1], 3))
+        C = np.random.default_rng(13).uniform(size=(Ad.shape[0], 3))
+        B, C = (torch.from_numpy(x.astype(np.float32)) for x in (B, C))
+        for local, x in ((tbs.local_spmm, B), (tbs.local_spmm_t, C)):
+            assert torch.equal(local(bare, x, impl="sorted"),
+                               local(blk, x, impl="sorted"))
+
+
+def test_spmm_sorted_refuses_first_units_of_another_length():
+    blk = tbs.blockify(torch.eye(16), 1, 1).sort_rows(align=8)
+    args = [t.reshape(-1) for t in (blk.vals, blk.rows, blk.cols,
+                                    blk.row_tiles, blk.row_valid)]
+    with pytest.raises(ValueError, match="first units"):
+        ops.spmm_sorted(*args, torch.ones(16, 2), 16, align=8,
+                        first=blk.row_first.reshape(-1)[:-1].contiguous())
+    with pytest.raises(TypeError):
+        ops.spmm_sorted(*args, torch.ones(16, 2), 16, align=8,
+                        first=blk.row_first.reshape(-1).long())
+
+
+def _flat_layout(blk, side):
+    """(rows, cols, tiles, valid) of a 1 × 1 sorted layout, flat, for the
+    row ("row") or the transposed ("col") product."""
+    if side == "row":
+        names = ("rows", "cols", "row_tiles", "row_valid")
+    else:
+        names = ("t_rows", "t_cols", "col_tiles", "col_valid")
+    return [getattr(blk, f).reshape(-1).clone() for f in names]
+
+
+@pytest.mark.parametrize("side", ["row", "col"])
+@pytest.mark.parametrize("m,n,density", [(45, 30, 0.2), (16, 16, 1.0),
+                                         (203, 67, 0.05)])
+def test_sort_rows_layouts_are_in_row_order(m, n, density, side):
+    """Every sort_rows layout passes the order check spmm_sorted applies
+    on the card to a layout without cached first units."""
+    blk = tbs.blockify(_er(14, m, n, density), 1, 1).sort_rows(align=8)
+    rows, cols, tiles, valid = _flat_layout(blk, side)
+    m_out, n_in = (m, n) if side == "row" else (n, m)
+    assert ops.rows_in_order(rows, cols, tiles, valid, m_out, n_in, align=8)
+
+
+@pytest.mark.parametrize("side", ["row", "col"])
+def test_row_order_check_finds_a_row_that_comes_back(side):
+    """Two live slots of one tile swapped: refused; a swap that only moves
+    padding, out-of-range slots or rows across tiles is not a fault."""
+    a = np.zeros((24, 24), np.float32)
+    a[1, 2], a[3, 4], a[3, 9], a[9, 0], a[20, 5] = 1, 2, 3, 4, 5
+    # the column layout of aᵀ drives the same tiles as the row layout of a
+    src = a if side == "row" else a.T.copy()
+    blk = tbs.blockify(src, 1, 1).sort_rows(align=8)
+    rows, cols, tiles, valid = _flat_layout(blk, side)
+    check = functools.partial(ops.rows_in_order, m_out=24, n=24, align=8)
+    assert check(rows, cols, tiles, valid)
+    live = [i for i in range(rows.numel())
+            if i % 8 < valid[i // 8] and tiles[i // 8] == 0]
+    assert rows[live].tolist() == [1, 3, 3]
+    swapped = rows.clone()
+    swapped[live[0]], swapped[live[1]] = rows[live[1]], rows[live[0]]
+    assert not check(swapped, cols, tiles, valid)
+    # the same swap with the later slot's column out of range is skipped
+    # by the kernel, so it is no fault
+    out_of_range = cols.clone()
+    out_of_range[live[0]] = 24
+    assert check(swapped, out_of_range, tiles, valid)
+    # a padding slot (past valid) may hold any row
+    pad = rows.clone()
+    pad[[i for i in range(rows.numel()) if i % 8 >= valid[i // 8]][0]] = 0
+    assert check(pad, cols, tiles, valid)
 
 
 @pytest.mark.parametrize("grid", [(1, 1), (3, 2)])
