@@ -37,9 +37,11 @@ Phases, each of which raises on failure:
   4b. luc      mu_update and hals_sweep against their plain versions in fp32
                and bf16, with ε = 1e-16 and ε = eps_for, at ragged shapes
                (k = 1, 50, 128) and at Video's W (1,013,400 × 50), with a
-               row whose X·G is 0 and a zero diagonal entry of G; timed at
-               full width beside their bound and plain versions, mu_update
-               also at k = 64 and 128 (fp32 and a bf16 carry);
+               row whose X·G is 0 and a zero diagonal entry of G
+               (hals_sweep also against float64 sums: hals_errs); timed at
+               full width beside their bound and plain versions (hals_sweep
+               beside its recorded time before its redesign too), in fp32
+               and with a bf16 carry, mu_update also at k = 64 and 128;
   7. main      fit() at the full shape: bpp for 10 iterations, then mu and
                hals for 3 each, with the launch counters reset just before
                each fit and read just after; the last rel error is checked
@@ -58,14 +60,14 @@ Phases, each of which raises on failure:
                product, and both results' residuals ||a − xH||; TopK
                (cosine, k = 10) over W's rows, checked against a direct
                top-k;
-  8c. wide    k = 160, past hals_sweep's register-resident kernel (its
-               row-per-warp variant, hals_sweep_wide): mu_update and
-               hals_sweep at Video's W rows against their plain versions
-               (fp32, bf16 carry; the fp32 sweep on the scale of what each
-               column's update adds and cancels, and against float64) and
-               timed; dense mu and hals fits for 2
+  8c. wide    k = 160: mu_update, hals_sweep and hals_sweep's row-per-warp
+               kernel (forced by its plan) at Video's W rows against their
+               plain versions (fp32, bf16 carry; the sweeps also against
+               float64: hals_errs) and timed; dense mu and hals fits for 2
                iterations, launches counted and the rel error checked
                against the direct value; a 64-row fold-in with mu and hals;
+               a hals fold-in at k = 520, where the row-per-warp kernel
+               runs by plan;
   9. sparse data      the sparse A as a BlockCOO, its nnz and bytes, and the
                time to build its sorted layout on the device;
  10. sparse kernels   spmm and spmm_sorted, A·B and Aᵀ·C, against their
@@ -83,8 +85,7 @@ Phases, each of which raises on failure:
                (the spmm kernel), bpp for 1 with "sorted"; launch counts,
                finiteness, nonnegativity and a direct float64 error;
  12b. sparse accel / luc  ahals for 2 iterations; mu_update and hals_sweep
-               at the 2^24 × 50 factor, checked and timed (mu_update also
-               with a bf16 carry);
+               at the 2^24 × 50 factor, checked and timed as in phase 4b;
  13. sparse breakdown ms per iteration in mm, mm_t, each half-update, the
                grams and the rest, for mu and hals with each impl and for
                amu and ahals with the sorted one (bpp's
@@ -155,12 +156,23 @@ KERNELS = {
                   "replaces": "src/repro/kernels/mu_update.py:36"},
     "hals_sweep": {"source": "src/repro_torch/kernels/csrc/luc.cu",
                    "replaces": "src/repro/kernels/hals_sweep.py:53"},
-    # hals_sweep's row-per-warp kernel for k > 128 (ops.LUC_HALS_KMAX)
     "hals_sweep_wide": {"source": "src/repro_torch/kernels/csrc/luc.cu",
                         "replaces": "src/repro/kernels/hals_sweep.py:53"},
 }
-# The wide-k phase: k past hals_sweep's register-resident kernel
+# The wide-k phase's rank
 K_WIDE = 160
+# A rank no tile of hals_sweep's column-blocked kernel fits (fp32 k ≥ 516):
+# phase 8c serves a hals fold-in there, through its row-per-warp kernel
+# (hals_sweep_wide)
+K_ROWWISE = 520
+# hals_sweep's times at the phases' shapes before its column-blocked
+# redesign, and its row-per-warp kernel's at the wide phase's shape, as
+# PERF.md §6 records them (rows 7, 7w, 7r; NVIDIA H100 80GB HBM3, 700.00
+# W), printed beside this run's
+HALS_BEFORE_MS = {(M_FULL, K): "0.793–0.800",
+                  (SPARSE_DIM, K): "12.59–12.68",
+                  (M_FULL, K_WIDE): "29.66–29.70"}
+WIDE_BEFORE_MS = {(M_FULL, K_WIDE): "29.66–29.70"}
 
 LUC_RAGGED = ((4_099, 50), (4_099, 1), (4_099, 128))
 # Common ranks whose X mu_update widens to fp32 (gcd(k, 32) > 2), timed at
@@ -228,26 +240,6 @@ def col_scaled_err(got, want) -> tuple[float, float]:
     diff = (got.float() - want.float()).abs()
     scale = want.float().abs().amax(0).clamp_min(1e-30)
     return diff.max().item(), (diff.amax(0) / scale).max().item()
-
-
-def sweep_scaled_err(got, want, X, G, R, eps: float) -> float:
-    """The largest over columns i of a HALS sweep of column i's max |got −
-    want| over the size of what its update adds and cancels: max over rows
-    of |x_i| + (|r_i| + Σ_l |x_l|·|G_li|) / max(G_ii, ε), x the sweep's
-    state when column i is updated (columns before i new, from ``want``;
-    the others from X).  An fp32 sum's rounding is relative to that size,
-    not to the new x_i, which cancellation can leave small."""
-    import torch
-    k = G.shape[0]
-    Ga = G.double().abs()
-    before = torch.ones(k, k, dtype=torch.bool, device=G.device).triu(1)
-    cancel = (want.double().abs() @ (Ga * before)
-              + X.double().abs() @ (Ga * ~before))
-    cancel += R.double().abs()
-    cancel /= G.double().diagonal().clamp_min(eps)
-    cancel += X.double().abs()
-    diff = (got.double() - want.double()).abs().amax(0)
-    return (diff / cancel.amax(0).clamp_min(1e-30)).max().item()
 
 
 @contextlib.contextmanager
@@ -389,11 +381,16 @@ def phase_luc(dev, cases, errs: dict, label: str, time_rows: int,
                 want = getattr(ref, name)(X, G, R, eps)
                 torch.cuda.synchronize()
                 abs_err, err = col_scaled_err(got, want)
+                extra = ""
+                if name == "hals_sweep":
+                    # phase 8c's note; and against float64 sums
+                    err, note = hals_errs(got, want, X, G, R, eps, dname)
+                    extra = f" ({note})"
                 ok = (err <= TOL[dname] and got.dtype == xdt
                       and bool(torch.isfinite(got.float()).all()))
                 log(f"[luc] {name:10s} {dname:8s} {label:6s} {(r, k)} "
-                    f"eps {eps:.1e} column-scaled err {err:.3e} (tol "
-                    f"{TOL[dname]:.0e}) abs {abs_err:.3e} "
+                    f"eps {eps:.1e} err {err:.3e}{extra} "
+                    f"(tol {TOL[dname]:.0e}) abs {abs_err:.3e} "
                     f"{'ok' if ok else 'FAIL'}")
                 require(ok, f"{name} {dname} {(r, k)} eps {eps} disagrees "
                             f"with its plain version: {err:.3e}")
@@ -421,26 +418,30 @@ def phase_luc(dev, cases, errs: dict, label: str, time_rows: int,
                 lambda: X * (R / (torch.matmul(X, G) + eps)), 3)
             extra = (f", the three-op torch expression "
                      f"{row['torch_expr_ms']:.3f} ms")
+        elif (r, k) in HALS_BEFORE_MS:
+            extra = (f", before the redesign {HALS_BEFORE_MS[r, k]} ms "
+                     f"(PERF.md)")
         out[name] = row
         log(f"[luc timings] {name:10s} fp32 {label} {(r, k)} kernel "
             f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms{extra}, "
             f"bound {b_ms:.3f} ms ({b_by}); "
             f"{12 * r * k / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s")
-    # mu_update with a bf16 carry (fp32 R): X read and written in 2 bytes
+    # both with a bf16 carry (fp32 R): X read and written in 2 bytes
     Xb = X.bfloat16()
     eps = eps_for(torch.bfloat16)
-    kern = lambda: ops.mu_update(Xb, G, R, eps=eps)
-    plain = lambda: ref.mu_update(Xb, G, R, eps)
-    p1, k1, k2, p2 = (time_ms(f, n) for f, n in (
-        (plain, 3), (kern, 20), (kern, 20), (plain, 3)))
     b_ms, b_by = bound_ms(6 * r * k, 2 * r * k, 2.0 * r * k * k, "float32")
-    out["mu_update"].update({"ms_bf16": min(k1, k2),
-                             "plain_ms_bf16": min(p1, p2),
-                             "bound_ms_bf16": b_ms})
-    log(f"[luc timings] mu_update  bf16 {label} {(r, k)} kernel "
-        f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, bound "
-        f"{b_ms:.3f} ms ({b_by}); {8 * r * k / (min(k1, k2) * 1e-3) / 1e9:.0f}"
-        f" GB/s")
+    for name in ("mu_update", "hals_sweep"):
+        kern = lambda: getattr(ops, name)(Xb, G, R, eps=eps)
+        plain = lambda: getattr(ref, name)(Xb, G, R, eps)
+        p1, k1, k2, p2 = (time_ms(f, n) for f, n in (
+            (plain, 3), (kern, 20), (kern, 20), (plain, 3)))
+        out[name].update({"ms_bf16": min(k1, k2),
+                          "plain_ms_bf16": min(p1, p2),
+                          "bound_ms_bf16": b_ms})
+        log(f"[luc timings] {name:10s} bf16 {label} {(r, k)} kernel "
+            f"{k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}); "
+            f"{8 * r * k / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s")
     del X, G, R, Xb
     torch.cuda.empty_cache()
     for k in mu_ks:
@@ -483,18 +484,24 @@ def phase_luc(dev, cases, errs: dict, label: str, time_rows: int,
     return out
 
 
-def luc_f64(name: str, X, G, R, eps: float):
-    """mu_update or hals_sweep in float64, the exact value both the kernel
-    and its plain version are held against where fp32 sums cancel."""
-    X64, G64, R64 = X.double(), G.double(), R.double()
-    if name == "mu_update":
-        return X64 * (R64 / (X64 @ G64 + eps))
-    out = X64.clone()
-    for i in range(G.shape[0]):
-        xi = out[:, i] + (R64[:, i] - out @ G64[:, i]) / max(
-            G64[i, i].item(), eps)
-        out[:, i] = xi.clamp_min(0.0)
-    return out
+def hals_errs(got, want, X, G, R, eps: float,
+              dname: str) -> tuple[float, str]:
+    """hals_sweep's kernel result ``got`` against its plain version
+    ``want`` and float64 sums (ref.hals_sweep_f64): fp32 on the sweep's
+    scale (ref.sweep_scaled_err) against both; bf16 column-scaled against
+    the plain version (a bf16 output's rounding is relative to itself, not
+    to the sums) and on the sweep's scale against float64.  The larger of
+    the two, and a note with every distance and the plain version's own."""
+    from repro_torch.kernels import ref
+    exact = ref.hals_sweep_f64(X, G, R, eps)
+    col = col_scaled_err(got, want)[1]
+    vs_plain = ref.sweep_scaled_err(got, want, X, G, R, eps)
+    vs_f64 = ref.sweep_scaled_err(got, exact, X, G, R, eps)
+    plain_f64 = ref.sweep_scaled_err(want, exact, X, G, R, eps)
+    note = (f"column-scaled vs the plain version {col:.3e}; on the sweep's "
+            f"scale vs the plain version {vs_plain:.3e}, vs float64: kernel "
+            f"{vs_f64:.3e}, plain version {plain_f64:.3e}")
+    return max(vs_plain if dname == "float32" else col, vs_f64), note
 
 
 def phase_small() -> None:
@@ -1355,14 +1362,18 @@ def phase_serve_dense(A, res) -> tuple[dict, dict]:
 
 
 def phase_wide(A, seed: int, errs: dict) -> tuple[dict, dict, dict]:
-    """Phase 8c, k = 160 (past hals_sweep's register-resident kernel):
-    mu_update and hals_sweep at Video's W rows against their plain versions
-    in fp32 and with a bf16 carry, then timed in fp32 beside their bound
-    and plain versions; dense mu and hals fits for 2 iterations (launch
-    counters reset just before each fit, read just after; the last rel
-    error against a direct ||A − WH|| / ||A||); one fold-in batch of 64 rows
-    with each of mu and hals on the hals fit's factors.  Returns
-    (launches, summary, timings)."""
+    """Phase 8c, k = 160: mu_update, hals_sweep and hals_sweep's
+    row-per-warp kernel (hals_sweep_wide, forced by its plan) at Video's W
+    rows against their plain versions in fp32 and with a bf16 carry
+    (hals_sweep also against float64 sums: hals_errs), each launch
+    counted, then timed in fp32 beside their bound and plain versions;
+    dense mu and hals fits for 2 iterations (launch counters reset just
+    before each fit, read just after; the last rel error against a direct
+    ||A − WH|| / ||A||); one fold-in batch of 64 rows with each of mu and
+    hals on the hals fit's factors; and one with hals at K_ROWWISE, on a
+    factor made from the seed, where the row-per-warp kernel serves.
+    Returns (launches, summary, timings)."""
+    import functools
     import numpy as np
     import torch
     from repro_torch.core.engine import NMFSolver
@@ -1373,46 +1384,46 @@ def phase_wide(A, seed: int, errs: dict) -> tuple[dict, dict, dict]:
     t_phase = time.perf_counter()
     m, n = A.shape
     k = K_WIDE
-    kernel_of = {"mu_update": "mu_update", "hals_sweep": "hals_sweep_wide"}
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    rowwise = ops.HalsPlan(0, 0, 0, 0, ops.LUC_ROWWISE_BLOCKS_PER_SM * sms, 0)
+    kernel_of = {"mu_update": ops.mu_update, "hals_sweep": ops.hals_sweep,
+                 "hals_sweep_wide": functools.partial(ops.hals_sweep,
+                                                      plan=rowwise)}
+    plain_of = {"mu_update": ref.mu_update, "hals_sweep": ref.hals_sweep,
+                "hals_sweep_wide": ref.hals_sweep}
     gen = torch.Generator(device=A.device).manual_seed(seed + 8)
     for dname, xdt in (("float32", torch.float32),
                        ("bfloat16", torch.bfloat16)):
         X, G, R = luc_problem(gen, m, k, xdt, torch.float32)
         eps = eps_for(xdt)
-        for name, key in kernel_of.items():
-            got = getattr(ops, name)(X, G, R, eps=eps)
-            want = getattr(ref, name)(X, G, R, eps)
+        for name, kern in kernel_of.items():
+            ops.reset_launches()
+            got = kern(X, G, R, eps=eps)
             torch.cuda.synchronize()
+            launched = ops.LAUNCHES[name]
+            want = plain_of[name](X, G, R, eps)
             abs_err, err = col_scaled_err(got, want)
             extra = ""
-            if name == "hals_sweep" and dname == "float32":
+            if name != "mu_update":
                 # The sweep's x_i + (r_i − (X·G)_i) / G_ii cancels: at k =
                 # 160 here (X·G)_i reaches 10³ while the new x_i clamp to 0
                 # or stay ≈ 10⁻², so a column's maximum is no measure of
-                # its sums' rounding.  The kernel is held against the plain
-                # version and against float64 on the scale of what each
-                # update adds and cancels (sweep_scaled_err), at TOL.
-                exact = luc_f64(name, X, G, R, eps)
-                err = sweep_scaled_err(got, want, X, G, R, eps)
-                k64 = sweep_scaled_err(got, exact, X, G, R, eps)
-                p64 = sweep_scaled_err(want, exact, X, G, R, eps)
-                extra = (f"; on the sweep's scale vs the plain version "
-                         f"{err:.3e}, vs float64: kernel {k64:.3e}, plain "
-                         f"version {p64:.3e}; column-scaled vs float64: "
-                         f"kernel {col_scaled_err(got.double(), exact)[1]:.3e}"
-                         f", plain version "
-                         f"{col_scaled_err(want.double(), exact)[1]:.3e}")
-                err = max(err, k64)
-                del exact
-            ok = (err <= TOL[dname] and got.dtype == xdt
+                # an fp32 sum's rounding.  fp32 is held against the plain
+                # version and float64 on the scale of what each update adds
+                # and cancels (ref.sweep_scaled_err), at TOL; bf16, whose
+                # outputs round relative to themselves, column-scaled
+                # against the plain version and on that scale against
+                # float64.
+                err, note = hals_errs(got, want, X, G, R, eps, dname)
+                extra = f"; {note}"
+            ok = (err <= TOL[dname] and got.dtype == xdt and launched == 1
                   and bool(torch.isfinite(got.float()).all()))
-            log(f"[wide] {key:15s} {dname:8s} {(m, k)} column-scaled err "
-                f"vs the plain version {col_scaled_err(got, want)[1]:.3e} "
-                f"abs {abs_err:.3e}{extra} (tol {TOL[dname]:.0e}) "
-                f"{'ok' if ok else 'FAIL'}")
-            require(ok, f"{key} {dname} at k = {k} disagrees with its plain "
-                        f"version: {err:.3e}")
-            e = errs.setdefault(key, [0.0, 0.0])
+            log(f"[wide] {name:15s} {dname:8s} {(m, k)} err {err:.3e} abs "
+                f"{abs_err:.3e}{extra} (tol {TOL[dname]:.0e}); launches "
+                f"{launched} {'ok' if ok else 'FAIL'}")
+            require(ok, f"{name} {dname} at k = {k} disagrees with its "
+                        f"plain version: {err:.3e} (launches {launched})")
+            e = errs.setdefault(name, [0.0, 0.0])
             e[0], e[1] = max(e[0], abs_err), max(e[1], err)
             del got, want
         del X, G, R
@@ -1421,17 +1432,21 @@ def phase_wide(A, seed: int, errs: dict) -> tuple[dict, dict, dict]:
     eps = eps_for(torch.float32)
     b_ms, b_by = bound_ms(8 * m * k, 4 * m * k, 2.0 * m * k * k, "float32")
     timings = {}
-    for name, key in kernel_of.items():
-        kern = lambda: getattr(ops, name)(X, G, R, eps=eps)
-        plain = lambda: getattr(ref, name)(X, G, R, eps)
+    for name, kern_fn in kernel_of.items():
+        kern = lambda: kern_fn(X, G, R, eps=eps)
+        plain = lambda: plain_of[name](X, G, R, eps)
         p1, k1, k2, p2 = (time_ms(f, n) for f, n in (
             (plain, 2), (kern, 5), (kern, 5), (plain, 2)))
-        timings[key] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
-                        "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None, "shape": [m, k]}
-        log(f"[wide timings] {key:15s} fp32 {(m, k)} kernel {k1:.3f}/"
-            f"{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms, bound {b_ms:.3f} ms "
-            f"({b_by}); {12 * m * k / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s")
+        timings[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None, "shape": [m, k]}
+        prior = {"hals_sweep": HALS_BEFORE_MS,
+                 "hals_sweep_wide": WIDE_BEFORE_MS}.get(name, {}).get((m, k))
+        before = f", recorded before {prior} ms (PERF.md)" if prior else ""
+        log(f"[wide timings] {name:15s} fp32 {(m, k)} kernel {k1:.3f}/"
+            f"{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} ms{before}, bound "
+            f"{b_ms:.3f} ms ({b_by}); "
+            f"{12 * m * k / (min(k1, k2) * 1e-3) / 1e9:.0f} GB/s")
     del X, G, R
     torch.cuda.empty_cache()
     launches, summary, kept = {}, {}, None
@@ -1446,7 +1461,7 @@ def phase_wide(A, seed: int, errs: dict) -> tuple[dict, dict, dict]:
         rels = res.rel_errors.numpy()
         want = dict.fromkeys(counts, 0)
         want.update(gram=3 * iters, ts_matmul=iters, ts_matmul_t=iters)
-        want.update({kernel_of[name]: c * iters
+        want.update({name: c * iters
                      for name, c in LUC_PER_ITER[algo].items()})
         direct = direct_rel_error(A, res.W, res.H)
         log(f"[wide] {algo:4s} k={k} {iters} iters: fit {wall:.2f} s incl. "
@@ -1473,11 +1488,23 @@ def phase_wide(A, seed: int, errs: dict) -> tuple[dict, dict, dict]:
         proj = FoldInProjector(art, algo=algo, iters=100, backend="cuda")
         lat, counts, _ = serve_batches(
             proj, [(64, rows, "ts_matmul")], "serve wide", algo,
-            {"mu": "mu_update", "hals": "hals_sweep_wide"}, 100)
+            {"mu": "mu_update", "hals": "hals_sweep"}, 100)
         add_launches(launches, counts)
         summary[f"foldin/{algo}"] = lat
         del proj
     del kept, art
+    # a hals fold-in at a rank no tile fits: the row-per-warp kernel serves
+    H = torch.rand((K_ROWWISE, n), generator=gen, device=A.device)
+    proj = FoldInProjector(H, algo="hals", iters=100, backend="cuda")
+    require(ops.plan_hals_sweep(64, K_ROWWISE, 4, sms).rows == 0,
+            f"a tile of hals_sweep's column-blocked kernel fits k = "
+            f"{K_ROWWISE}: the fold-in would not reach hals_sweep_wide")
+    lat, counts, _ = serve_batches(
+        proj, [(64, rows, "ts_matmul")], f"serve k={K_ROWWISE}", "hals",
+        {"hals": "hals_sweep_wide"}, 100)
+    add_launches(launches, counts)
+    summary[f"foldin/hals_k{K_ROWWISE}"] = lat
+    del proj, H
     torch.cuda.empty_cache()
     summary["phase_s"] = time.perf_counter() - t_phase
     log(f"[wide] phase 8c took {summary['phase_s']:.1f} s")
@@ -1632,9 +1659,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     counts, summary["wide"], wide = phase_wide(A, args.seed, errs)
     add_launches(launches, counts)
-    timings["hals_sweep_wide"] = wide["hals_sweep_wide"]
-    timings["mu_update"].update({f"{key}_k{K_WIDE}": v for key, v in
-                                 wide["mu_update"].items()})
+    timings["hals_sweep_wide"] = wide.pop("hals_sweep_wide")
+    for name, row in wide.items():
+        timings[name].update({f"{key}_k{K_WIDE}": v
+                              for key, v in row.items()})
     del A
     torch.cuda.empty_cache()
 

@@ -38,7 +38,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the CUDA error code of the launch; 0 is success).  ``<name>_tiles``
 #: writes the tile sizes the library was compiled with (``luc_tiles``: the
-#: widest k of hals_sweep's register-resident kernel).
+#: columns per block of hals_sweep's column-blocked sweep).
 SIGNATURES = {
     "ts_matmul": {
         "ts_matmul_launch": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,

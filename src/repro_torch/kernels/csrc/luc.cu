@@ -53,16 +53,53 @@
 //  shared memory, k ≳ 2,000): one warp per row, lane j over columns j,
 //  j + 32, …, G read through L1/L2.  For correctness, not speed.
 //
-// hals_sweep_kernel (k ≤ 128): one thread owns one row for the whole
-// sweep, its row of X in KMAX registers (KMAX ∈ {16, 32, 64, 128}), Gᵀ
-// and the X and R panels of 128 rows in shared memory.
-// hals_rowwise_kernel (k > 128): one warp owns one row.  The row lives in
-// `out` (X's dtype, so each new column is rounded there before later
-// columns read it), lane l holding columns l, l + 32, …; column i's X·G_i
-// is lane FMAs against row i of Gᵀ (transposed once per call into scratch
-// by luc_transpose_kernel, so the lanes' reads coalesce; L1 holds it up to
-// k ≈ 200, L2 beyond) and a fixed butterfly, and lane i mod 32 writes x_i.
-// For correctness, not speed.
+// hals_sweep_kernel (any k that its plan fits; ops.plan_hals_sweep):
+//  * The sweep in column blocks of HB = 16.  For column c of block J, the
+//    sum Σ_l x_l·G_lc (columns before c new) is taken in three parts: the
+//    columns outside the block as the row stands (before J new, after J
+//    old), the block's old columns from c on, and, as the block's columns
+//    are swept in order, each new x_j·G_jc.  In exact arithmetic that is
+//    the sequential sweep, and no old value is added and taken back (an
+//    old-then-correct form cancelled, 1e-6 of the sweep's scale at k = 50,
+//    10× the plain version; this order lands as close to float64 sums as
+//    the plain version does).  The product over the columns outside the
+//    block leaves the serial chain (W independent fp32 chains, each over l
+//    in order), a block's values sit in fixed registers, and nothing is
+//    padded past k rounded up to 4 (the last block is 4, 8, 12 or 16 wide;
+//    G is zero past k).  1 / max(G_jj, ε) is taken once per block of
+//    threads, so the chain per column is a subtract and an FMA.
+//  * TPR threads own a row of the tile for the whole sweep (TPR = 1, or 4
+//    where G and a row of X and R leave few rows an SM: thread q then sums
+//    the block's columns 4q..4q+3 and the sums reach the row's other
+//    threads by shuffles), so the blocks of a tile need no barrier: G[:,
+//    J] (k × HB floats) is read from shared memory as float4s (broadcasts
+//    when TPR = 1), x_l one shared load per row.  G is staged once per
+//    block of threads when all of it fits beside the ring (`gblocks` = the
+//    number of column blocks), else restaged from L2 per block of columns
+//    (`gblocks` = 1; two barriers per column block).
+//  * The X and R panels of the next tiles arrive by cp.async into a ring of
+//    `stages` stages (mu_update_kernel's copies), persistent blocks walking
+//    the tiles in a grid-stride loop.  An fp32 X with gcd(k, 32) ≤ 2 is
+//    swept where it lands (`direct`: 32 rows at stride k fall in 16 or 32
+//    banks); otherwise X is widened to fp32 at the odd stride k | 1.  New
+//    values are rounded to X's dtype as they are written, overwrite the
+//    panel and are stored coalesced, once.
+//  * max(v, 0) keeps a NaN, as the plain version; no atomics and a fixed
+//    order, so repeated runs and every plan give the same bits.
+// Bound: bytes (12·r·k fp32) at k = 50; at k = 160 the fp32 operations of
+// the sweep, 2·r·k², are 0.774 ms at Video's rows against 0.58 ms of bytes.
+// Measured (tools/probe_luc_spmm.py, PERF.md §6): at k = 50 it is neither
+// issue- nor shared-load-bound; the rows resident on an SM (two blocks of
+// 256 rows, one stage each) set how much of the copies the sweep hides.
+// hals_rowwise_kernel: the k no plan fits (one 32-row tile, one stage and
+// a column block of G beyond shared memory: k ≥ 516 fp32, not every k
+// above; ops.plan_hals_sweep decides).  One warp owns one row.  The row
+// lives in `out` (X's dtype, so each new column is rounded there before
+// later columns read it), lane l holding columns l, l + 32, …; column
+// i's X·G_i is lane FMAs against row i of Gᵀ (transposed once per call
+// into scratch by luc_transpose_kernel, so the lanes' reads coalesce) and
+// a fixed butterfly, and lane i mod 32 writes x_i.  For correctness, not
+// speed.
 #include "common.cuh"
 
 namespace {
@@ -70,9 +107,13 @@ namespace {
 using repro_torch::to_f32;
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int ROWS = 128;        // hals_sweep_kernel: rows per block
-constexpr int KMAX_LIMIT = 128;  // hals_sweep_kernel: the widest template
 constexpr int MU_THREADS = 256;  // mu_update_kernel: 8 warps
+constexpr int HB = 16;           // hals_sweep_kernel: columns per block
+// hals_sweep_kernel: at most 256 threads a block, and registers for two
+// such blocks on an SM (≤ 128 a thread), as ops.plan_hals_sweep plans
+// (HALS_MAX_THREADS, HALS_THREADS_PER_SM)
+constexpr int HALS_MAX_THREADS = 256;
+constexpr int HALS_MIN_BLOCKS = 2;
 constexpr int WIDE_THREADS = 256;  // rowwise kernels: 8 warps, a row each
 
 __device__ __forceinline__ float round_to(float v, float*) { return v; }
@@ -292,118 +333,264 @@ mu_rowwise_kernel(const TX* __restrict__ X, const float* __restrict__ G,
 }
 
 // ---------------------------------------------------------------------------
-// hals_sweep_kernel (k ≤ 128)
+// hals_sweep_kernel
 // ---------------------------------------------------------------------------
 
-// Shared memory of one block: Gᵀ (k × KMAX), then the X and R panels
-// (ROWS × ks each, ks = k rounded up to odd).
-template <int KMAX>
-__host__ __device__ constexpr int64_t smem_floats(int k, int ks) {
-  return (int64_t)k * KMAX + 2 * (int64_t)ROWS * ks;
+// Byte offsets of hals_sweep_kernel's shared memory: `gblocks` column
+// blocks of G (k rows of HB floats each), the k reciprocals 1 / max(G_jj,
+// ε), X's fp32 panel (none when `direct`), then `stages` stages of (X
+// panel, R panel) as they arrive.  ops.py's hals_smem computes the same
+// sizes.
+struct HalsLayout {
+  int64_t g, rdiag, xf, xpanel, rpanel, stage, total;
+};
+
+__host__ __device__ __forceinline__ HalsLayout hals_layout(
+    int64_t k, int rows, int stages, int gblocks, int sx, int sr,
+    bool direct) {
+  HalsLayout L;
+  L.g = align16((int64_t)gblocks * k * HB * 4);
+  L.rdiag = align16(k * 4);
+  L.xf = direct ? 0 : align16((int64_t)rows * (k | 1) * 4);
+  L.xpanel = align16((int64_t)rows * k * sx + 16);
+  L.rpanel = align16((int64_t)rows * k * sr + 16);
+  L.stage = L.xpanel + L.rpanel;
+  L.total = L.g + L.rdiag + L.xf + stages * L.stage;
+  return L;
 }
 
-// Copy a contiguous panel of n elements (rows of k) between device memory
-// and a shared panel of row stride ks, converting to/from fp32.  Thread t
-// takes elements t, t + ROWS, ...; its (row, col) advance incrementally, and
-// LOAD_BATCH loads go out before their stores so that enough bytes are
-// in flight.
-constexpr int LOAD_BATCH = 16;
-
-template <typename T>
-__device__ __forceinline__ void load_panel(const T* __restrict__ src, int n,
-                                           int k, int ks, float* dst) {
-  int row = threadIdx.x / k, col = threadIdx.x % k;
-  const int dr = ROWS / k, dc = ROWS % k;
-  for (int e0 = threadIdx.x; e0 < n; e0 += LOAD_BATCH * ROWS) {
-    float v[LOAD_BATCH];
-    int at[LOAD_BATCH];
+// One block of W columns from j0 (W a multiple of 4 · TPR, j0 + W ≤ k
+// rounded up to 4) of the sweep of one row, shared by its TPR threads:
+// thread q of the row (q < TPR) owns the block's columns cb = q·W/TPR to
+// cb + W/TPR.  x is the row (fp32, k values), r its row of R, gb = G[:,
+// j0 : j0 + HB) as k rows of HB floats (zeros past k), rd the reciprocals
+// 1 / max(G_jj, ε).  For each column c of the block, s_c = Σ_l x_l ·
+// G_{l, j0+c} with the columns before j0+c new, summed by c's owner:
+//   the columns l outside the block, as they stand (before j0 new, after
+//   the block old), one fp32 chain over l in order;
+//   then the block's own columns l ≥ j0+c, old, added in order;
+//   then, for c in order, x_{j0+c} ← max(0, x + (r − s_c) · rd_j), rounded
+//   to X's dtype (every thread of the row computes it, from s_c shuffled
+//   from its owner), and the new value times G_{j0+c, c'} added to every
+//   later s_c' of the block.
+// That is the sequential sweep's sum with its terms in another order: no
+// old value is added and then taken back, and every TPR adds each s_c in
+// the same order (the same bits).  The block's new values are stored after
+// its serial chain, so that chain is only the arithmetic.
+template <typename TX, typename TR, int TPR, int W>
+__device__ __forceinline__ void hals_block(float* x, const TR* r,
+                                           const float* gb, const float* rd,
+                                           int k, int j0, int q) {
+  constexpr int CW = W / TPR;          // columns a thread owns
+  static_assert(CW % 4 == 0, "a thread owns whole float4s of G");
+  const int cb = q * CW;
+  float p[CW];
 #pragma unroll
-    for (int u = 0; u < LOAD_BATCH; ++u) {
-      const int e = e0 + u * ROWS;
-      v[u] = e < n ? to_f32(src[e]) : 0.f;
-      at[u] = row * ks + col;
-      row += dr;
-      col += dc;
-      if (col >= k) { col -= k; ++row; }
+  for (int c = 0; c < CW; ++c) p[c] = 0.f;
+  const float4* g4 = reinterpret_cast<const float4*>(gb) + cb / 4;
+  const int jw = j0 + W < k ? j0 + W : k;      // the block's end
+  for (int part = 0; part < 2; ++part) {       // l < j0, then l ≥ jw
+    const int l1 = part ? k : j0;
+#pragma unroll 2
+    for (int l = part ? jw : 0; l < l1; ++l) {
+      float4 g[CW / 4];
+#pragma unroll
+      for (int i = 0; i < CW / 4; ++i) g[i] = g4[l * (HB / 4) + i];
+      const float xl = x[l];
+#pragma unroll
+      for (int i = 0; i < CW / 4; ++i) {
+        p[4 * i] = fmaf(xl, g[i].x, p[4 * i]);
+        p[4 * i + 1] = fmaf(xl, g[i].y, p[4 * i + 1]);
+        p[4 * i + 2] = fmaf(xl, g[i].z, p[4 * i + 2]);
+        p[4 * i + 3] = fmaf(xl, g[i].w, p[4 * i + 3]);
+      }
     }
+  }
+  // the block's old columns: x_{j0+e} · G_{j0+e, c} for c ≤ e
 #pragma unroll
-    for (int u = 0; u < LOAD_BATCH; ++u)
-      if (e0 + u * ROWS < n) dst[at[u]] = v[u];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_panel(T* __restrict__ dst, int n, int k,
-                                            int ks, const float* src) {
-  int row = threadIdx.x / k, col = threadIdx.x % k;
-  const int dr = ROWS / k, dc = ROWS % k;
-  for (int e = threadIdx.x; e < n; e += ROWS) {
-    store(dst + e, src[row * ks + col]);
-    row += dr;
-    col += dc;
-    if (col >= k) { col -= k; ++row; }
-  }
-}
-
-// Σ_l x[l] · gcol[l] over KMAX (gcol zero beyond k), in four partial sums.
-template <int KMAX>
-__device__ __forceinline__ float dot_row(const float (&x)[KMAX],
-                                         const float* gcol) {
-  const float4* g4 = reinterpret_cast<const float4*>(gcol);
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  for (int e = 0; e < W; ++e) {
+    if (j0 + e < k) {                  // the same for every thread
+      const float xe = x[j0 + e];
 #pragma unroll
-  for (int q = 0; q < KMAX / 4; ++q) {
-    const float4 g = g4[q];
-    a0 = fmaf(x[4 * q], g.x, a0);
-    a1 = fmaf(x[4 * q + 1], g.y, a1);
-    a2 = fmaf(x[4 * q + 2], g.z, a2);
-    a3 = fmaf(x[4 * q + 3], g.w, a3);
+      for (int i = 0; i < CW / 4; ++i) {
+        if (TPR > 1 || 4 * i <= e) {
+          const float4 g = g4[(j0 + e) * (HB / 4) + i];
+          const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (cb + 4 * i + u <= e)
+              p[4 * i + u] = fmaf(xe, gv[u], p[4 * i + u]);
+        }
+      }
+    }
   }
-  return (a0 + a1) + (a2 + a3);
+  float xn[W];
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    if (j0 + c < k) {
+      float s = p[c % CW];
+      if (TPR > 1)                     // from the thread that owns c
+        s = __shfl_sync(FULL, s, (threadIdx.x & 31 & ~(TPR - 1)) | (c / CW),
+                        32);
+      float v = fmaf(to_f32(r[j0 + c]) - s, rd[j0 + c], x[j0 + c]);
+      v = v < 0.f ? 0.f : v;           // max(v, 0), keeping a NaN
+      v = round_to(v, static_cast<TX*>(nullptr));
+      xn[c] = v;
+      // row j0 + c of the block's G, at this thread's columns after c
+#pragma unroll
+      for (int i = 0; i < CW / 4; ++i) {
+        if (TPR > 1 || 4 * i + 3 > c) {
+          const float4 g = g4[(j0 + c) * (HB / 4) + i];
+          const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (cb + 4 * i + u > c)
+              p[4 * i + u] = fmaf(v, gv[u], p[4 * i + u]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < W; ++c)
+    if (j0 + c < k) x[j0 + c] = xn[c];
 }
 
-template <typename TX, typename TR, int KMAX>
-__global__ void __launch_bounds__(ROWS)
+template <typename TX, typename TR, int TPR>
+__global__ void __launch_bounds__(HALS_MAX_THREADS, HALS_MIN_BLOCKS)
 hals_sweep_kernel(const TX* __restrict__ X, const float* __restrict__ G,
                   const TR* __restrict__ R, TX* __restrict__ out, int64_t r,
-                  int k, int ks, float eps) {
-  extern __shared__ __align__(16) float hsmem[];
-  float* gt = hsmem;
-  float* xp = gt + (int64_t)k * KMAX;
-  float* rp = xp + (int64_t)ROWS * ks;
-  const int t = threadIdx.x;
-  const int64_t row0 = (int64_t)blockIdx.x * ROWS;
-  const int rows = (int)(r - row0 < ROWS ? r - row0 : ROWS);
-  for (int e = t; e < k * KMAX; e += ROWS) {
-    const int i = e / KMAX;          // column of G
-    const int l = e % KMAX;
-    gt[e] = l < k ? G[(int64_t)l * k + i] : 0.f;
-  }
-  load_panel(X + row0 * k, rows * k, k, ks, xp);
-  load_panel(R + row0 * k, rows * k, k, ks, rp);
-  __syncthreads();
-  float x[KMAX];
-  if (t < rows) {
-#pragma unroll
-    for (int l = 0; l < KMAX; ++l) x[l] = l < k ? xp[t * ks + l] : 0.f;
-    for (int i = 0; i < k; ++i) {
-      const float xg = dot_row<KMAX>(x, gt + i * KMAX);
-      float gii = gt[i * KMAX + i];
-      gii = gii < eps ? eps : gii;
-      float v = xp[t * ks + i] + (rp[t * ks + i] - xg) / gii;
-      v = v < 0.f ? 0.f : v;                  // max(v, 0), keeping a NaN
-      v = round_to(v, static_cast<TX*>(nullptr));
-      xp[t * ks + i] = v;
-#pragma unroll
-      for (int l = 0; l < KMAX; ++l) x[l] = l == i ? v : x[l];
+                  int k, int stages, int gblocks, int vec, int direct,
+                  float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nt = blockDim.x;
+  const int rows = nt / TPR;                   // TPR threads a row
+  const bool dx = direct && sizeof(TX) == 4;  // x swept in the fp32 stage
+  const HalsLayout L = hals_layout(k, rows, stages, gblocks, sizeof(TX),
+                                   sizeof(TR), dx);
+  float* gs = reinterpret_cast<float*>(smem);
+  float* rd = reinterpret_cast<float*>(smem + L.g);
+  float* xf = reinterpret_cast<float*>(smem + L.g + L.rdiag);
+  unsigned char* ring = smem + L.g + L.rdiag + L.xf;
+  const int tid = threadIdx.x;
+  const int ks = k | 1;
+  const int nb = (k + HB - 1) / HB;            // column blocks
+  const bool whole = gblocks >= nb;            // all of G, staged once
+  const int W = vec ? 16 : 4;
+  const int64_t ntiles = (r + rows - 1) / rows;
+  // the (row, column) of this thread's first element of a panel, and the
+  // step to its next (nt elements on)
+  const int t0 = tid / k, l0 = tid % k;
+  const int dr = nt / k, dc = nt % k;
+
+  // G[:, b·HB : (b + 1)·HB) as k rows of HB floats, zeros past k
+  auto stage_g = [&](int b, float* dst) {
+    const int c0 = b * HB;
+    for (int e = tid; e < k * HB; e += nt) {
+      const int l = e / HB, c = e % HB;
+      dst[e] = c0 + c < k ? G[(int64_t)l * k + c0 + c] : 0.f;
     }
+  };
+  // the X and R panels of `tile` into stage s, as one commit group (an
+  // empty one past the last tile, so the group count stays in step)
+  auto issue = [&](int64_t tile, int s) {
+    if (tile < ntiles) {
+      const int64_t row0 = tile * rows;
+      const int64_t nr = r - row0 < rows ? r - row0 : rows;
+      unsigned char* st = ring + s * L.stage;
+      if (vec) {
+        issue_panel<16>(st, X + row0 * k, nr * k * sizeof(TX), X);
+        issue_panel<16>(st + L.xpanel, R + row0 * k, nr * k * sizeof(TR), R);
+      } else {
+        issue_panel<4>(st, X + row0 * k, nr * k * sizeof(TX), X);
+        issue_panel<4>(st + L.xpanel, R + row0 * k, nr * k * sizeof(TR), R);
+      }
+    }
+    repro_torch::cp_async_commit();
+  };
+
+  // visible after the first barrier
+  for (int j = tid; j < k; j += nt) {
+    const float gjj = G[(int64_t)j * k + j];
+    rd[j] = 1.f / (gjj < eps ? eps : gjj);
   }
-  __syncthreads();
-  store_panel(out + row0 * k, rows * k, k, ks, xp);
+  if (whole)
+    for (int b = 0; b < nb; ++b) stage_g(b, gs + (int64_t)b * k * HB);
+  int64_t tile = blockIdx.x;
+  for (int s = 0; s + 1 < stages; ++s) issue(tile + (int64_t)s * gridDim.x, s);
+  for (int64_t it = 0; tile < ntiles; ++it, tile += gridDim.x) {
+    const int s = (int)(it % stages);
+    issue(tile + (int64_t)(stages - 1) * gridDim.x,
+          (int)((it + stages - 1) % stages));
+    if (stages >= 3)
+      repro_torch::cp_async_wait<2>();
+    else if (stages == 2)
+      repro_torch::cp_async_wait<1>();
+    else
+      repro_torch::cp_async_wait<0>();
+    __syncthreads();                   // this tile's panels have landed
+
+    const int64_t row0 = tile * rows;
+    const int nr = (int)(r - row0 < rows ? r - row0 : rows);
+    unsigned char* st = ring + s * L.stage;
+    TX* xp = reinterpret_cast<TX*>(
+        st + (reinterpret_cast<uintptr_t>(X + row0 * k) & (W - 1)));
+    const TR* rp = reinterpret_cast<const TR*>(
+        st + L.xpanel + (reinterpret_cast<uintptr_t>(R + row0 * k) & (W - 1)));
+    if (!dx) {
+      for (int e = tid, t = t0, l = l0; e < nr * k; e += nt) {
+        xf[t * ks + l] = to_f32(xp[e]);
+        t += dr;
+        l += dc;
+        if (l >= k) { l -= k; ++t; }
+      }
+      __syncthreads();
+    }
+    // Rows past nr hold a stale stage: they are swept and never stored.
+    float* xs = dx ? reinterpret_cast<float*>(xp) : xf;
+    float* xrow = xs + (tid / TPR) * (dx ? k : ks);
+    const TR* rrow = rp + (tid / TPR) * k;
+    const int q = tid % TPR;
+
+    for (int b = 0; b < nb; ++b) {
+      const float* gb = gs + (whole ? (int64_t)b * k * HB : 0);
+      if (!whole) {                    // G restaged per block of columns
+        if (b > 0) __syncthreads();
+        stage_g(b, gs);
+        __syncthreads();
+      }
+      const int j0 = b * HB, w = k - j0;      // the last block narrower
+      if constexpr (TPR == 4) {
+        hals_block<TX, TR, 4, 16>(xrow, rrow, gb, rd, k, j0, q);
+      } else {
+        if (w > 12)
+          hals_block<TX, TR, 1, 16>(xrow, rrow, gb, rd, k, j0, q);
+        else if (w > 8)
+          hals_block<TX, TR, 1, 12>(xrow, rrow, gb, rd, k, j0, q);
+        else if (w > 4)
+          hals_block<TX, TR, 1, 8>(xrow, rrow, gb, rd, k, j0, q);
+        else
+          hals_block<TX, TR, 1, 4>(xrow, rrow, gb, rd, k, j0, q);
+      }
+    }
+    __syncthreads();
+    TX* o = out + row0 * k;
+    if (dx) {
+      for (int e = tid; e < nr * k; e += nt) store(o + e, xs[e]);
+    } else {
+      for (int e = tid, t = t0, l = l0; e < nr * k; e += nt) {
+        store(o + e, xf[t * ks + l]);
+        t += dr;
+        l += dc;
+        if (l >= k) { l -= k; ++t; }
+      }
+    }
+    __syncthreads();                   // the stage, xf and G are free again
+  }
+  repro_torch::cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
-// hals_rowwise_kernel (k > 128)
+// hals_rowwise_kernel (the k no plan of hals_sweep_kernel fits)
 // ---------------------------------------------------------------------------
 
 // Gt = Gᵀ for G (k, k), through 32 × 32 tiles in shared memory so that
@@ -504,48 +691,53 @@ cudaError_t launch_mu(const void* X, const void* G, const void* R, void* out,
   return cudaErrorInvalidValue;
 }
 
-template <typename TX, typename TR, int KMAX>
-cudaError_t launch_hals_typed(const void* X, const void* G, const void* R,
-                              void* out, int64_t r, int k, float eps,
-                              cudaStream_t s) {
-  const int ks = k | 1;
-  const size_t bytes = (size_t)smem_floats<KMAX>(k, ks) * sizeof(float);
-  auto kern = &hals_sweep_kernel<TX, TR, KMAX>;
+template <typename TX, typename TR, int TPR>
+cudaError_t launch_hals_ring(const void* X, const void* G, const void* R,
+                             void* out, int64_t r, int64_t k, float eps,
+                             int rows, int stages, int gblocks, int blocks,
+                             int vec, int direct, cudaStream_t s) {
+  const HalsLayout L = hals_layout(k, rows, stages, gblocks, sizeof(TX),
+                                   sizeof(TR), direct && sizeof(TX) == 4);
+  if (L.total > 232448) return cudaErrorInvalidValue;
+  auto kern = &hals_sweep_kernel<TX, TR, TPR>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((r + ROWS - 1) / ROWS);
-  kern<<<blocks, ROWS, bytes, s>>>(
+  kern<<<blocks, rows * TPR, L.total, s>>>(
       static_cast<const TX*>(X), static_cast<const float*>(G),
-      static_cast<const TR*>(R), static_cast<TX*>(out), r, k, ks, eps);
+      static_cast<const TR*>(R), static_cast<TX*>(out), r, (int)k, stages,
+      gblocks, vec, direct, eps);
   return cudaGetLastError();
 }
 
 template <typename TX, typename TR>
 cudaError_t launch_hals(const void* X, const void* G, const void* R,
                         void* out, void* scratch, int64_t r, int64_t k,
-                        float eps, int blocks, cudaStream_t s) {
-  const int kk = (int)k;
-  if (k <= 16)
-    return launch_hals_typed<TX, TR, 16>(X, G, R, out, r, kk, eps, s);
-  if (k <= 32)
-    return launch_hals_typed<TX, TR, 32>(X, G, R, out, r, kk, eps, s);
-  if (k <= 64)
-    return launch_hals_typed<TX, TR, 64>(X, G, R, out, r, kk, eps, s);
-  if (k <= KMAX_LIMIT)
-    return launch_hals_typed<TX, TR, 128>(X, G, R, out, r, kk, eps, s);
-  if (scratch == nullptr) return cudaErrorInvalidValue;
-  const int64_t tiles = (k + 31) / 32;
-  if (tiles > 65535) return cudaErrorInvalidValue;
-  float* Gt = static_cast<float*>(scratch);
-  luc_transpose_kernel<<<dim3((unsigned)tiles, (unsigned)tiles), 256, 0, s>>>(
-      static_cast<const float*>(G), Gt, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  hals_rowwise_kernel<TX, TR><<<blocks, WIDE_THREADS, 0, s>>>(
-      static_cast<const TX*>(X), Gt, static_cast<const TR*>(R),
-      static_cast<TX*>(out), r, k, eps);
-  return cudaGetLastError();
+                        float eps, int rows, int stages, int gblocks, int rt,
+                        int blocks, int vec, int direct, cudaStream_t s) {
+  if (rows == 0) {                     // the row-per-warp kernel
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    const int64_t tiles = (k + 31) / 32;
+    if (tiles > 65535) return cudaErrorInvalidValue;
+    float* Gt = static_cast<float*>(scratch);
+    luc_transpose_kernel<<<dim3((unsigned)tiles, (unsigned)tiles), 256, 0,
+                           s>>>(static_cast<const float*>(G), Gt, k);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    hals_rowwise_kernel<TX, TR><<<blocks, WIDE_THREADS, 0, s>>>(
+        static_cast<const TX*>(X), Gt, static_cast<const TR*>(R),
+        static_cast<TX*>(out), r, k, eps);
+    return cudaGetLastError();
+  }
+  const int nb = (int)((k + HB - 1) / HB);
+  if (stages < 1 || stages > 3 || (rt != 1 && rt != 4) || rows * rt % 32 ||
+      rows * rt > HALS_MAX_THREADS || (gblocks != 1 && gblocks != nb))
+    return cudaErrorInvalidValue;
+  if (rt == 4)
+    return launch_hals_ring<TX, TR, 4>(X, G, R, out, r, k, eps, rows, stages,
+                                       gblocks, blocks, vec, direct, s);
+  return launch_hals_ring<TX, TR, 1>(X, G, R, out, r, k, eps, rows, stages,
+                                     gblocks, blocks, vec, direct, s);
 }
 
 template <typename TX, typename TR>
@@ -556,24 +748,26 @@ cudaError_t launch_op(int op, const void* X, const void* G, const void* R,
   if (op == 0)
     return launch_mu<TX, TR>(X, G, R, out, r, k, eps, rows, stages, chunk, rt,
                              blocks, vec, direct, s);
-  return launch_hals<TX, TR>(X, G, R, out, scratch, r, k, eps, blocks, s);
+  return launch_hals<TX, TR>(X, G, R, out, scratch, r, k, eps, rows, stages,
+                             chunk, rt, blocks, vec, direct, s);
 }
 
 }  // namespace
 
-// The widest k of hals_sweep's register-resident kernel (ops.LUC_HALS_KMAX);
-// wider k takes hals_rowwise_kernel, which needs a k × k fp32 scratch.
+// The columns of one block of hals_sweep_kernel's sweep (ops.HALS_BLOCK).
 extern "C" int luc_tiles(int* out) {
-  out[0] = KMAX_LIMIT;
+  out[0] = HB;
   return 0;
 }
 
 // op 0: mu_update on the plan (rows, stages, chunk, rt, blocks, vec,
 // direct) of ops.plan_mu_update; rows = 0 takes the row-per-warp kernel
-// on `blocks` blocks.  op 1: hals_sweep; for k > KMAX_LIMIT, `scratch`
-// holds k × k fp32 and `blocks` sizes the row-per-warp grid.  X and out (r, k) of
-// x_dtype, R (r, k) of r_dtype (fp32, or X's dtype), G (k, k) fp32, all
-// contiguous; out may not alias X or R.  Dtype codes: 0 fp32, 1 bf16.
+// on `blocks` blocks.  op 1: hals_sweep on the plan (rows, stages,
+// gblocks in `chunk`, tpr in `rt`, blocks, vec, direct) of
+// ops.plan_hals_sweep; rows = 0 takes the row-per-warp kernel on `blocks`
+// blocks, with `scratch` holding k × k fp32.  X and out (r, k) of x_dtype, R (r, k) of
+// r_dtype (fp32, or X's dtype), G (k, k) fp32, all contiguous; out may not
+// alias X or R.  Dtype codes: 0 fp32, 1 bf16.
 extern "C" int luc_launch(int op, int x_dtype, int r_dtype, const void* X,
                           const void* G, const void* R, void* out,
                           void* scratch, int64_t r, int64_t k, float eps,

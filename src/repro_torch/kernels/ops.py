@@ -21,8 +21,8 @@ SpMM kernels skip triplets whose indices fall outside the output or B,
 as the reference's scatter drops out-of-range updates; the plain versions
 raise on them.  The LUC kernels take ε as an argument (default the TPU
 kernels' 1e-16; the rules pass ``eps_for(X.dtype)``) and every k, as the
-reference's rules do (``mu_update`` on ``plan_mu_update``'s tiles;
-``hals_sweep`` above k = 128 on a row-per-warp kernel).
+reference's rules do (``mu_update`` on ``plan_mu_update``'s tiles,
+``hals_sweep`` on ``plan_hals_sweep``'s).
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 #: launches of each kernel on CUDA tensors since the last reset
-#: (``hals_sweep_wide``: hals_sweep's row-per-warp kernel, k > 128)
+#: (``hals_sweep_wide``: hals_sweep's row-per-warp kernel, for the k that
+#: no plan of its column-blocked kernel fits)
 LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0, "spmm": 0,
             "spmm_sorted": 0, "mu_update": 0, "hals_sweep": 0,
             "hals_sweep_wide": 0}
@@ -80,7 +81,7 @@ SPMM_WARPS_PER_SM = 64
 #: SM at most; the rows a thread task's RT rows are spread over (RT =
 #: rows / MU_ROW_SLICES); an SM's shared memory and what the runtime keeps
 #: of it per block.  The row-per-warp LUC kernels: threads and blocks per
-#: SM.  hals_sweep's register-resident kernel takes k up to LUC_HALS_KMAX.
+#: SM.
 MU_LADDER = ((128, 2), (64, 3), (64, 2), (32, 3), (32, 2), (32, 1), (16, 1),
              (8, 1))
 MU_BLOCKS_PER_SM = 4
@@ -89,10 +90,24 @@ SMEM_PER_SM = 233_472
 SMEM_RESERVED_PER_BLOCK = 1_024
 LUC_ROWWISE_THREADS = 256
 LUC_ROWWISE_BLOCKS_PER_SM = 8
-LUC_HALS_KMAX = 128
+#: hals_sweep: columns per block of the sweep (luc.cu's HB, as luc_tiles
+#: reports it); the rows per tile and ring stages its plan chooses from;
+#: the threads of a block and of an SM at most (luc.cu's register budget:
+#: two blocks of 256 threads, 128 registers a thread); the rows that weigh
+#: a tile with G restaged per block of columns as much as its own (its
+#: trips to L2 and barriers, paid per tile); the threads an SM should hold
+#: at least, and the threads a row that make them up where rows are few
+HALS_BLOCK = 16
+HALS_ROWS = (256, 128, 64, 32)
+HALS_STAGES = (1, 2, 3)
+HALS_MAX_THREADS = 256
+HALS_THREADS_PER_SM = 512
+HALS_RESTAGE_ROWS = 256
+HALS_MIN_THREADS_PER_SM = 128
+HALS_WIDE_TPR = 4
 
 _TILES_EXPECTED = {"gram": GRAM_TILES, "ts_matmul": TS_TILES,
-                   "luc": (LUC_HALS_KMAX,)}
+                   "luc": (HALS_BLOCK,)}
 _TILES: dict[str, tuple[int, ...]] = {}
 
 
@@ -282,7 +297,7 @@ def _sm_count(device: torch.device) -> int:
 def tiles(name: str) -> tuple[int, ...]:
     """The fixed sizes library ``name`` was compiled with, as its
     ``<name>_tiles`` entry point reports them; raises if they are not the
-    ones this module plans with (GRAM_TILES, TS_TILES, LUC_HALS_KMAX)."""
+    ones this module plans with (GRAM_TILES, TS_TILES, HALS_BLOCK)."""
     if name not in _TILES:
         want = _TILES_EXPECTED[name]
         out = (ctypes.c_int * len(want))()
@@ -567,6 +582,11 @@ class MuPlan(NamedTuple):
     smem: int
     direct: bool = False
 
+    def launch_args(self, vec: bool) -> tuple[int, ...]:
+        """luc_launch's (rows, stages, chunk, rt, blocks, vec, direct)."""
+        return (self.rows, self.stages, self.chunk, self.rt, self.blocks,
+                int(vec), int(self.direct))
+
 
 def _align16(b: int) -> int:
     return -(-b // 16) * 16
@@ -635,6 +655,97 @@ def plan_mu_update(r: int, k: int, itemsize: int, sm_count: int, *,
     return MuPlan(t, s, chunk, rt, blocks, size, direct)
 
 
+class HalsPlan(NamedTuple):
+    """How hals_sweep_kernel walks X (r, k): persistent ``blocks`` of rows ·
+    tpr threads take tiles of ``rows`` rows (``tpr`` threads a row, for the
+    whole sweep, each owning 16 / tpr columns of a block) through a ring of
+    ``stages`` stages, with ``gblocks`` column blocks of G in shared memory
+    (all of them, staged once per block; or 1, restaged per block of
+    columns); ``direct``: an fp32 X is swept where it lands, with no fp32
+    copy; ``smem`` bytes of shared memory a block.  ``rows`` = 0: the
+    row-per-warp kernel (a k whose smallest tile does not fit) on
+    ``blocks`` blocks.  Every plan gives the same bits."""
+    rows: int
+    stages: int
+    gblocks: int
+    tpr: int
+    blocks: int
+    smem: int
+    direct: bool = False
+
+    def launch_args(self, vec: bool) -> tuple[int, ...]:
+        """luc_launch's (rows, stages, chunk, rt, blocks, vec, direct): its
+        chunk and rt slots carry gblocks and tpr for op 1."""
+        return (self.rows, self.stages, self.gblocks, self.tpr, self.blocks,
+                int(vec), int(self.direct))
+
+
+def hals_smem(k: int, rows: int, stages: int, gblocks: int, itemsize: int,
+              r_itemsize: int, direct: bool = False) -> int:
+    """Shared memory of hals_sweep_kernel (luc.cu's hals_layout): the
+    column blocks of G (k × HALS_BLOCK floats each), the k reciprocals of
+    G's diagonal, X's fp32 panel (rows × (k | 1); none when ``direct``),
+    and per stage the X and R panels as they arrive (a lead-in of up to 16
+    bytes each)."""
+    stage = (_align16(rows * k * itemsize + 16)
+             + _align16(rows * k * r_itemsize + 16))
+    xf = 0 if direct else _align16(rows * (k | 1) * 4)
+    return (_align16(gblocks * k * HALS_BLOCK * 4) + _align16(k * 4) + xf
+            + stages * stage)
+
+
+def _hals_blocks_per_sm(smem: int, threads: int) -> int:
+    return min(HALS_THREADS_PER_SM // threads,
+               SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_hals_sweep(r: int, k: int, itemsize: int, sm_count: int, *,
+                    r_itemsize: int = 4) -> HalsPlan:
+    """Of the tiles (HALS_ROWS rows, no more than r rounded up to 32;
+    HALS_STAGES stages; G whole or restaged per block of columns) that fit
+    shared memory, the one with the most rows resident on an SM (a thread
+    a row: the sweep's serial chains need many in flight), a restaged G's
+    rows weighed by rows / (rows + HALS_RESTAGE_ROWS); then the most
+    stages and rows.  Where that leaves fewer than HALS_MIN_THREADS_PER_SM
+    threads on an SM (a wide k: G and a row of X and R fill shared memory),
+    HALS_WIDE_TPR threads share each row.  None (a k whose 32-row tile, one
+    stage and one column block of G exceed shared memory): the row-per-warp
+    kernel.  An fp32 X with gcd(k, 32) ≤ 2 is swept where it lands
+    (``direct``: 32 rows at stride k fall in 16 or 32 banks).  Blocks: as
+    many as fit an SM, times ``sm_count``, and no more than the tiles.
+    ``itemsize`` is X's, ``r_itemsize`` R's (fp32 by default).  Cached: a
+    fold-in calls it once a sweep."""
+    direct = itemsize == 4 and math.gcd(k, 32) <= 2
+    nb = -(-k // HALS_BLOCK)
+    best, score = None, None
+    for rows in HALS_ROWS:
+        if rows > max(32, -(-r // 32) * 32):
+            continue
+        for stages in HALS_STAGES:
+            for gblocks in dict.fromkeys((nb, 1)):
+                smem = hals_smem(k, rows, stages, gblocks, itemsize,
+                                 r_itemsize, direct)
+                per_sm = _hals_blocks_per_sm(smem, rows)
+                if smem > SMEM_PER_BLOCK or per_sm < 1:
+                    continue
+                weight = per_sm * rows
+                if gblocks < nb:
+                    weight *= rows / (rows + HALS_RESTAGE_ROWS)
+                if score is None or (weight, stages, rows) > score:
+                    best, score = (rows, stages, gblocks, smem), (
+                        weight, stages, rows)
+    if best is None:
+        return HalsPlan(0, 0, 0, 0, _rowwise_blocks(r, sm_count), 0)
+    rows, stages, gblocks, smem = best
+    tpr = 1
+    if _hals_blocks_per_sm(smem, rows) * rows < HALS_MIN_THREADS_PER_SM:
+        tpr = HALS_WIDE_TPR
+    per_sm = _hals_blocks_per_sm(smem, rows * tpr)
+    blocks = max(1, min(-(-r // rows), per_sm * sm_count))
+    return HalsPlan(rows, stages, gblocks, tpr, blocks, smem, direct)
+
+
 def _check_luc(name: str, X: torch.Tensor, G: torch.Tensor,
                R: torch.Tensor) -> bool:
     """Validate LUC operands: X (r, k) fp32 or bf16, G (k, k) fp32, R (r, k)
@@ -672,27 +783,23 @@ def _check_luc(name: str, X: torch.Tensor, G: torch.Tensor,
 
 def _luc(name: str, op: int, X: torch.Tensor, G: torch.Tensor,
          R: torch.Tensor, eps: float,
-         plan: MuPlan | None = None) -> torch.Tensor:
+         plan: MuPlan | HalsPlan | None = None) -> torch.Tensor:
     r, k = X.shape
     tiles("luc")
     out = torch.empty_like(X)
     sms = _sm_count(X.device)
     scratch = None
-    if op == 0:
-        if plan is None:
-            plan = plan_mu_update(r, k, X.element_size(), sms,
-                                  r_itemsize=R.element_size())
-        vec = (plan.rows > 0 and all(
-            copy_width(t.data_ptr(), plan.rows * k * t.element_size()) == 16
-            for t in (X, R)))
-        args = (plan.rows, plan.stages, plan.chunk, plan.rt, plan.blocks,
-                int(vec), int(plan.direct))
-    else:
-        if k > LUC_HALS_KMAX:
-            name = "hals_sweep_wide"
-            scratch = torch.empty((k, k), dtype=torch.float32,
-                                  device=X.device)
-        args = (0, 0, 0, 0, _rowwise_blocks(r, sms), 0, 0)
+    if plan is None:
+        planner = plan_mu_update if op == 0 else plan_hals_sweep
+        plan = planner(r, k, X.element_size(), sms,
+                       r_itemsize=R.element_size())
+    if op == 1 and plan.rows == 0:
+        name = "hals_sweep_wide"
+        scratch = torch.empty((k, k), dtype=torch.float32, device=X.device)
+    vec = (plan.rows > 0 and all(
+        copy_width(t.data_ptr(), plan.rows * k * t.element_size()) == 16
+        for t in (X, R)))
+    args = plan.launch_args(vec)
     _launch(build.load("luc"), "luc_launch", name, X.device, op,
             _DTYPE_CODES[X.dtype], _DTYPE_CODES[R.dtype], X.data_ptr(),
             G.data_ptr(), R.data_ptr(), out.data_ptr(), _ptr(scratch), r, k,
@@ -712,11 +819,13 @@ def mu_update(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor, *,
 
 
 def hals_sweep(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor, *,
-               eps: float = ref.LUC_EPS) -> torch.Tensor:
+               eps: float = ref.LUC_EPS,
+               plan: HalsPlan | None = None) -> torch.Tensor:
     """The sequential HALS column sweep, H-step form, (r, k) in X's dtype,
     any k: column i sees the updated columns 0..i-1; one read of X and R,
-    one write (k > LUC_HALS_KMAX: the row-per-warp kernel, with a k × k
-    scratch for Gᵀ, counted as ``hals_sweep_wide``)."""
+    one write, on ``plan`` (default ``plan_hals_sweep``'s; a k no tile fits
+    runs the row-per-warp kernel, with a k × k scratch for Gᵀ, counted as
+    ``hals_sweep_wide``)."""
     if not _check_luc("hals_sweep", X, G, R):
         return ref.hals_sweep(X, G, R, eps)
-    return _luc("hals_sweep", 1, X, G, R, eps)
+    return _luc("hals_sweep", 1, X, G, R, eps, plan)

@@ -108,3 +108,52 @@ def hals_sweep(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor,
         if X32 is not out:
             X32[:, i] = out[:, i].float()
     return out
+
+
+def hals_sweep_f64(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor,
+                   eps: float = LUC_EPS,
+                   chunk: int = 1 << 20) -> torch.Tensor:
+    """``hals_sweep`` in float64 sums, the exact value a kernel and this
+    module's version are both held against where fp32 sums cancel; each
+    new column is rounded to X's dtype before later columns read it, as
+    both of them do.  Rows go in chunks of ``chunk`` (they are
+    independent), so the float64 copies stay small."""
+    G64 = G.double()
+    out = torch.empty(X.shape, dtype=torch.float64, device=X.device)
+    for r0 in range(0, X.shape[0], chunk):
+        rows = slice(r0, r0 + chunk)
+        X64, R64 = X[rows].double(), R[rows].double()
+        for i in range(G.shape[0]):
+            xi = (X64[:, i] + (R64[:, i] - X64 @ G64[:, i])
+                  / max(G64[i, i].item(), eps)).clamp_min(0.0)
+            X64[:, i] = xi.to(X.dtype).double()
+        out[rows] = X64
+    return out
+
+
+def sweep_scaled_err(got: torch.Tensor, want: torch.Tensor, X: torch.Tensor,
+                     G: torch.Tensor, R: torch.Tensor, eps: float = LUC_EPS,
+                     chunk: int = 1 << 20) -> float:
+    """The largest over columns i of a HALS sweep of column i's max |got −
+    want| over the size of what its update adds and cancels: max over rows
+    of |x_i| + (|r_i| + Σ_l |x_l|·|G_li|) / max(G_ii, ε), x the sweep's
+    state when column i is updated (columns before i new, from ``want``;
+    the others from X).  An fp32 sum's rounding is relative to that size,
+    not to the new x_i, which cancellation can leave small.  Rows go in
+    chunks of ``chunk`` (the maxima over rows split)."""
+    k = G.shape[0]
+    Ga = G.double().abs()
+    before = torch.ones(k, k, dtype=torch.bool, device=G.device).triu(1)
+    Gb, Ga_ = Ga * before, Ga * ~before
+    diag = G.double().diagonal().clamp_min(eps)
+    diff = torch.zeros(k, dtype=torch.float64, device=G.device)
+    scale = torch.zeros(k, dtype=torch.float64, device=G.device)
+    for r0 in range(0, X.shape[0], chunk):
+        rows = slice(r0, r0 + chunk)
+        w, x = want[rows].double(), X[rows].double()
+        cancel = w.abs() @ Gb + x.abs() @ Ga_ + R[rows].double().abs()
+        cancel = cancel / diag + x.abs()
+        scale = torch.maximum(scale, cancel.amax(0))
+        diff = torch.maximum(diff, (got[rows].double() - w).abs().amax(0))
+        del w, x, cancel
+    return (diff / scale.clamp_min(1e-30)).max().item()

@@ -333,8 +333,7 @@ def test_sparse_fit_on_the_card_matches_the_cpu_path(cuda_device, algo,
 
 
 # LUC shapes (r, k): test_kernels.py's, ragged r at the main path's width, k
-# = 1 and k = 128 (the widest register-resident sweep), and a 65,536-row
-# slice
+# = 1 and k = 128, and a 65,536-row slice
 LUC_SHAPES = [(64, 8), (100, 10), (128, 50), (4_099, 50), (4_099, 1),
               (4_099, 128), (1, 70), (65_536, 50)]
 # (X dtype, R dtype): an fp32 carry, a bf16 carry with fp32 R from the
@@ -400,10 +399,20 @@ def test_luc_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         ops.hals_sweep(X, torch.rand(8, 8), X)          # G on the CPU
 
 
-# k past hals_sweep's register-resident kernel (128): the row-per-warp
-# sweep, and mu_update's plans with G whole (129, 160), in column chunks
+# Wide k: hals_sweep's column-blocked kernel with G restaged per block of
+# columns (160, 256) and its row-per-warp kernel (1,000, where no tile
+# fits), and mu_update's plans with G whole (129, 160), in column chunks
 # (256 fp32, 1,000) and the row-per-warp MU kernel (2,100 fp32)
 WIDE_K = [129, 160, 256, 1_000]
+
+
+def _hals_kernel_name(X, R):
+    """The LAUNCHES name of hals_sweep on X and R: the column-blocked
+    kernel, or the row-per-warp one where its plan takes it."""
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    plan = ops.plan_hals_sweep(X.shape[0], X.shape[1], X.element_size(), sms,
+                               r_itemsize=R.element_size())
+    return "hals_sweep" if plan.rows else "hals_sweep_wide"
 
 
 @pytest.mark.cuda
@@ -427,7 +436,8 @@ def test_luc_kernels_at_wide_k_match_plain_versions(cuda_device, k, dt):
             _assert_scaled(got[:, j].float().cpu(), want[:, j].float().cpu(),
                            TOL["f32" if dt == "f32" else "bf16"])
         assert torch.equal(got, getattr(ops, name)(X, G, R, eps=e))
-    assert ops.LAUNCHES == _launches(mu_update=2, hals_sweep_wide=2)
+    assert ops.LAUNCHES == _launches(mu_update=2,
+                                     **{_hals_kernel_name(X, R): 2})
 
 
 def _mu_plans(r, k, size, sms):
@@ -486,10 +496,136 @@ def test_mu_update_row_per_warp_kernel_past_the_plans(cuda_device, dt):
     assert torch.equal(got, ops.mu_update(X, G, R))
 
 
+# hals_sweep's column-blocked kernel: k not a multiple of its 16-column
+# blocks, below one block, both sides of 128, G whole and restaged, and
+# the row-per-warp kernel where no tile fits (1,000 fp32)
+HALS_K = [1, 7, 16, 50, 64, 100, 128, 129, 160, 256, 1_000]
+
+
+def _assert_hals(got, want, X, G, R, eps, dt):
+    """hals_sweep's kernel result against ``want`` (the plain version, or
+    another kernel): fp32 within 1e-5 on the sweep's scale, bf16 within
+    2e-2 column by column (a bf16 output's rounding is relative to itself,
+    not to the sums); and either against float64 sums on the sweep's
+    scale."""
+    tol = TOL["f32" if dt == "f32" else "bf16"]
+    if dt == "f32":
+        assert ref.sweep_scaled_err(got, want, X, G, R, eps) <= tol
+    else:
+        for j in range(got.shape[1]):
+            _assert_scaled(got[:, j].float().cpu(), want[:, j].float().cpu(),
+                           tol)
+    assert ref.sweep_scaled_err(got, ref.hals_sweep_f64(X, G, R, eps), X, G,
+                                R, eps) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", HALS_K)
+@pytest.mark.parametrize("r", [37, 1_003])
+@pytest.mark.parametrize("dt", LUC_DTYPES)
+def test_hals_sweep_over_k_against_plain_and_float64(cuda_device, k, r, dt):
+    """fp32 within 1e-5 on the sweep's scale of both the plain version and
+    float64 sums; bf16 within 2e-2 of the plain version column by column
+    (a bf16 output's rounding is relative to itself, not to the sums) and
+    of float64 sums on the sweep's scale; identical bits across runs."""
+    x, g, rr = _luc_problem(21, r, k)
+    xdt, rdt = LUC_DTYPES[dt]
+    X = torch.from_numpy(x).to(cuda_device, xdt)
+    G = torch.from_numpy(g).to(cuda_device)
+    R = torch.from_numpy(rr).to(cuda_device, rdt)
+    eps = rules.eps_for(xdt)
+    name = _hals_kernel_name(X, R)
+    assert name == "hals_sweep" or k > 256
+    ops.reset_launches()
+    got = ops.hals_sweep(X, G, R, eps=eps)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == _launches(**{name: 1})
+    assert got.dtype == xdt and torch.isfinite(got.float()).all()
+    _assert_hals(got, ref.hals_sweep(X, G, R, eps), X, G, R, eps, dt)
+    assert torch.equal(got, ops.hals_sweep(X, G, R, eps=eps))
+
+
+def _hals_plans(r, k, size, r_size, sms):
+    """The default plan and other tiles that fit: each count of threads a
+    row and of stages, G whole and restaged, an fp32 X swept in place and
+    widened."""
+    plans = [ops.plan_hals_sweep(r, k, size, sms, r_itemsize=r_size)]
+    nb = -(-k // ops.HALS_BLOCK)
+    for rows, tpr in ((32, 1), (32, 4), (128, 1), (64, 4), (256, 1)):
+        for stages in (1, 2, 3):
+            for gblocks in dict.fromkeys((nb, 1)):
+                for direct in dict.fromkeys((False, plans[0].direct)):
+                    smem = ops.hals_smem(k, rows, stages, gblocks, size,
+                                         r_size, direct)
+                    if smem <= ops.SMEM_PER_BLOCK:
+                        plans.append(ops.HalsPlan(rows, stages, gblocks, tpr,
+                                                  5, smem, direct))
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,k", [(4_099, 50), (301, 7), (1, 70), (1_000, 1),
+                                 (517, 160), (300, 33)])
+@pytest.mark.parametrize("dt", LUC_DTYPES)
+def test_hals_sweep_plans_give_the_same_bits(cuda_device, r, k, dt):
+    """Every plan sums each P over l in order and sweeps the same blocks:
+    the same bits, for 16- and 4-byte copies (a view one element off the
+    grid) alike."""
+    x, g, rr = _luc_problem(22, r, k)
+    xdt, rdt = LUC_DTYPES[dt]
+    X = torch.from_numpy(x).to(cuda_device, xdt)
+    G = torch.from_numpy(g).to(cuda_device)
+    R = torch.from_numpy(rr).to(cuda_device, rdt)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    first = ops.hals_sweep(X, G, R)
+    plans = _hals_plans(r, k, X.element_size(), R.element_size(), sms)
+    assert len(plans) > 3
+    for plan in plans:
+        for X_, R_ in ((X, R), (_off_grid(X), _off_grid(R))):
+            assert torch.equal(ops.hals_sweep(X_, G, R_, plan=plan),
+                               first), plan
+
+
+@pytest.mark.cuda
+def test_hals_sweep_keeps_a_nan(cuda_device):
+    x, g, rr = _luc_problem(23, 300, 50)
+    x[7, 3] = np.nan
+    X, G, R = (torch.from_numpy(a).to(cuda_device) for a in (x, g, rr))
+    got, want = ops.hals_sweep(X, G, R), ref.hals_sweep(X, G, R)
+    assert torch.isnan(got[7]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", LUC_DTYPES)
+def test_hals_sweep_row_per_warp_kernel_past_the_plans(cuda_device, dt):
+    x, g, rr = _luc_problem(24, 45, 1_000)
+    xdt, rdt = LUC_DTYPES[dt]
+    X = torch.from_numpy(x).to(cuda_device, xdt)
+    G = torch.from_numpy(g).to(cuda_device)
+    R = torch.from_numpy(rr).to(cuda_device, rdt)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert ops.plan_hals_sweep(45, 1_000, X.element_size(), sms,
+                               r_itemsize=R.element_size()).rows == 0
+    eps = rules.eps_for(xdt)
+    ops.reset_launches()
+    got = ops.hals_sweep(X, G, R, eps=eps)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == _launches(hals_sweep_wide=1)
+    _assert_hals(got, ref.hals_sweep(X, G, R, eps), X, G, R, eps, dt)
+    # the row-per-warp kernel at a k a tile fits, forced
+    small = [t[:, :70].contiguous() for t in (X, R)]
+    Gs = G[:70, :70].contiguous()
+    forced = ops.hals_sweep(small[0], Gs, small[1], eps=eps,
+                            plan=ops.HalsPlan(0, 0, 0, 0, 3, 0))
+    _assert_hals(forced, ops.hals_sweep(small[0], Gs, small[1], eps=eps),
+                 small[0], Gs, small[1], eps, dt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("algo", ["mu", "hals", "amu", "ahals"])
 def test_wide_k_fit_on_the_card_matches_the_cpu_path(cuda_device, algo):
-    """k = 160 through the LUC kernels (k > 128: the wide variants).  The
+    """k = 160 through the LUC kernels (G restaged or chunked).  The
     rel-error trajectories of 3 iterations and the factors after one agree
     at 1e-4, the factors after 3 too for the MU rules.  HALS clamps 59 % of
     W to 0 by its third iteration here, so its factors then move with
@@ -505,8 +641,7 @@ def test_wide_k_fit_on_the_card_matches_the_cpu_path(cuda_device, algo):
         ops.reset_launches()
         res = NMFSolver(k, algo=_algo(algo), max_iters=iters).fit(
             A, W0=W0, H0=H0)
-        luc = {name.replace("hals_sweep", "hals_sweep_wide"): iters * c
-               for name, c in LUC_PER_ITER[algo].items()}
+        luc = {name: iters * c for name, c in LUC_PER_ITER[algo].items()}
         assert ops.LAUNCHES == _launches(gram=3 * iters, ts_matmul=iters,
                                          ts_matmul_t=iters, **luc)
         cpu = NMFSolver(k, algo=_algo(algo), device="cpu",
@@ -520,21 +655,25 @@ def test_wide_k_fit_on_the_card_matches_the_cpu_path(cuda_device, algo):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("algo,kernel", [("mu", "mu_update"),
-                                         ("hals", "hals_sweep_wide")])
+@pytest.mark.parametrize("algo,kernel,k", [
+    pytest.param("mu", "mu_update", 160, id="mu-mu_update"),
+    pytest.param("hals", "hals_sweep", 160, id="hals-hals_sweep"),
+    # fp32 k = 520: no tile of the column-blocked kernel fits, so each
+    # sweep runs the row-per-warp kernel (as chip_smoke.py phase 8c serves)
+    pytest.param("hals", "hals_sweep_wide", 520,
+                 id="hals-hals_sweep_wide")])
 def test_wide_k_foldin_on_the_card_matches_the_cpu(cuda_device, algo,
-                                                   kernel):
+                                                   kernel, k):
     rng = np.random.default_rng(18)
-    k = 160
     W = rng.uniform(size=(500, k)).astype(np.float32)
-    H = rng.uniform(size=(k, 400)).astype(np.float32)
+    H = rng.uniform(size=(k, max(400, 2 * k))).astype(np.float32)
     rows = (rng.uniform(size=(7, k)) @ H).astype(np.float32)
     proj = FoldInProjector(FactorArtifact.from_factors(
         W, H, algo="bpp", device=cuda_device), algo=algo, iters=20)
     ops.reset_launches()
     got = proj.project(torch.from_numpy(rows))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES[kernel] == 20 and ops.LAUNCHES["ts_matmul"] == 1
+    assert ops.LAUNCHES == _launches(ts_matmul=1, **{kernel: 20})
     want = FoldInProjector(FactorArtifact.from_factors(W, H, device="cpu"),
                            algo=algo, iters=20, device="cpu").project(rows)
     _assert_scaled(got.cpu(), want, 1e-4)

@@ -324,7 +324,7 @@ def test_bf16_carry_fits(algo):
 # ------------------------------------------------------------ wide k (F1)
 
 def _wide_problem():
-    """k = 160, past hals_sweep's register-resident kernel on the card."""
+    """k = 160: the LUC kernels' wide plans on the card."""
     rng = np.random.default_rng(17)
     m, n, k = 400, 300, 160
     A = (rng.uniform(size=(m, k)) @ rng.uniform(size=(k, n))

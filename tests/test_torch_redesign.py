@@ -1,5 +1,6 @@
 """The plans and the numerics of the port's redesigned kernels (gram,
-ts_matmul, ts_matmul_t, spmm, spmm_sorted, mu_update), without a GPU.
+ts_matmul, ts_matmul_t, spmm, spmm_sorted, mu_update, hals_sweep), without
+a GPU.
 
 The kernels (``kernels/csrc/gram.cu``, ``kernels/csrc/ts_matmul.cu``) take
 their grids from plans computed in Python (``kernels/ops.py``): a persistent
@@ -11,6 +12,9 @@ against the JAX package's plain ``ts_matmul`` on the parity inputs.
 mu_update's plan covers every k (tiles, ring stages, G whole or in column
 chunks, or the row-per-warp kernel); torch models of mu_update's and
 spmm_sorted's walks write each output once and match the plain versions.
+hals_sweep's plan fits every k from 1 to 1,000 or names the row-per-warp
+kernel, and a torch model of its column-blocked sweep matches the plain
+version and the JAX package's Pallas kernel (interpret mode).
 """
 
 import pytest
@@ -20,6 +24,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import blocksparse  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -571,3 +576,166 @@ def test_sorted_walk_stores_each_row_once_and_matches_the_plain_version(
     assert (stores == 1).all()
     torch.testing.assert_close(got, A @ B, rtol=0, atol=1e-5)
 
+
+
+# ---------------------------------------------------------------------------
+# hals_sweep's plan (any k) and a model of its column-blocked sweep
+# ---------------------------------------------------------------------------
+
+def _smallest_hals_tile(k, itemsize, r_itemsize):
+    """Shared memory of the smallest tile hals_sweep_kernel takes: one warp,
+    a row each, one stage, one column block of G."""
+    direct = itemsize == 4 and np.gcd(k, 32) <= 2
+    return ops.hals_smem(k, 32, 1, 1, itemsize, r_itemsize, direct)
+
+
+@pytest.mark.parametrize("itemsize,r_itemsize", [(4, 4), (2, 4), (2, 2)])
+@pytest.mark.parametrize("r", [1, 4_099, 1_013_400])
+def test_hals_plan_fits_shared_memory_for_every_k(itemsize, r_itemsize, r):
+    fallback = []
+    for k in range(1, 1_001):
+        plan = ops.plan_hals_sweep(r, k, itemsize, H100_SMS,
+                                   r_itemsize=r_itemsize)
+        if plan.rows == 0:
+            # only where not even the smallest tile fits
+            assert (_smallest_hals_tile(k, itemsize, r_itemsize)
+                    > ops.SMEM_PER_BLOCK), k
+            assert plan.blocks == min(-(-r // 8), ops.LUC_ROWWISE_BLOCKS_PER_SM
+                                      * H100_SMS)
+            fallback.append(k)
+            continue
+        assert plan.rows in ops.HALS_ROWS and plan.stages in ops.HALS_STAGES
+        assert plan.tpr in (1, ops.HALS_WIDE_TPR)
+        threads = plan.rows * plan.tpr
+        assert threads <= ops.HALS_MAX_THREADS
+        nb = -(-k // ops.HALS_BLOCK)
+        assert plan.gblocks in (1, nb)
+        assert plan.direct == (itemsize == 4 and np.gcd(k, 32) <= 2)
+        assert plan.smem == ops.hals_smem(k, plan.rows, plan.stages,
+                                          plan.gblocks, itemsize, r_itemsize,
+                                          plan.direct)
+        assert plan.smem <= ops.SMEM_PER_BLOCK
+        per_sm = -(-plan.blocks // H100_SMS)
+        assert per_sm * (plan.smem + ops.SMEM_RESERVED_PER_BLOCK) \
+            <= ops.SMEM_PER_SM
+        assert per_sm * threads <= ops.HALS_THREADS_PER_SM
+        # the persistent grid covers every tile once: no more blocks than
+        # tiles, and the tiles of rows cover r
+        ntiles = -(-r // plan.rows)
+        assert 1 <= plan.blocks <= ntiles
+        assert (ntiles - 1) * plan.rows < r <= ntiles * plan.rows
+        assert plan.rows <= max(32, -(-r // 32) * 32)    # no idle warps
+        # threads share a row only where a row a thread leaves the SM few
+        if plan.tpr > 1:
+            assert (ops._hals_blocks_per_sm(plan.smem, plan.rows) * plan.rows
+                    < ops.HALS_MIN_THREADS_PER_SM), k
+    # every k up to 256 runs the column-blocked kernel
+    assert not fallback or min(fallback) > 256
+
+
+def test_hals_plan_at_the_main_paths():
+    for r in (1_013_400, 1 << 24):
+        plan = ops.plan_hals_sweep(r, 50, 4, H100_SMS)
+        # 256-row tiles, a thread a row, one stage, G whole, two blocks an
+        # SM, x swept in place
+        assert plan[:5] == (256, 1, 4, 1, 2 * H100_SMS) and plan.direct
+    # k = 160: G whole leaves room for 64 rows; four threads a row keep
+    # eight warps on the SM
+    wide = ops.plan_hals_sweep(1_013_400, 160, 4, H100_SMS)
+    assert wide[:4] == (64, 1, 10, 4) and not wide.direct
+
+
+def _hals_walk(X, G, R, eps, plan):
+    """hals_sweep_kernel's walk in torch: block b takes tiles b, b + blocks,
+    ... of plan.rows rows; per tile the sweep in column blocks of
+    HALS_BLOCK (the last rounded up to 4).  Each column c's sum: the
+    columns outside the block as they stand, one fp32 chain in order;
+    the block's old columns from c on; then, as the block's columns are
+    swept in order, each new value (rounded to X's dtype) times its row of
+    G added to the later columns' sums; x ← max(0, x + (r − s)·(1 /
+    max(G_jj, ε))).  Also counts the writes of each output."""
+    r, k = X.shape
+    hb = ops.HALS_BLOCK
+    out = torch.full_like(X, float("nan"))
+    writes = torch.zeros(r, k, dtype=torch.int32)
+    Gp = torch.zeros(k, -(-k // hb) * hb)
+    Gp[:, :k] = G
+    rd = 1.0 / G.diagonal().clamp_min(eps)
+    ntiles = -(-r // plan.rows)
+    for b in range(plan.blocks):
+        for t in range(b, ntiles, plan.blocks):
+            rows = slice(t * plan.rows, min(r, (t + 1) * plan.rows))
+            x, rr = X[rows].float().clone(), R[rows].float()
+            for j0 in range(0, k, hb):
+                w = min(hb, -(-(k - j0) // 4) * 4)
+                jw = min(k, j0 + w)
+                gb = Gp[:, j0:j0 + w]
+                p = torch.zeros(x.shape[0], w)
+                for l in [*range(j0), *range(jw, k)]:
+                    p = torch.addcmul(p, x[:, l:l + 1], gb[l:l + 1])
+                for e in range(jw - j0):             # old, from c on
+                    p[:, :e + 1] = torch.addcmul(p[:, :e + 1],
+                                                 x[:, j0 + e:j0 + e + 1],
+                                                 gb[j0 + e:j0 + e + 1, :e + 1])
+                for c in range(jw - j0):
+                    j = j0 + c
+                    v = torch.addcmul(x[:, j], rr[:, j] - p[:, c], rd[j])
+                    x[:, j] = torch.clamp_min(v, 0.0).to(X.dtype).float()
+                    p[:, c + 1:] = torch.addcmul(p[:, c + 1:], x[:, j:j + 1],
+                                                 gb[j:j + 1, c + 1:])
+            out[rows] = x.to(X.dtype)
+            writes[rows] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("k", [1, 7, 16, 50, 129, 160])
+@pytest.mark.parametrize("r", [37, 301])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_hals_walk_covers_each_output_once_and_matches_plain_and_jax(
+        k, r, dt):
+    """The blocked sweep against the plain version: fp32 within 1e-5 on the
+    sweep's scale, bf16 within 2e-2 column by column (a new column rounds
+    to bf16 before later columns read it in both); and against the Pallas
+    kernel (interpret mode), which
+    takes one dtype for all operands and keeps the sweep in fp32: in bf16
+    G is rounded to bf16 for both and they agree at 2e-2 of the output's
+    maximum, as test_torch_luc.py holds the plain version."""
+    rng = np.random.default_rng(42)
+    xdt = torch.float32 if dt == "f32" else torch.bfloat16
+    X = torch.from_numpy(rng.uniform(size=(r, k)).astype(np.float32)).to(xdt)
+    X[r // 2] = 0.0
+    C = rng.uniform(size=(30, k)).astype(np.float32)
+    if k > 2:
+        C[:, 2] = 0.0                             # G_22 = 0: the ε guard
+    G = torch.from_numpy(C.T @ C)
+    if dt == "bf16":
+        G = G.bfloat16().float()
+    R = torch.from_numpy(rng.uniform(size=(r, k)).astype(np.float32) * 5)
+    R = R.to(xdt)
+    eps = ref.LUC_EPS
+    plan = ops.plan_hals_sweep(r, k, X.element_size(), H100_SMS,
+                               r_itemsize=R.element_size())
+    assert plan.rows > 0
+    # tiles of one warp, walked by two blocks: several tiles a block and a
+    # ragged last tile
+    plan = plan._replace(rows=32, blocks=2)
+    got, writes = _hals_walk(X, G, R, eps, plan)
+    assert (writes == 1).all() and got.dtype == xdt
+    tol = 1e-5 if dt == "f32" else 2e-2
+    want = ref.hals_sweep(X, G, R, eps)
+    if dt == "f32":
+        assert ref.sweep_scaled_err(got, want, X, G, R, eps) <= tol
+    else:
+        diff = (got.float() - want.float()).abs().amax(0)
+        assert (diff <= tol * want.float().abs().amax(0)).all()
+    jdt = jnp.float32 if dt == "f32" else jnp.bfloat16
+    jx = jops.hals_sweep(jnp.asarray(X.float().numpy(), jdt),
+                         jnp.asarray(G.numpy(), jdt),
+                         jnp.asarray(R.float().numpy(), jdt))
+    jx = torch.from_numpy(np.array(jx, np.float32))
+    if dt == "f32":
+        assert ref.sweep_scaled_err(got, jx, X, G, R, eps) <= tol
+    else:
+        scale = jx.abs().max()
+        torch.testing.assert_close(got.float() / scale, jx / scale,
+                                   rtol=0, atol=tol)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Probe the floors, tiles and accuracy of spmm_sorted, mu_update and the
-wide hals_sweep on one NVIDIA GPU, at the paths' full sizes.
+"""Probe the floors, tiles and accuracy of spmm_sorted, mu_update and
+hals_sweep on one NVIDIA GPU, at the paths' full sizes.
 
     python3 tools/probe_luc_spmm.py [--parts spmm mu hals] [--old-luc PATH]
 
@@ -11,18 +11,20 @@ It prints, with the card's name and power limit:
   rows into registers, but adds them into one register and stores
   nothing, timed in turns with ``spmm_sorted``;
 * mu: ``mu_update`` at each (rows, k) of ``--rows`` × ``--mu-k`` in fp32
-  and with a bf16 carry: the default plan, the plain version and, with
-  ``--old-luc`` (a luc.cu with the one-plan interface ``luc_launch(op,
-  x_dtype, r_dtype, X, G, R, out, r, k, eps, stream)``), that kernel, in
-  turns; then other (rows, stages, blocks per SM) tiles of ``MU_TILES``,
-  an fp32 X read in place and widened alike, each checked against the
-  default plan's bits and timed in turns with it;
-* hals: ``hals_sweep`` at (``--hals-rows``, 160) in fp32 for each seed of
-  ``--seeds`` on chip_smoke.py's problem, the kernel, its plain version
-  and copies of the kernel that sum X·G_i in other orders, each against
-  float64: per column, the error over the column's maximum and over the
-  size of what the column's update adds and cancels
-  (chip_smoke.sweep_scaled_err).
+  and with a bf16 carry: the default plan and the plain version in turns;
+  then other (rows, stages, blocks per SM) tiles of ``MU_TILES``, an fp32
+  X read in place and widened alike, each checked against the default
+  plan's bits and timed in turns with it;
+* hals: ``hals_sweep`` at each (rows, k) of ``--hals-shapes`` in fp32 (and
+  with a bf16 carry at k = 50) on chip_smoke.py's problem: the default
+  plan, the plain version and, with ``--old-luc`` (an older luc.cu with
+  the same ``luc_launch`` interface, whose op 1 ignores the plan), that
+  kernel, in turns; each held against float64 sums on the scale of what a
+  column's update adds and cancels (ref.sweep_scaled_err); then every
+  other tile (rows
+  of ``ops.HALS_ROWS``, stages, a thread a row or four, G whole and
+  restaged) that fits, each checked against the default plan's bits and
+  timed in turns with it.
 
 Times are CUDA-event means after a warm-up.  Everything is made on the
 device from a seed.  The result is also written to build/probe/probe.json.
@@ -34,6 +36,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -52,11 +55,9 @@ HBM_BYTES_PER_S = 3.35e12
 MU_TILES = ((128, 2, 2), (64, 3, 2), (64, 2, 2), (64, 2, 3), (32, 3, 2),
             (32, 2, 3), (32, 3, 4), (64, 2, 1), (32, 3, 1), (32, 2, 1),
             (16, 3, 1))
-# the sums of hals_order_kernel: 0 as the library's kernel (lane-strided
-# partials and a butterfly), 1 serial in order, 2 contiguous lane
-# partials and a butterfly, 3 the library's order in float64
-HALS_ORDERS = {"lane-strided": 0, "serial": 1, "lane-blocked": 2,
-               "float64 sums": 3}
+# (rows, k) of hals_sweep: the sparse path's factor and Video's W at the
+# main width, and Video's W at the wide phase's k
+HALS_SHAPES = ((1 << 24, K), (VIDEO_M, K), (VIDEO_M, K_WIDE))
 
 GATHER_SRC = r'''
 #include "spmm.cu"
@@ -108,84 +109,6 @@ extern "C" int gather_probe_launch(const void* cols, const void* first,
 }
 '''
 
-HALS_SRC = r'''
-#include "luc.cu"
-namespace {
-// hals_rowwise_kernel (fp32) with X·G_i summed in the order ORDER: 0 as
-// the library's kernel, 1 serially in order by every lane, 2 lane j over
-// the contiguous columns [j·c, (j+1)·c), c = ceil(k / 32), then the same
-// butterfly, 3 the library's order in float64 with the update in float64
-// (only the stored x_i rounded to fp32).
-template <int ORDER>
-__global__ void __launch_bounds__(WIDE_THREADS)
-hals_order_kernel(const float* __restrict__ X, const float* __restrict__ Gt,
-                  const float* __restrict__ R, float* out, int64_t r,
-                  int64_t k, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (int64_t)gridDim.x * (WIDE_THREADS / 32);
-  for (int64_t t = (int64_t)blockIdx.x * (WIDE_THREADS / 32) +
-                   (threadIdx.x >> 5);
-       t < r; t += warps) {
-    float* o = out + t * k;
-    for (int64_t l = lane; l < k; l += 32) o[l] = X[t * k + l];
-    __syncwarp();
-    for (int64_t i = 0; i < k; ++i) {
-      const float* gi = Gt + i * k;
-      double d = 0.0;
-      float s = 0.f;
-      if (ORDER == 1) {
-        for (int64_t l = 0; l < k; ++l) s = fmaf(o[l], gi[l], s);
-      } else if (ORDER == 3) {
-        for (int64_t l = lane; l < k; l += 32)
-          d = fma((double)o[l], (double)gi[l], d);
-        for (int off = 16; off > 0; off /= 2)
-          d += __shfl_xor_sync(FULL, d, off);
-      } else {
-        const int64_t c = (k + 31) / 32;
-        const int64_t l0 = ORDER == 2 ? lane * c : lane;
-        const int64_t l1 = ORDER == 2 ? (l0 + c < k ? l0 + c : k) : k;
-        for (int64_t l = l0; l < l1; l += ORDER == 2 ? 1 : 32)
-          s = fmaf(o[l], gi[l], s);
-        for (int off = 16; off > 0; off /= 2)
-          s += __shfl_xor_sync(FULL, s, off);
-      }
-      if (lane == (int)(i & 31)) {
-        float gii = gi[i];
-        gii = gii < eps ? eps : gii;
-        float v;
-        if (ORDER == 3)
-          v = (float)((double)o[i] + ((double)R[t * k + i] - d) / gii);
-        else
-          v = o[i] + (R[t * k + i] - s) / gii;
-        o[i] = v < 0.f ? 0.f : v;
-      }
-      __syncwarp();
-    }
-  }
-}
-}  // namespace
-extern "C" int hals_order_launch(int order, const void* X, const void* Gt,
-                                 const void* R, void* out, int64_t r,
-                                 int64_t k, float eps, int blocks,
-                                 void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const float* x = (const float*)X;
-  const float* g = (const float*)Gt;
-  const float* rr = (const float*)R;
-  float* o = (float*)out;
-  if (order == 0)
-    hals_order_kernel<0><<<blocks, WIDE_THREADS, 0, s>>>(x, g, rr, o, r, k, eps);
-  else if (order == 1)
-    hals_order_kernel<1><<<blocks, WIDE_THREADS, 0, s>>>(x, g, rr, o, r, k, eps);
-  else if (order == 2)
-    hals_order_kernel<2><<<blocks, WIDE_THREADS, 0, s>>>(x, g, rr, o, r, k, eps);
-  else
-    hals_order_kernel<3><<<blocks, WIDE_THREADS, 0, s>>>(x, g, rr, o, r, k, eps);
-  return (int)cudaGetLastError();
-}
-'''
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -205,13 +128,13 @@ def time_ms(fn, reps: int) -> float:
 
 
 def build_probes(out_dir: str, old_luc: str | None) -> dict:
-    """nvcc of the probe kernels (and of an older luc.cu), in parallel;
+    """nvcc of the probe kernels and of an older luc.cu, in parallel;
     returns name -> loaded library."""
     from repro_torch.kernels import build
     csrc = str(build.CSRC)
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
-    for name, src in (("gather", GATHER_SRC), ("hals", HALS_SRC)):
+    for name, src in (("gather", GATHER_SRC),):
         path = os.path.join(out_dir, f"{name}_probe.cu")
         with open(path, "w") as f:
             f.write(src)
@@ -236,11 +159,8 @@ def build_probes(out_dir: str, old_luc: str | None) -> dict:
         if name == "gather":
             lib.gather_probe_launch.argtypes = [P, P, P, P, P, I64, I64, I64,
                                                 P]
-        elif name == "hals":
-            lib.hals_order_launch.argtypes = [I, P, P, P, P, I64, I64, F, I,
-                                              P]
         else:
-            lib.luc_launch.argtypes = [I, I, I, P, P, P, P, I64, I64, F, P]
+            lib.luc_launch.argtypes = build.SIGNATURES["luc"]["luc_launch"]
         libs[name] = lib
     return libs
 
@@ -306,7 +226,7 @@ def mu_tile(r: int, k: int, size: int, sms: int, rows: int, stages: int,
                       min(-(-r // rows), per_sm * sms), smem, direct)
 
 
-def probe_mu(rows_list, ks, seed: int, libs: dict) -> dict:
+def probe_mu(rows_list, ks, seed: int) -> dict:
     import chip_smoke
     import torch
     from repro_torch.core.rules import eps_for
@@ -314,8 +234,6 @@ def probe_mu(rows_list, ks, seed: int, libs: dict) -> dict:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    stream = torch.cuda.current_stream().cuda_stream
-    old = libs.get("old_luc")
     out = {}
     for r in rows_list:
         for k in ks:
@@ -336,18 +254,6 @@ def probe_mu(rows_list, ks, seed: int, libs: dict) -> dict:
                 def plain():
                     return ref.mu_update(X, G, R, eps)
                 turns = [("kernel", call(default)), ("plain", plain)]
-                if old is not None and k <= 128:
-                    o = torch.empty_like(X)
-                    codes = (0 if dt == torch.float32 else 1, 0)
-
-                    def old_call():
-                        rc = old.luc_launch(0, *codes, X.data_ptr(),
-                                            G.data_ptr(), R.data_ptr(),
-                                            o.data_ptr(), r, k, eps, stream)
-                        assert rc == 0, rc
-                        return o
-                    old_err = chip_smoke.col_scaled_err(old_call(), want)[1]
-                    turns.insert(1, ("old kernel", old_call))
                 ms = {name: [] for name, _ in turns}
                 for order in (turns, turns[::-1]):
                     for name, fn in order:
@@ -360,9 +266,7 @@ def probe_mu(rows_list, ks, seed: int, libs: dict) -> dict:
                     f"stages, {default.blocks} blocks, direct "
                     f"{default.direct}: {text} "
                     f"({nbytes / (res['kernel'] * 1e-3) / 1e9:.0f} GB/s); "
-                    f"column-scaled err vs plain {plain_err:.2e}"
-                    + (f", old kernel vs kernel {old_err:.2e}"
-                       if "old kernel" in ms else ""))
+                    f"column-scaled err vs plain {plain_err:.2e}")
                 for t, s, per_sm in MU_TILES:
                     for direct in ((False, True) if size == 4 else (False,)):
                         plan = mu_tile(r, k, size, sms, t, s, per_sm, direct)
@@ -385,55 +289,120 @@ def probe_mu(rows_list, ks, seed: int, libs: dict) -> dict:
     return out
 
 
-def probe_hals(r: int, seeds, libs: dict) -> dict:
+def hals_tiles(r: int, k: int, size: int, sms: int):
+    """Every HalsPlan of ops.HALS_ROWS × HALS_STAGES, a thread a row and
+    HALS_WIDE_TPR, that fits, G whole and restaged, with as many blocks an
+    SM as fit."""
+    from repro_torch.kernels import ops
+    direct = size == 4 and math.gcd(k, 32) <= 2
+    nb = -(-k // ops.HALS_BLOCK)
+    plans = []
+    for rows in ops.HALS_ROWS:
+        for tpr in (1, ops.HALS_WIDE_TPR):
+            if rows * tpr > ops.HALS_MAX_THREADS:
+                continue
+            for stages in ops.HALS_STAGES:
+                for gblocks in dict.fromkeys((nb, 1)):
+                    smem = ops.hals_smem(k, rows, stages, gblocks, size, 4,
+                                         direct)
+                    per_sm = ops._hals_blocks_per_sm(smem, rows * tpr)
+                    if smem <= ops.SMEM_PER_BLOCK and per_sm >= 1:
+                        plans.append(ops.HalsPlan(
+                            rows, stages, gblocks, tpr,
+                            min(-(-r // rows), per_sm * sms), smem, direct))
+    return plans
+
+
+def probe_hals(shapes, seed: int, libs: dict) -> dict:
     import chip_smoke
     import torch
     from repro_torch.core.rules import eps_for
     from repro_torch.kernels import ops, ref
     dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
-    k = K_WIDE
-    eps = eps_for(torch.float32)
-    blocks = ops._rowwise_blocks(
-        r, torch.cuda.get_device_properties(dev).multi_processor_count)
+    old = libs.get("old_luc")
     out = {}
-    for seed in seeds:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        X, G, R = chip_smoke.luc_problem(gen, r, k, torch.float32,
-                                         torch.float32)
-        Gt = G.T.contiguous()
-        exact = chip_smoke.luc_f64("hals_sweep", X, G, R, eps)
-        outs = {"kernel": ops.hals_sweep(X, G, R, eps=eps),
-                "plain": ref.hals_sweep(X, G, R, eps)}
-        for name, order in HALS_ORDERS.items():
-            o = torch.empty_like(X)
-            rc = libs["hals"].hals_order_launch(
-                order, X.data_ptr(), Gt.data_ptr(), R.data_ptr(),
-                o.data_ptr(), r, k, eps, blocks, stream)
-            assert rc == 0, rc
-            outs[name] = o
-        same = torch.equal(outs["kernel"], outs["lane-strided"])
-        res = {}
-        for name, got in outs.items():
-            col = chip_smoke.col_scaled_err(got.double(), exact)[1]
-            sweep = chip_smoke.sweep_scaled_err(got, exact, X, G, R, eps)
-            diff = (got.double() - exact).abs()
-            res[name] = {"column_scaled": col, "sweep_scaled": sweep,
-                         "abs": diff.max().item(),
-                         "rms_abs": diff.square().mean().sqrt().item(),
-                         "worst_column": int(diff.amax(0).argmax())}
-            log(f"[hals] seed {seed} {name:13s} vs float64: column-scaled "
-                f"{col:.3e}, sweep-scaled {sweep:.3e}, abs max "
-                f"{res[name]['abs']:.3e} rms {res[name]['rms_abs']:.3e}, "
-                f"worst column {res[name]['worst_column']}")
-        kp = chip_smoke.sweep_scaled_err(outs["kernel"], outs["plain"], X, G,
-                                         R, eps)
-        res["kernel_vs_plain_sweep_scaled"] = kp
-        log(f"[hals] seed {seed}: kernel vs plain sweep-scaled {kp:.3e}; "
-            f"the lane-strided copy gives the kernel's bits: {same}")
-        out[str(seed)] = res
-        del X, G, R, Gt, exact, outs
-        torch.cuda.empty_cache()
+    for r, k in shapes:
+        for dt in ((torch.float32, torch.bfloat16) if k == K
+                   else (torch.float32,)):
+            X, G, R = chip_smoke.luc_problem(gen, r, k, dt, torch.float32)
+            eps = eps_for(dt)
+            size = X.element_size()
+            nbytes = r * k * (2 * size + 4)
+            default = ops.plan_hals_sweep(r, k, size, sms)
+            want = ops.hals_sweep(X, G, R, eps=eps)
+            plain = ref.hals_sweep(X, G, R, eps)
+            exact = ref.hals_sweep_f64(X, G, R, eps)
+            errs = {"vs_plain": ref.sweep_scaled_err(
+                        want, plain, X, G, R, eps),
+                    "vs_f64": ref.sweep_scaled_err(
+                        want, exact, X, G, R, eps),
+                    "plain_vs_f64": ref.sweep_scaled_err(
+                        plain, exact, X, G, R, eps)}
+            del plain, exact
+
+            def call(plan):
+                return lambda: ops.hals_sweep(X, G, R, eps=eps, plan=plan)
+            turns = [("kernel", call(default)),
+                     ("plain", lambda: ref.hals_sweep(X, G, R, eps))]
+            if old is not None:
+                o = torch.empty_like(X)
+                scratch = torch.empty((k, k), device=dev)
+                codes = (0 if dt == torch.float32 else 1, 0)
+                blocks = ops._rowwise_blocks(r, sms)
+
+                def old_call():
+                    rc = old.luc_launch(1, *codes, X.data_ptr(),
+                                        G.data_ptr(), R.data_ptr(),
+                                        o.data_ptr(), scratch.data_ptr(), r,
+                                        k, eps, 0, 0, 0, 0, blocks, 0, 0,
+                                        stream)
+                    assert rc == 0, rc
+                    return o
+                errs["old_vs_kernel"] = ref.sweep_scaled_err(
+                    old_call(), want, X, G, R, eps)
+                turns.insert(1, ("old kernel", old_call))
+            reps = 10 if r * k * k < 1e10 else 3
+            ms = {name: [] for name, _ in turns}
+            for order in (turns, turns[::-1]):
+                for name, fn in order:
+                    ms[name].append(time_ms(fn, 2 if name == "plain"
+                                            else reps))
+            res = {name: min(t) for name, t in ms.items()}
+            res.update(errs)
+            tag = f"{r}/{k}/{str(dt)[6:]}"
+            text = ", ".join(f"{name} {t[0]:.3f}/{t[1]:.3f} ms"
+                             for name, t in ms.items())
+            log(f"[hals] {tag}: plan {default.rows} rows x {default.tpr} "
+                f"threads x {default.stages} stages, gblocks "
+                f"{default.gblocks}, "
+                f"{default.blocks} blocks, direct {default.direct}: {text} "
+                f"({nbytes / (res['kernel'] * 1e-3) / 1e9:.0f} GB/s); "
+                f"sweep-scaled: kernel vs plain {errs['vs_plain']:.2e}, vs "
+                f"float64 {errs['vs_f64']:.2e}, plain vs float64 "
+                f"{errs['plain_vs_f64']:.2e}"
+                + (f", old kernel vs kernel {errs['old_vs_kernel']:.2e}"
+                   if old is not None else ""))
+            for plan in hals_tiles(r, k, size, sms):
+                if plan == default:
+                    continue
+                same = torch.equal(call(plan)(), want)
+                d1, p1, p2, d2 = (time_ms(f, reps) for f in (
+                    call(default), call(plan), call(plan), call(default)))
+                name = (f"{plan.rows}t{plan.tpr}x{plan.stages}g{plan.gblocks}"
+                        f"b{plan.blocks}")
+                res[name] = min(p1, p2)
+                log(f"[hals] {tag}: tile {plan.rows} rows x {plan.tpr} "
+                    f"threads x {plan.stages} stages, gblocks "
+                    f"{plan.gblocks}, "
+                    f"{plan.blocks} blocks, {plan.smem} B: {p1:.3f}/{p2:.3f}"
+                    f" ms against the default's {d1:.3f}/{d2:.3f}; same bits "
+                    f"{same}")
+            out[tag] = res
+            del X, G, R, want
+            torch.cuda.empty_cache()
     return out
 
 
@@ -446,8 +415,9 @@ def main() -> int:
                     default=[1 << 24, VIDEO_M])
     ap.add_argument("--mu-k", type=int, nargs="*", default=[K])
     ap.add_argument("--old-luc", default=None)
-    ap.add_argument("--hals-rows", type=int, default=VIDEO_M)
-    ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2, 3])
+    ap.add_argument("--hals-shapes", type=int, nargs="*",
+                    default=[x for s in HALS_SHAPES for x in s],
+                    help="rows and k of each shape, flat: r1 k1 r2 k2 ...")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     import torch
@@ -466,9 +436,10 @@ def main() -> int:
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     result = {"card": card}
     if "mu" in args.parts:
-        result["mu"] = probe_mu(args.rows, args.mu_k, args.seed, libs)
+        result["mu"] = probe_mu(args.rows, args.mu_k, args.seed)
     if "hals" in args.parts:
-        result["hals"] = probe_hals(args.hals_rows, args.seeds, libs)
+        shapes = list(zip(args.hals_shapes[::2], args.hals_shapes[1::2]))
+        result["hals"] = probe_hals(shapes, args.seed, libs)
     if "spmm" in args.parts:
         result["spmm_sorted"] = probe_spmm(args.sparse_dim, args.seed, libs)
     with open(os.path.join(out_dir, "probe.json"), "w") as f:
