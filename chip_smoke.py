@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Three paths run, at k = 50, and the dense one again at k = 160:
+Three paths run, at k = 50, and the dense one again at k = 160, the
+dense and sparse ones also through the distributed schedules (faun, naive)
+on a one-rank NCCL group:
 
 * dense: the paper's serial loop, ``NMFSolver(k, algo=...).fit(A)``, on a
   dense fp32 A at the paper's Video shape (m = 1,013,400, n = 13,824; A is
@@ -96,7 +98,33 @@ Phases, each of which raises on failure:
                the spmm kernel (checked to take its single pass) and a
                hals fold-in, and each request's product timed on its
                single pass and on a forced L2-blocked scatter; TopK over
-               W's 2^24 rows.
+               W's 2^24 rows;
+ 15. faun      (after 8c, while the dense A is on the card) the paper's
+               Algorithm 3, ``NMFSolver(K, algo, schedule="faun",
+               grid=make_faun_grid(1, 1))``, on a one-rank NCCL group
+               (NCCL puts no two ranks on one card): mu and hals for 3
+               iterations, bpp for 1, each against the serial fit from the
+               same seed: W, H and the rel errors bit-equal, the same
+               kernel launches, A held as the given tensor (not a copy),
+               peak memory (above what was allocated before the fit)
+               within 1 GB of serial's, ms/iter beside serial's;
+ 15n. naive    Algorithm 2 at p = 1 on the same group: mu for 3 iterations,
+               the same checks (both of its copies of A are views of A);
+ 15g. grid     (after ``del A``) faun on a 2×2 grid of four processes
+               sharing the card over gloo, which takes CUDA tensors, at
+               Video's width with m cut to 253,344: A made once by this
+               process and handed to the ranks over CUDA IPC (each copies
+               only its block); mu and hals for 3 iterations held against
+               the serial fit from the same seed (rel errors rtol 1e-4; W
+               and H no further from a float64 fit than twice the serial
+               fit is, + 1e-6 scaled) and each rank's launches against the
+               step's; A's memory back once the ranks are done;
+ 16. sparse faun  (after 14) faun at 1×1 on the sparse A: mu for 2
+               iterations on the sorted layout, bit-equal to serial sorted;
+               mu for 2 on "auto" (the spmm kernel, whose sums change
+               order from run to run) within the sparse kernels'
+               tolerance of serial "auto"; A held as given; peak memory
+               within 1 GB of serial's, as in phase 15.
 
 Before the last line it prints the kernels as one JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -839,6 +867,348 @@ def phase_breakdown(A, seed: int, runs) -> dict:
         log(f"[breakdown] {algo:4s} ms/iter over {iters} iters: "
             + ", ".join(f"{k} {v:.2f}" for k, v in per.items()))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The distributed schedules on one card: a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def nccl_group():
+    """A one-rank NCCL process group for a phase (NCCL puts no two ranks on
+    one card), destroyed when the phase ends."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def segment_fit(A, seed: int, iters: int, **solver_kw):
+    """A fixed fit split as fit() runs it (prepare, the iterations, collect),
+    each part synchronised and timed; the launch counters reset just before
+    and read just after, the peak memory over all three above what was
+    allocated before the fit (A and whatever the caller holds: an earlier
+    fit's result among it).  Returns (result, launches, peak GB, ms per
+    iteration, set-up ms, the data pointers of the A the schedule
+    held)."""
+    import torch
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.kernels import ops
+    solver = NMFSolver(K, max_iters=iters, **solver_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rs = solver.prepare_state(A, seed=seed)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    solver.run_segment(rs, iters)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = solver.collect_result(rs)
+    torch.cuda.synchronize()
+    counts = dict(ops.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    held = rs.A if isinstance(rs.A, tuple) else (rs.A,)
+    ptrs = {getattr(a, "vals", a).data_ptr() for a in held}
+    del rs
+    return res, counts, peak, (t2 - t1) * 1e3 / iters, (t1 - t0) * 1e3, ptrs
+
+
+def phase_schedules(A, seed: int, runs, card: str, label: str,
+                    exact: bool = True, slack_gb: float = 1.0
+                    ) -> tuple[dict, dict]:
+    """Phases 15, 15n and 16: ``schedule="faun"`` on a 1×1 grid and
+    ``schedule="naive"`` at p = 1, on a one-rank NCCL group, each against
+    the serial fit from the same seed on the same A.  At one rank the
+    collectives are identities through NCCL and the step runs the serial
+    step's operations in its order, so W, H and the rel errors must be the
+    same bits (``exact``; a product whose sums change order from run to
+    run, the spmm kernel's, is held at the sparse kernels' tolerance
+    instead); the kernel launches must equal the serial fit's; the A the
+    schedule holds must be the given A's storage (not a copy), and the
+    peak memory of the fit (above what was allocated before it) must stay
+    within ``slack_gb`` of the serial fit's.  ``runs`` holds (schedule,
+    algo, iters, solver kwargs)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.faun import make_faun_grid
+    launches, summary = {}, {}
+    m, n = A.shape
+    with nccl_group():
+        grid = make_faun_grid(1, 1)
+        # NCCL makes a group's communicator at its first collective: make
+        # them here, timed, so the fits' times are steady state
+        t0 = time.perf_counter()
+        for group in (None, grid.world, grid.row_group, grid.col_group):
+            dist.all_reduce(torch.zeros(1, device=A.device), group=group)
+        torch.cuda.synchronize()
+        comm_ms = (time.perf_counter() - t0) * 1e3
+        log(f"[{label}] NCCL communicators of the default group and the "
+            f"1×1 grid's three groups made in {comm_ms:.1f} ms")
+        summary["nccl_setup_ms"] = comm_ms
+        for schedule, algo, iters, kw in runs:
+            tag = f"{schedule:5s} {algo:4s}"
+            if "backend" in kw:
+                tag += f" {kw['backend'].spmm_impl}"
+            ser, s_counts, s_peak, s_ms, s_prep, _ = segment_fit(
+                A, seed, iters, algo=algo, **kw)
+            sched_kw = dict(schedule=schedule, **kw)
+            if schedule == "faun":
+                sched_kw["grid"] = grid
+            res, counts, peak, ms, prep, ptrs = segment_fit(
+                A, seed, iters, algo=algo, **sched_kw)
+            log(f"[{label}] {tag} {iters} iters at {(m, n, K)}: {ms:.2f} "
+                f"ms/iter (serial {s_ms:.2f}), set-up {prep:.1f} ms (serial "
+                f"{s_prep:.1f}), peak memory {peak:.3f} GB (serial "
+                f"{s_peak:.3f}), launches {counts}; card {card}")
+            log(f"[{label}] {tag} rel errors {res.rel_errors.tolist()}")
+            require(counts == s_counts, f"{label} {tag}: launches {counts} "
+                                        f"!= serial's {s_counts}")
+            require(ptrs == {getattr(A, "vals", A).data_ptr()},
+                    f"{label} {tag}: the schedule holds a copy of A")
+            require(peak <= s_peak + slack_gb,
+                    f"{label} {tag}: peak memory {peak:.3f} GB > serial's "
+                    f"{s_peak:.3f} + {slack_gb:.2f} GB")
+            if exact:
+                for name, got, want in (
+                        ("W", res.W, ser.W), ("H", res.H, ser.H),
+                        ("rel errors", res.rel_errors, ser.rel_errors)):
+                    require(torch.equal(got, want),
+                            f"{label} {tag}: {name} not bit-equal to the "
+                            f"serial fit's")
+            else:
+                tol = TOL["float32"]
+                errs = {name: scaled_err(got, want)[1] for name, got, want in
+                        (("W", res.W, ser.W), ("H", res.H, ser.H))}
+                rels, s_rels = res.rel_errors.numpy(), ser.rel_errors.numpy()
+                log(f"[{label}] {tag} scaled distance to the serial fit "
+                    f"{errs}, rel errors {s_rels.tolist()}")
+                require(all(e <= tol for e in errs.values())
+                        and np.allclose(rels, s_rels, rtol=tol, atol=0),
+                        f"{label} {tag}: outside {tol} of the serial fit")
+            require(res.extras["rule_state"] == ser.extras["rule_state"],
+                    f"{label} {tag}: rule state differs")
+            add_launches(launches, counts)
+            summary["/".join(tag.split())] = {
+                "iters": iters, "ms_per_iter": ms, "serial_ms_per_iter": s_ms,
+                "prepare_ms": prep, "serial_prepare_ms": s_prep,
+                "peak_gb": peak, "serial_peak_gb": s_peak,
+                "bit_equal": exact}
+            del res, ser
+            torch.cuda.empty_cache()
+    return launches, summary
+
+
+#: Phase 15g's rows: a multiple of 16 near a quarter of Video's (m/4 rows of
+#: W and m/2 of A a rank on the 2×2 grid)
+GRID_M = 253_344
+
+
+def grid_rank(box: list, out: str, seed: int, runs) -> None:
+    """Phase 15g's rank: ``faun`` on the 2×2 grid of four gloo ranks that
+    share the card, on the A the parent made (a CUDA tensor received over
+    CUDA IPC in the one-item list ``box``; this rank copies only its
+    block).  The rank lays out every run's state first and then drops A:
+    the parent's memory is freed only once no rank holds A, and a rank
+    that exits still holding it (in the arguments it was spawned with)
+    leaks it.  Rank 0 writes the global result, every rank its kernel
+    launches and ms per iteration."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.core.faun import make_faun_grid
+    from repro_torch.kernels import ops
+    A = box.pop()
+    grid = make_faun_grid(2, 2)
+    rank = dist.get_rank()
+    sync = torch.cuda.synchronize if A.is_cuda else (lambda: None)
+    fits = []
+    for algo, iters in runs:
+        solver = NMFSolver(K, algo=algo, schedule="faun", grid=grid,
+                           device=A.device, max_iters=iters)
+        fits.append((algo, iters, solver, solver.prepare_state(A, seed=seed)))
+    del A
+    for algo, iters, solver, rs in fits:
+        sync()
+        dist.barrier()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        solver.run_segment(rs, iters)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / iters
+        counts = dict(ops.LAUNCHES)
+        res = solver.collect_result(rs)
+        torch.save({"launches": counts, "ms_per_iter": ms},
+                   os.path.join(out, f"{algo}_r{rank}.pt"))
+        if rank == 0:
+            torch.save({"W": res.W.cpu(), "H": res.H.cpu(),
+                        "rels": res.rel_errors},
+                       os.path.join(out, f"{algo}.pt"))
+        del rs, res
+    del fits
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def float64_luc():
+    """The LUC kernel wrappers replaced by float64 arithmetic (MU's update
+    and ``ref.hals_sweep_f64``): with float64 products, a fit in float64
+    from the same factors, which fp32 fits are held against."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.mu_update, ops.hals_sweep
+    ops.mu_update = lambda X, G, R, *, eps=ref.LUC_EPS: X * (R / (X @ G
+                                                                  + eps))
+    ops.hals_sweep = lambda X, G, R, *, eps=ref.LUC_EPS: ref.hals_sweep_f64(
+        X, G, R, eps)
+    try:
+        yield
+    finally:
+        ops.mu_update, ops.hals_sweep = saved
+
+
+def float64_fit(A, seed: int, algo: str, iters: int):
+    """The serial fit from ``seed``'s factors with every product, Gram and
+    update in float64 (A is copied to float64 for it)."""
+    import torch
+    from repro_torch.backends import LocalOps
+    from repro_torch.core.engine import NMFSolver
+
+    class Float64Ops(LocalOps):
+        name = "float64"
+
+        def mm(self, A, B):
+            return A @ B
+
+        def mm_t(self, A, B):
+            return A.T @ B
+
+        def gram(self, X):
+            return X.T @ X
+
+    rs = NMFSolver(K, algo=algo).prepare_state(A, seed=seed)
+    W0, H0 = rs.W.double(), rs.Ht.T.double()
+    del rs
+    with float64_luc():
+        res = NMFSolver(K, algo=algo, backend=Float64Ops(),
+                        max_iters=iters).fit(A.double(), W0=W0, H0=H0)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_grid(dev, seed: int, runs, card: str, rank_fn=grid_rank,
+               check: bool = True) -> dict:
+    """Phase 15g: ``faun`` on a 2×2 grid of four processes sharing the card
+    over gloo (which takes CUDA tensors; NCCL puts no two ranks on one
+    card), at Video's width with m cut to ``GRID_M``, and each rank's
+    launches against the step's (3 gram, 1 ts_matmul, 1 ts_matmul_t and
+    the rule's LUC an iteration).  The grid changes only the order of the
+    sums, so the fit is held against the serial fit from the same seed:
+    its rel errors within rtol 1e-4, and W and H no further from a float64
+    fit than twice the serial fp32 fit's own distance to it, plus 1e-6
+    (scaled).  HALS's W is ill-conditioned in fp32 at this rank: the serial
+    fit sits ≈ 2.5e-3 (scaled) from the float64 one, and the grid as far.
+    The float64 fit is the serial schedule run by the same engine and
+    rules in float64 (``float64_fit``): it witnesses the grid's schedule
+    and collectives, not the rule code both share.  The factor 2 sits
+    between what ``tools/probe_grid_tolerance.py`` read on the card: at
+    most 1.13× the serial fit's distance on sound grids (seeds 0–4), at
+    least 14.6× with the gathered panels rounded to bf16, and ≥ 347× with
+    their blocks swapped."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.data.pipeline import lowrank_matrix
+    from repro_torch.kernels import ops
+    from repro_torch.util import dist as rdist
+    m, n = GRID_M, N_FULL
+    log(f"[grid] cut: m = {m} of the Video shape's {M_FULL} (four ranks "
+        f"share the card)")
+    held_before = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = lowrank_matrix(gen, m, n, K, noise=NOISE)
+    serial, exact, serial_ms = {}, {}, {}
+    for algo, iters in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial[algo] = NMFSolver(K, algo=algo, max_iters=iters).fit(
+            A, seed=seed)
+        torch.cuda.synchronize()
+        serial_ms[algo] = (time.perf_counter() - t0) * 1e3 / iters
+        exact[algo] = float64_fit(A, seed, algo, iters)
+    summary = {"shape": (m, n), "grid": (2, 2)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as out:
+        t0 = time.perf_counter()
+        rdist.spawn(rank_fn, 4, [A], out, seed, runs, backend="gloo",
+                    device=(f"cuda:{dev.index or 0}" if dev.type == "cuda"
+                            else "cpu"))
+        wall = time.perf_counter() - t0
+        del A
+        if dev.type == "cuda":      # A's memory, now that no rank holds it
+            torch.cuda.ipc_collect()
+        for algo, iters in runs:
+            got = torch.load(os.path.join(out, f"{algo}.pt"))
+            ranks = [torch.load(os.path.join(out, f"{algo}_r{r}.pt"))
+                     for r in range(4)]
+            ser = serial[algo]
+            want = dict.fromkeys(ops.LAUNCHES, 0)
+            want.update(gram=3 * iters, ts_matmul=iters, ts_matmul_t=iters)
+            want.update({name: c * iters
+                         for name, c in LUC_PER_ITER[algo].items()})
+            ex = exact[algo]
+            errs = {f: {"grid-serial": scaled_err(got[f], getattr(ser, f)
+                                                  .cpu())[1],
+                        "grid-float64": scaled_err(got[f], getattr(ex, f)
+                                                   .cpu())[1],
+                        "serial-float64": scaled_err(getattr(ser, f),
+                                                     getattr(ex, f))[1]}
+                    for f in ("W", "H")}
+            rels, s_rels = got["rels"].numpy(), ser.rel_errors.numpy()
+            ms = [r["ms_per_iter"] for r in ranks]
+            log(f"[grid] faun {algo:4s} 2×2 {iters} iters at {(m, n, K)}: "
+                f"{max(ms):.2f} ms/iter (slowest rank; ranks "
+                f"{[round(x, 2) for x in ms]}; serial {serial_ms[algo]:.2f} "
+                f"incl. set-up); scaled distances {errs}; rel errors "
+                f"{rels.tolist()} (serial {s_rels.tolist()}); launches per "
+                f"rank {ranks[0]['launches']}; card {card}")
+            summary[algo] = {"iters": iters, "ms_per_iter": ms,
+                             "serial_ms_per_iter_incl_setup": serial_ms[algo],
+                             "scaled_err": errs, "rel_errors": rels.tolist(),
+                             "serial_rel_errors": s_rels.tolist(),
+                             "float64_rel_errors": ex.rel_errors.tolist()}
+            if not check:
+                continue
+            for r, row in enumerate(ranks):
+                require(row["launches"] == want,
+                        f"grid {algo} rank {r}: launches {row['launches']} "
+                        f"!= {want}")
+            require(np.allclose(rels, s_rels, rtol=1e-4, atol=0),
+                    f"grid {algo}: rel errors outside 1e-4 of the serial "
+                    f"fit's")
+            for f, e in errs.items():
+                require(e["grid-float64"] <= 2 * e["serial-float64"] + 1e-6,
+                        f"grid {algo}: {f} further from the float64 fit "
+                        f"than twice the serial fit is: {e}")
+        summary["spawn_s"] = wall
+    del serial, exact
+    torch.cuda.empty_cache()
+    # A went to the ranks over CUDA IPC: its memory comes back only once
+    # every rank has dropped it
+    held = (torch.cuda.memory_allocated(dev) - held_before) / 1e9
+    log(f"[grid] {held:.3f} GB still allocated after the phase")
+    summary["held_after_gb"] = held
+    if check:
+        require(held < 1.0, f"grid: {held:.3f} GB still allocated after "
+                            f"the phase (A is {m * n * 4 / 1e9:.2f} GB)")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -1663,8 +2033,15 @@ def main(argv=None) -> int:
     for name, row in wide.items():
         timings[name].update({f"{key}_k{K_WIDE}": v
                               for key, v in row.items()})
+    counts, summary["schedules"] = phase_schedules(
+        A, args.seed, (("faun", "mu", 3, {}), ("faun", "hals", 3, {}),
+                       ("faun", "bpp", 1, {}), ("naive", "mu", 3, {})),
+        card, "schedules")
+    add_launches(launches, counts)
     del A
     torch.cuda.empty_cache()
+    summary["grid"] = phase_grid(dev, args.seed, (("mu", 3), ("hals", 3)),
+                                 card)
 
     if args.sparse_dim != SPARSE_DIM:
         log(f"[data] cut: sparse m = n = {args.sparse_dim} of {SPARSE_DIM}")
@@ -1688,6 +2065,17 @@ def main(argv=None) -> int:
         sp["srt"], args.seed, (("ahals", 2),),
         backend=SparseOps(spmm_impl="sorted"), label="sparse accel")
     add_launches(launches, counts)
+    counts, sp_summary["schedules"] = phase_schedules(
+        sp["srt"], args.seed,
+        (("faun", "mu", 2, {"backend": SparseOps(spmm_impl="sorted")}),),
+        card, "sparse schedules")
+    add_launches(launches, counts)
+    counts, auto = phase_schedules(
+        sp["blk"], args.seed,
+        (("faun", "mu", 2, {"backend": SparseOps(spmm_impl="auto")}),),
+        card, "sparse schedules", exact=False)
+    add_launches(launches, counts)
+    sp_summary["schedules"].update(auto)
     sp_summary["breakdown_ms"] = phase_sparse_breakdown(
         sp["blk"], sp["srt"], args.seed,
         (("mu", 2, "sorted"), ("mu", 2, "auto"), ("hals", 2, "sorted"),

@@ -9,7 +9,18 @@ products, the only operations that ever touch the data matrix A:
                              contracting A's row dim so A is never transposed
     gram(X)     Xᵀ X       — the k×k Gram of a factor panel (lines 3/9)
 
-plus the representation hooks a schedule needs (``prepare``, ``norm_sq``).
+plus the representation hooks a schedule needs:
+
+    prepare(A, device)     the whole A for one device (the serial schedule)
+    blockify(A, gr, gc, block, device, products=)
+                           this rank's block (i, j) of A on a gr × gc grid,
+                           for the local products that will run on it
+    pre_blockify(A)        one conversion before several blockify calls
+    cast_block(A, dtype)   the local block for low-precision panels
+    norm_sq(A)             ‖A‖_F² in fp32 (of the block it is given)
+
+Unlike the reference's, whose ``blockify`` lays out the whole matrix for a
+device mesh, the port's grid hooks return only the calling rank's block.
 Implementations live next door (dense.py / cuda.py / sparse.py) and are looked up
 through a registry so projects can plug their own:
 
@@ -43,6 +54,10 @@ class LocalOps:
     #: registry key and the ``NMFSolver(...).backend`` string
     name: str = "abstract"
 
+    #: whether low-precision factor panels (``panel_dtype=``) are supported:
+    #: the products must then take low-precision inputs and return fp32
+    supports_panel_dtype: bool = True
+
     # -- the three local products ------------------------------------------
 
     def mm(self, A, B):
@@ -66,6 +81,39 @@ class LocalOps:
         float64 numpy array becomes float32, as ``jnp.asarray`` makes it in
         the reference."""
         return self._require_dense(A, device)
+
+    def blockify(self, A, gr: int, gc: int, block: tuple[int, int],
+                 device: torch.device,
+                 products: tuple[str, ...] = ("mm", "mm_t")) -> torch.Tensor:
+        """Block ``block`` = (i, j) of A on a gr × gc grid, as a dense
+        tensor on ``device``: A[i·m/gr : (i+1)·m/gr, j·n/gc : (j+1)·n/gc].
+        A row block of a contiguous A already on ``device`` (and the whole
+        of A on a 1 × 1 grid) is a view, never a copy; a column block is
+        copied once to make it contiguous.  A global A on the host is
+        sliced there, and only the block goes to ``device``.  ``products``
+        names the local products that will run on this copy (a subset of
+        ("mm", "mm_t"): the naive schedule's row copy runs only ``mm``,
+        its column copy only ``mm_t``), so a representation may skip what
+        the other needs; a dense block serves both."""
+        del products
+        if isinstance(A, torch.Tensor) and A.layout != torch.strided:
+            return self._require_dense(A, device)      # raises
+        m, n = A.shape
+        if m % gr or n % gc:
+            raise ValueError(f"A of shape {(m, n)} does not tile a "
+                             f"{gr}×{gc} grid")
+        (i, j), mb, nb = block, m // gr, n // gc
+        return self._require_dense(A[i * mb:(i + 1) * mb,
+                                     j * nb:(j + 1) * nb], device)
+
+    def pre_blockify(self, A):
+        """One conversion before one or more ``blockify`` calls (the naive
+        schedule blockifies twice).  Default: A as it is."""
+        return A
+
+    def cast_block(self, A, dtype: torch.dtype):
+        """The local block for low-precision panel runs, cast once."""
+        return A.to(dtype)
 
     def norm_sq(self, A) -> torch.Tensor:
         """‖A‖_F² in fp32."""

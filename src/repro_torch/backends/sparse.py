@@ -1,9 +1,11 @@
 """Sparse backend: block-local COO SpMM — the counterpart of
-``repro/backends/sparse.py``, serial (1 × 1 grid) only.
+``repro/backends/sparse.py``.
 
 ``prepare`` turns A (a ``BlockCOO``, a sparse COO/CSR tensor, or a dense
 tensor or numpy array) into one 1 × 1 ``core.blocksparse.BlockCOO`` on the
-solver's device.  The SpMM lowering is chosen by ``spmm_impl``:
+solver's device; ``blockify`` gives a grid rank its own block, as a 1 × 1
+``BlockCOO`` of the block's shape.  A's nonzeros never cross the wire.
+The SpMM lowering is chosen by ``spmm_impl``:
 
     "scatter"  ``index_add_`` in fp32 (kernels/ref.py) — the plain version
     "cuda"     kernels/ops.spmm — the unsorted CUDA kernel (the counterpart
@@ -31,6 +33,7 @@ _IMPLS = ("auto", "scatter", "cuda", "sorted")
 
 class SparseOps(LocalOps):
     name = "sparse"
+    supports_panel_dtype = False     # the SpMMs take fp32 factor panels
 
     def __init__(self, spmm_impl: str = "auto",
                  align: int = blocksparse.DEFAULT_ALIGN):
@@ -76,6 +79,34 @@ class SparseOps(LocalOps):
         """The whole matrix as one 1 × 1 block on ``device``; with
         spmm_impl="sorted", sorted there."""
         return self._sort(blocksparse.blockify(A, 1, 1).to(device))
+
+    def blockify(self, A, gr: int, gc: int, block: tuple[int, int],
+                 device: torch.device,
+                 products: tuple[str, ...] = ("mm", "mm_t")
+                 ) -> blocksparse.BlockCOO:
+        """Block (i, j) of A on a gr × gc grid as a 1 × 1 BlockCOO of the
+        block's shape on ``device``, cut from A's triplets where A lies
+        (``blocksparse.local_block``: no other block is laid out); with
+        spmm_impl="sorted", sorted on ``device`` in the orientations
+        ``products`` need (mm: rows, mm_t: columns).  The hint must come
+        from the schedule: a 1-D faun grid runs both products on one
+        block."""
+        prods = set(products)
+        if not prods or not prods <= {"mm", "mm_t"}:
+            raise ValueError(f"products must be a non-empty subset of "
+                             f"('mm', 'mm_t'), got {products!r}")
+        orient = ("both" if len(prods) == 2
+                  else "rows" if prods == {"mm"} else "cols")
+        blk = blocksparse.local_block(A, gr, gc, *block)
+        return self._sort(blk.to(device), orient=orient)
+
+    def pre_blockify(self, A):
+        """Dense input becomes triplets once (a 1 × 1 BlockCOO); each
+        ``blockify`` then only repacks them."""
+        if isinstance(A, blocksparse.BlockCOO) or (
+                isinstance(A, torch.Tensor) and A.layout != torch.strided):
+            return A
+        return blocksparse.blockify(A, 1, 1)
 
     def norm_sq(self, A) -> torch.Tensor:
         return blocksparse.sq_norm(_require_blockcoo(A, "norm_sq"))

@@ -5,8 +5,10 @@ A sparse A on a gr × gc grid is stored as per-block COO triplets padded to
 the largest block's nonzero count, in three ``(gr, gc, nnz_max)`` tensors:
 ``vals`` (A's dtype) and int32 ``rows``/``cols`` *within* the block.
 Padding triplets are ``(row=0, col=0, val=0)``: no-ops for a scatter-add
-SpMM.  The serial path uses a 1 × 1 grid.  Re-blocking onto another grid
-and ``pad_nnz`` belong to the distributed schedules and are not ported yet.
+SpMM.  The serial path uses a 1 × 1 grid; on a grid each rank holds its
+own block as a 1 × 1 BlockCOO (``block``).  ``blockify`` re-blocks a
+BlockCOO onto another grid; ``pad_nnz`` (the gspmd layout) is not ported
+yet.
 
 ``sort_rows`` reorders each block's triplets by row into the reference's
 tile-aligned packed layout (array for array the same): a stable sort, each
@@ -213,17 +215,87 @@ def from_bcoo(A: torch.Tensor, gr: int, gc: int) -> BlockCOO:
                           row_major=A.is_coalesced())
 
 
+def _global_triplets(blk: BlockCOO):
+    """Flat global-index triplets of a BlockCOO, padding stripped, on the
+    leaves' device.
+
+    The stored tensors carry zero-valued no-op entries: the per-block
+    nnz_max padding and, after ``sort_rows``, the tile-alignment padding
+    and ``_stack_padded`` tails.  Re-blocking them as if they were real
+    triplets would inflate the new blocking's nnz_max on every grid change,
+    so they are dropped: all padding has val == 0 exactly, and zero-valued
+    triplets are no-ops under scatter-add (explicit zeros of the data go
+    too; ``nnz`` travels separately)."""
+    gr, gc = blk.grid
+    mb, nb = blk.block_shape
+    dev = blk.device
+    bi = torch.arange(gr, dtype=torch.int64, device=dev)[:, None, None]
+    bj = torch.arange(gc, dtype=torch.int64, device=dev)[None, :, None]
+    vals = blk.vals.reshape(-1)
+    rows = (blk.rows.long() + bi * mb).reshape(-1)
+    cols = (blk.cols.long() + bj * nb).reshape(-1)
+    keep = vals != 0
+    return vals[keep], rows[keep], cols[keep]
+
+
+def block(blk: BlockCOO, i: int, j: int) -> BlockCOO:
+    """Block (i, j) of a blocked matrix as a 1 × 1 BlockCOO of
+    ``block_shape`` (every leaf sliced, sorted layouts included, so the
+    block keeps its padding); a 1 × 1 BlockCOO is returned as it is."""
+    if blk.grid == (1, 1) and (i, j) == (0, 0):
+        return blk
+    gr, gc = blk.grid
+    if not (0 <= i < gr and 0 <= j < gc):
+        raise ValueError(f"block ({i}, {j}) outside a {gr}×{gc} grid")
+    leaves = {f: getattr(blk, f)[i:i + 1, j:j + 1]
+              for f in LEAVES + FIRST_FIELDS if getattr(blk, f) is not None}
+    return dataclasses.replace(
+        blk, **leaves, shape=blk.block_shape,
+        nnz=int(torch.count_nonzero(leaves["vals"])))
+
+
+def local_block(A, gr: int, gc: int, i: int, j: int) -> BlockCOO:
+    """Block (i, j) of A on a gr × gc grid as a 1 × 1 BlockCOO of the
+    block's shape, without laying out the other blocks: the triplets of A
+    (a BlockCOO's with its padding stripped; any other input blockified
+    1 × 1 first) that fall in the block, in their order, shifted to the
+    block's origin.  A BlockCOO already on this grid gives its block as it
+    is laid out (``block``), a 1 × 1 one itself."""
+    if isinstance(A, BlockCOO) and A.grid == (gr, gc):
+        return block(A, i, j)
+    m, n = A.shape
+    if m % gr or n % gc:
+        raise ValueError(f"A of shape {(m, n)} does not tile a "
+                         f"{gr}×{gc} grid")
+    if not (0 <= i < gr and 0 <= j < gc):
+        raise ValueError(f"block ({i}, {j}) outside a {gr}×{gc} grid")
+    if not isinstance(A, BlockCOO):
+        A = blockify(A, 1, 1)
+    mb, nb = m // gr, n // gc
+    vals, rows, cols = _global_triplets(A)
+    keep = ((rows >= i * mb) & (rows < (i + 1) * mb)
+            & (cols >= j * nb) & (cols < (j + 1) * nb))
+    vals, rows, cols = vals[keep], rows[keep] - i * mb, cols[keep] - j * nb
+    del keep
+    return _pack_triplets(vals, rows, cols, mb, nb, 1, 1, nnz=vals.numel(),
+                          row_major=A.row_major and A.grid[1] == 1)
+
+
 def blockify(A, gr: int, gc: int) -> BlockCOO:
     """BlockCOO from a dense tensor, a numpy array (float64 becomes
     float32, as ``jnp.asarray`` makes it in the reference), a sparse COO or
-    CSR tensor, or a BlockCOO already on this grid.  Dense input keeps its
-    nonzeros in row-major order, as ``BCOO.fromdense`` does."""
+    CSR tensor, or a BlockCOO (re-blocked if its grid differs: its
+    triplets, padding stripped, repacked for this grid).  Dense input
+    keeps its nonzeros in row-major order, as ``BCOO.fromdense`` does."""
     if isinstance(A, BlockCOO):
         if A.grid == (gr, gc):
             return A
-        raise NotImplementedError(
-            "re-blocking a BlockCOO onto another grid is not ported yet "
-            "(ROADMAP.md queue 1 item 6, the 'faun' schedule)")
+        vals, rows, cols = _global_triplets(A)
+        # row-major survives when the old blocks stack rows (one block
+        # column): block i's rows all come before block i + 1's
+        return _pack_triplets(vals, rows, cols, A.shape[0], A.shape[1],
+                              gr, gc, nnz=A.nnz,
+                              row_major=A.row_major and A.grid[1] == 1)
     if isinstance(A, np.ndarray):
         if A.dtype == np.float64:
             A = A.astype(np.float32)

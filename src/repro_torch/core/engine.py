@@ -1,6 +1,11 @@
 """AU-NMF solver engine: one solver lifecycle over a pluggable local-compute
-layer and a pluggable update rule.  Counterpart of ``repro/core/engine.py``,
-serial schedule only.
+layer and a pluggable update rule.  Counterpart of ``repro/core/engine.py``.
+
+* **schedule** — who computes which block and which collectives move the
+  k-width panels: ``serial`` (Algorithm 1, one device), ``faun``
+  (Algorithm 3 on a pr × pc grid of ``torch.distributed`` ranks,
+  ``core/faun.py``) or ``naive`` (Algorithm 2 on a 1-D group,
+  ``core/naive.py``).  ``gspmd`` is not ported yet.
 
 * **backend** — a ``repro_torch.backends.LocalOps`` implementation of the
   local products (A·Hᵀ, AᵀW, XᵀX): ``cuda`` (the hand-written kernels, the
@@ -34,7 +39,7 @@ from repro_torch.util.convert import to_torch
 from repro_torch.util.device import make_generator, resolve_device
 
 SCHEDULES = ("serial", "faun", "naive", "gspmd")
-_PORTED_SCHEDULES = ("serial",)
+_PORTED_SCHEDULES = ("serial", "faun", "naive")
 
 
 # ---------------------------------------------------------------------------
@@ -87,15 +92,24 @@ class RunState:
 
 
 class _SerialSchedule:
-    """Paper Algorithm 1 on one device."""
+    """Paper Algorithm 1 on one device.  A schedule lays the problem out
+    (``prepare_A``, ``place_factors``), runs one iteration on its layout
+    (``step``) and gathers the factors back (``collect``)."""
 
     name = "serial"
+    grid_shape = (1, 1)
 
     def __init__(self, solver: "NMFSolver"):
         self.s = solver
 
-    def prepare(self, A, W0, H0):
-        return A, W0, H0.T.contiguous(), self.s.ops.norm_sq(A)
+    def prepare_A(self, A):
+        """(A as this schedule holds it, the global (m, n), the carry dtype,
+        ‖A‖²)."""
+        A = self.s.ops.prepare(A, self.s.device)
+        return A, tuple(A.shape), A.dtype, self.s.ops.norm_sq(A)
+
+    def place_factors(self, W0, H0):
+        return W0, H0.T.contiguous()
 
     def step(self, A, W, Ht, normA_sq, state):
         ops = self.s.ops
@@ -107,6 +121,131 @@ class _SerialSchedule:
 
     def collect(self, W, Ht):
         return W, Ht.T.contiguous()
+
+
+def _rows(X, block: int, p: int):
+    """Rows block·r/p … (block+1)·r/p of X, contiguous."""
+    r = X.shape[0] // p
+    return X[block * r:(block + 1) * r].contiguous()
+
+
+def _check_tiles(shape, p: int) -> None:
+    m, n = shape
+    if m % p or n % p:
+        raise ValueError(f"A of shape {(m, n)}: both dimensions must divide "
+                         f"by the {p} ranks of the schedule")
+
+
+class _FaunSchedule(_SerialSchedule):
+    """Paper Algorithm 3 on this rank's cell of a ``FaunGrid``
+    (``core/faun.py``)."""
+
+    name = "faun"
+
+    def __init__(self, solver: "NMFSolver", grid):
+        from repro_torch.core.faun import FaunGrid, make_faun_grid
+        if grid is None:
+            grid = make_faun_grid(*_square_grid(_world_size("faun")))
+        if not isinstance(grid, FaunGrid):
+            raise TypeError(f"grid must be a FaunGrid (make_faun_grid), got "
+                            f"{type(grid).__name__}")
+        self.s, self.grid = solver, grid
+        self.grid_shape = (grid.pr, grid.pc)
+
+    def prepare_A(self, A):
+        from repro_torch.core.faun import all_reduce
+        g, ops = self.grid, self.s.ops
+        shape = tuple(A.shape)
+        _check_tiles(shape, g.p)
+        blk = ops.blockify(A, g.pr, g.pc, (g.i, g.j), self.s.device)
+        normA_sq = all_reduce(ops.norm_sq(blk), g.world)
+        dtype = blk.dtype
+        if self.s.panel_dtype is not None:
+            blk = ops.cast_block(blk, self.s.panel_dtype)
+        return blk, shape, dtype, normA_sq
+
+    def place_factors(self, W0, H0):
+        g = self.grid
+        return _rows(W0, g.w_block, g.p), _rows(H0.T, g.ht_block, g.p)
+
+    def step(self, A, W, Ht, normA_sq, state):
+        from repro_torch.core.faun import faun_iteration
+        return faun_iteration(A, W, Ht, normA_sq, state, grid=self.grid,
+                              rule=self.s.rule, ops=self.s.ops,
+                              panel_dtype=self.s.panel_dtype)
+
+    def collect(self, W, Ht):
+        """Both factors gathered back into global order on every rank: W's
+        blocks come in rank order; Hᵀ's come in rank order (i, j) and are
+        written straight into H (k, n) in (pc, pr) order, one copy, before
+        W is gathered (one gathered panel alive at a time)."""
+        from repro_torch.core.faun import allgather_panel
+        g = self.grid
+        Ht = allgather_panel(Ht, g.world)
+        k = Ht.shape[1]
+        H = Ht.view(g.pr, g.pc, -1, k).permute(3, 1, 0, 2).reshape(k, -1)
+        del Ht
+        return allgather_panel(W, g.world), H.contiguous()
+
+
+class _NaiveSchedule(_SerialSchedule):
+    """Paper Algorithm 2 on a 1-D process group (``core/naive.py``)."""
+
+    name = "naive"
+
+    def __init__(self, solver: "NMFSolver", group):
+        import torch.distributed as dist
+        _world_size("naive")
+        self.s, self.group = solver, group
+        self.p = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        if self.rank < 0:
+            raise ValueError("this rank is not in the naive schedule's group")
+        self.grid_shape = (self.p, 1)
+
+    def prepare_A(self, A):
+        """A twice: the row block for A·Hᵀ and the column block for AᵀW,
+        each told which product it serves (a sorted sparse copy carries
+        only that orientation).  At p = 1 both are A itself for dense A."""
+        from repro_torch.core.faun import all_reduce
+        ops, p, r, dev = self.s.ops, self.p, self.rank, self.s.device
+        shape = tuple(A.shape)
+        _check_tiles(shape, p)
+        A = ops.pre_blockify(A)
+        Arow = ops.blockify(A, p, 1, (r, 0), dev, products=("mm",))
+        Acol = ops.blockify(A, 1, p, (0, r), dev, products=("mm_t",))
+        normA_sq = all_reduce(ops.norm_sq(Arow), self.group)
+        return (Arow, Acol), shape, Arow.dtype, normA_sq
+
+    def place_factors(self, W0, H0):
+        return _rows(W0, self.rank, self.p), _rows(H0.T, self.rank, self.p)
+
+    def step(self, A, W, Ht, normA_sq, state):
+        from repro_torch.core.naive import naive_iteration
+        return naive_iteration(A[0], A[1], W, Ht, normA_sq, state,
+                               group=self.group, rule=self.s.rule,
+                               ops=self.s.ops)
+
+    def collect(self, W, Ht):
+        from repro_torch.core.faun import allgather_panel
+        H = allgather_panel(Ht, self.group).T.contiguous()
+        return allgather_panel(W, self.group), H
+
+
+def _world_size(schedule: str) -> int:
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"schedule={schedule!r} runs on torch.distributed ranks, and no "
+            f"process group is initialised: start the ranks with "
+            f"util.dist.spawn or torchrun (util.dist.init_from_env), even "
+            f"for one rank")
+    return dist.get_world_size()
+
+
+def _square_grid(p: int) -> tuple[int, int]:
+    pr = max(d for d in range(1, p + 1) if p % d == 0 and d * d <= p)
+    return pr, p // pr
 
 
 def _warm_start_factors(init, m: int, n: int, k: int, dtype, rule, device):
@@ -141,8 +280,8 @@ def _warm_start_factors(init, m: int, n: int, k: int, dtype, rule, device):
 # ---------------------------------------------------------------------------
 
 class NMFSolver:
-    """One solver lifecycle for the serial schedule × local-compute backend
-    × update rule.
+    """One solver lifecycle for every ported schedule × local-compute
+    backend × update rule.
 
     >>> solver = NMFSolver(k=50, algo="bpp", max_iters=30)   # cuda, kernels
     >>> result = solver.fit(A)              # A: dense tensor or numpy array
@@ -151,30 +290,67 @@ class NMFSolver:
 
     ``fit(init=...)`` warm-starts from previously trained factors — an
     ``NMFResult`` of either package, or a plain ``(W, H)`` pair.
+
+    ``schedule="faun"`` (Algorithm 3) runs on ``grid``, a
+    ``core.faun.FaunGrid`` (``make_faun_grid(pr, pc)``; None: the square
+    grid over the default process group), and ``schedule="naive"``
+    (Algorithm 2) on ``group``, a process group (None: the default one).
+    Every rank of the grid or group calls ``fit`` with the same global A
+    (and the same seed or factors), holds only its own blocks, and gets
+    the same global ``NMFResult``.  Both need an initialised process group,
+    even for one rank: their collectives always go through
+    ``torch.distributed``.  ``panel_dtype`` (faun only; not on the sparse
+    backend) ships the panel gathers in that dtype; ``panel_compression``
+    is not ported yet; ``donate`` is accepted for the reference's
+    signature and has no effect in eager PyTorch.
     """
 
     def __init__(self, k: int, *, algo: "_rules.RuleSpec" = "bpp",
                  schedule: str = "serial",
                  backend: "_backends.BackendSpec" = "cuda",
                  device: "str | torch.device | None" = None,
+                 grid=None, group=None,
                  max_iters: int = 30, tol: float | None = None,
-                 stall_iters: int = 0, stall_tol: float = 1e-6):
+                 stall_iters: int = 0, stall_tol: float = 1e-6,
+                 panel_dtype: torch.dtype | None = None,
+                 panel_compression: str | None = None,
+                 donate: bool = False):
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {schedule!r}; "
                              f"choose from {SCHEDULES}")
         if schedule not in _PORTED_SCHEDULES:
             raise NotImplementedError(
                 f"schedule {schedule!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md, queue 1: items 6 'faun' and 8 'the other "
-                f"schedules'); use schedule='serial'")
+                f"(ROADMAP.md, queue 1: item 8 'the other schedules'); use "
+                f"{_PORTED_SCHEDULES}")
+        if panel_compression is not None:
+            raise NotImplementedError(
+                "panel_compression (int8 panel collectives with error "
+                "feedback) is not ported to repro_torch yet (ROADMAP.md, "
+                "queue 1: item 8, distributed/compression.py)")
         self.rule = self._base_rule = _rules.get_rule(algo)
         self.ops = _backends.get_backend(backend)
+        if panel_dtype is not None:
+            if schedule != "faun":
+                raise ValueError("panel_dtype (low-precision panel gathers) "
+                                 "is implemented by the faun schedule only")
+            if not self.ops.supports_panel_dtype:
+                raise ValueError(f"backend {self.ops.name!r} does not "
+                                 f"support low-precision panels "
+                                 f"(panel_dtype)")
+        del donate
         self.device = resolve_device(device)
         self.k, self.algo = k, self.rule.name
+        self.panel_dtype = panel_dtype
         self.stopping = StoppingCriterion(max_iters=max_iters, tol=tol,
                                           stall_iters=stall_iters,
                                           stall_tol=stall_tol)
-        self._schedule = _SerialSchedule(self)
+        if schedule == "faun":
+            self._schedule = _FaunSchedule(self, grid)
+        elif schedule == "naive":
+            self._schedule = _NaiveSchedule(self, group)
+        else:
+            self._schedule = _SerialSchedule(self)
 
     @property
     def schedule(self) -> str:
@@ -204,12 +380,12 @@ class NMFSolver:
         A's dtype, on the solver's device); ``init=`` warm starts go through
         the eps-flooring of ``_warm_start_factors``.  Random factors come
         from a ``torch.Generator`` on the solver's device seeded with
-        ``seed`` (default 0): H first, then W.  A is whatever the backend's
-        ``prepare`` makes of it (a tensor, or a ``BlockCOO``); only its
-        ``shape`` and ``dtype`` are read here."""
-        A = self.ops.prepare(A, self.device)
-        m, n = A.shape
-        dtype = A.dtype
+        ``seed`` (default 0): H first, then W, both at their global shapes,
+        so every rank of a grid draws the same factors as the serial
+        schedule and keeps its own rows.  A is whatever the schedule makes
+        of it: the backend's ``prepare`` (serial) or this rank's blocks
+        (``blockify``)."""
+        A, (m, n), dtype, normA_sq = self._schedule.prepare_A(A)
         self.rule = self._base_rule.prepare_global(m, n, self.k)
         if init is not None:
             if H0 is not None or W0 is not None:
@@ -227,7 +403,8 @@ class NMFSolver:
             W0 = W_rand if W0 is None else W0
         W0 = to_torch(W0, device=self.device, dtype=dtype).contiguous()
         H0 = to_torch(H0, device=self.device, dtype=dtype)
-        A, W, Ht, normA_sq = self._schedule.prepare(A, W0, H0)
+        W, Ht = self._schedule.place_factors(W0, H0)
+        del W0, H0
         state0 = self._schedule.init_carry(m, n, dtype)
         return RunState(A=A, W=W, Ht=Ht, normA_sq=normA_sq, state=state0,
                         seed=used_seed)
@@ -255,6 +432,7 @@ class NMFSolver:
                 else torch.zeros((0,), dtype=torch.float32))
         extras = {"schedule": self.schedule, "backend": self.backend,
                   "device": str(self.device),
+                  "grid": self._schedule.grid_shape,
                   "stopped_early": rs.step < self.stopping.max_iters,
                   "rule_state": rs.state}
         return NMFResult(W=W, H=H, rel_errors=rels, algo=self.algo,
@@ -271,7 +449,11 @@ class NMFSolver:
 
     def _adaptive_loop(self, rs: RunState, crit: StoppingCriterion) -> None:
         """The reference's while-loop on the host: the stopping test runs in
-        fp32 on each iteration's rel error (one sync per iteration)."""
+        fp32 on each iteration's rel error (one sync per iteration).  On a
+        grid the rel error comes from all-reduced values only, the same
+        bits on every rank, so every rank stops at the same iteration (a
+        rank that stopped alone would leave the others waiting in a
+        collective)."""
         f32 = np.float32
         tol = None if crit.tol is None else f32(crit.tol)
         stall_tol = f32(crit.stall_tol)

@@ -1,0 +1,78 @@
+"""Naive-Parallel-AUNMF (paper Algorithm 2; Fairbanks et al.'s scheme) on a
+1-D group of p ranks.  Counterpart of ``repro/core/naive.py``.
+
+The communication-inefficient baseline the paper measures against:
+
+  * A is stored TWICE: rank r holds the row block A_r (m/p × n) and the
+    column block Aʳ (m × n/p).  With ``backend="sparse"`` each is a 1 × 1
+    ``BlockCOO`` sorted only in the orientation its product reads, so even
+    this schedule never ships A's nonzeros.  At p = 1 both copies of a
+    dense A are views of A itself: no copy is made;
+  * each half-iteration all-gathers the ENTIRE fixed factor (O((m+n)k)
+    words against FAUN's O(√(mnk²/p)));
+  * every rank computes the k×k Gram of the whole factor, redundantly.
+
+Rank r holds rows r·m/p … of W and r·n/p … of Hᵀ.  ``panel_compression``
+(error-feedback int8 gathers) is not ported yet (ROADMAP.md queue 1,
+item 8).
+"""
+
+from __future__ import annotations
+
+from repro_torch.core import rules as _rules
+from repro_torch.core.faun import all_reduce, allgather_panel, gram_allreduce
+
+
+def naive_iteration(Arow, Acol, W_blk, Ht_blk, normA_sq, state, *, group,
+                    rule, ops):
+    """One iteration of Algorithm 2 on this rank's blocks.
+
+    Arow: (m/p, n)   row block of A       W_blk:  (m/p, k)
+    Acol: (m, n/p)   column block of A    Ht_blk: (n/p, k)
+
+    Returns (W_blk, Ht_blk, sq_err, state); sq_err and ``state`` are the
+    same on every rank.
+    """
+    def norm_psum(v):
+        return all_reduce(v, group)
+
+    # --- W given H: all-gather the whole of H, redundant Gram (lines 3-4) ---
+    Ht = allgather_panel(Ht_blk, group)                       # (n, k)
+    HHt = ops.gram(Ht)
+    AHt_blk = ops.mm(Arow, Ht)                                # (m/p, k)
+    del Ht
+    W_blk, state = rule.update_w(HHt, AHt_blk, W_blk, state,
+                                 norm_psum=norm_psum)
+    del AHt_blk             # freed before the whole of W is gathered
+
+    # --- H given W: all-gather the whole of W, redundant Gram (lines 5-6) ---
+    W = allgather_panel(W_blk, group)                         # (m, k)
+    WtW = ops.gram(W)
+    WtA_t_blk = ops.mm_t(Acol, W)                             # (n/p, k)
+    del W
+    Ht_blk, state = rule.update_h(WtW, WtA_t_blk, Ht_blk, state,
+                                  norm_psum=norm_psum)
+
+    # --- error from byproducts ---
+    HHt_new = gram_allreduce(Ht_blk, group, gram=ops.gram)
+    cross = all_reduce((WtA_t_blk.float() * Ht_blk.float()).sum(), group)
+    quad = (WtW.float() * HHt_new.float()).sum()
+    sq_err = normA_sq - 2.0 * cross + quad
+    return W_blk, Ht_blk, sq_err, state
+
+
+def fit(A, k: int, *, group=None, algo="bpp", iters: int = 30,
+        seed: int | None = None, H0=None, W0=None, backend=None,
+        device=None, panel_compression: str | None = None):
+    """Thin wrapper over ``core.engine.NMFSolver(schedule="naive")`` on
+    ``group`` (None: the default process group); every rank calls it with
+    the same global A.  ``backend=None`` takes "sparse" for sparse input
+    and the CUDA kernels ("cuda") otherwise."""
+    from repro_torch.backends import infer_backend
+    from repro_torch.core.engine import NMFSolver
+    if backend is None:
+        backend = "sparse" if infer_backend(A) == "sparse" else "cuda"
+    solver = NMFSolver(k, algo=_rules.get_rule(algo), schedule="naive",
+                       backend=backend, group=group, device=device,
+                       max_iters=iters, panel_compression=panel_compression)
+    return solver.fit(A, seed=seed, H0=H0, W0=W0)

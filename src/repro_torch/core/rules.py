@@ -390,6 +390,8 @@ class _AcceleratedRule(UpdateRule):
         # The stall test reads the change norm back to the host: one sync
         # per inner sweep (the reference tests it on the device inside a
         # while_loop).  delta = 0 takes the fixed loop above, with no sync.
+        # On a grid d and d0 come through norm_psum (all-reduced), so every
+        # rank runs the same number of sweeps.
         while sweeps < budget and bool(d > delta * d0):
             Xn = sweep(X)
             d = change(Xn, X)

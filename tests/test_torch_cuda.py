@@ -860,3 +860,112 @@ def test_spmm_sorted_on_ragged_layouts(cuda_device, m, n, k, dt):
         assert torch.equal(local(bare, rhs, impl="sorted"), got)
     empty = torch.from_numpy(np.abs(a).sum(1) == 0).to(cuda_device)
     assert not blocksparse.local_spmm(blk, B, impl="sorted")[empty].any()
+
+
+# ---------------------------------------------------------------------------
+# The distributed schedules on one card: a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_group(cuda_device):
+    """A one-rank NCCL process group (NCCL puts no two ranks on one card):
+    the faun and naive collectives run through NCCL as identities."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "sorted"])
+@pytest.mark.parametrize("algo", ["mu", "hals", "bpp", "amu", "ahals"])
+@pytest.mark.parametrize("schedule", ["faun", "naive"])
+def test_one_rank_nccl_schedules_are_serial_bit_for_bit(nccl_group, schedule,
+                                                        algo, backend):
+    from repro_torch.core.faun import make_faun_grid
+    rng = np.random.default_rng(12)
+    m, n, k = 1_000, 640, 16
+    A = (rng.uniform(size=(m, k)) @ rng.uniform(size=(k, n))
+         + 0.5 * rng.uniform(size=(m, n))).astype(np.float32)
+    if backend == "sorted":
+        A *= rng.uniform(size=(m, n)) < 0.1
+    ops_of = (lambda: SparseOps(spmm_impl="sorted")) if backend == "sorted" \
+        else (lambda: "cuda")
+    kw = dict(schedule=schedule, grid=make_faun_grid(1, 1)) \
+        if schedule == "faun" else dict(schedule=schedule)
+    ops.reset_launches()
+    serial = NMFSolver(k, algo=_algo(algo), backend=ops_of(),
+                       max_iters=3).fit(A, seed=5)
+    want = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    res = NMFSolver(k, algo=_algo(algo), backend=ops_of(), max_iters=3,
+                    **kw).fit(A, seed=5)
+    assert ops.LAUNCHES == want
+    assert res.W.is_cuda and res.extras["schedule"] == schedule
+    for got, ref_ in ((res.W, serial.W), (res.H, serial.H),
+                      (res.rel_errors, serial.rel_errors)):
+        assert torch.equal(got, ref_)
+    assert res.extras["rule_state"] == serial.extras["rule_state"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cuda", "sorted"])
+@pytest.mark.parametrize("algo", ["mu", "hals"])
+@pytest.mark.parametrize("schedule", ["faun", "naive"])
+def test_one_rank_nccl_schedules_hold_no_more_memory_than_serial(
+        nccl_group, cuda_device, schedule, algo, backend):
+    """At one rank the schedules' collectives copy the panels, and each
+    copy must replace a panel the serial step holds, never add to them:
+    the fit's peak above what was allocated before it is at most the
+    serial fit's (1 MB slack; a W panel is 4 MB, a sparse one 16 MB)."""
+    from repro_torch.core.faun import make_faun_grid
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    k = 16
+    if backend == "sorted":
+        dim = 1 << 18
+        idx = torch.randint(0, dim, (2, 10 * dim), generator=gen,
+                            device=cuda_device)
+        vals = torch.rand(10 * dim, generator=gen, device=cuda_device)
+        A = blocksparse.blockify(torch.sparse_coo_tensor(
+            idx, vals, (dim, dim)).coalesce(), 1, 1).sort_rows()
+    else:
+        A = torch.rand((1 << 16, 1024), generator=gen, device=cuda_device)
+    ops_of = (lambda: SparseOps(spmm_impl="sorted")) if backend == "sorted" \
+        else (lambda: "cuda")
+    kw = dict(schedule=schedule, grid=make_faun_grid(1, 1)) \
+        if schedule == "faun" else dict(schedule=schedule)
+
+    def peak(**solver_kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res = NMFSolver(k, algo=algo, backend=ops_of(), max_iters=3,
+                        **solver_kw).fit(A, seed=5)
+        torch.cuda.synchronize()
+        del res
+        return torch.cuda.max_memory_allocated() - base
+
+    serial = peak()
+    assert peak(**kw) <= serial + (1 << 20)
+
+
+@pytest.mark.cuda
+def test_ts_matmul_at_a_video_block_of_the_2x2_grid(cuda_device):
+    """A_ij of Video on a 2×2 grid, (506,700, 6,912), times the gathered
+    panels: H^jᵀ (6,912, 50) and W_i (506,700, 50).  AᵀW contracts
+    506,700 rows, past 65,536: held at 1e-4 (chip_smoke.py's tolerance for
+    such sums, where cuBLAS splits what the kernel adds in order)."""
+    m, n, k = 1_013_400 // 2, 13_824 // 2, 50
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    A = torch.rand((m, n), generator=gen, device=cuda_device)
+    Ht = torch.rand((n, k), generator=gen, device=cuda_device)
+    W = torch.rand((m, k), generator=gen, device=cuda_device)
+    ops.reset_launches()
+    got, got_t = ops.ts_matmul(A, Ht), ops.ts_matmul_t(A, W)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == _launches(ts_matmul=1, ts_matmul_t=1)
+    _assert_scaled(got.cpu(), ref.ts_matmul(A, Ht).cpu(), TOL["f32"])
+    _assert_scaled(got_t.cpu(), ref.ts_matmul_t(A, W).cpu(), 1e-4)

@@ -183,7 +183,8 @@ def test_sort_rows_layout_matches_jax(grid, orient, align):
 
 def test_blockify_takes_every_input_form():
     """Dense tensor, numpy (float64 → float32), sparse COO with duplicates,
-    CSR, and a BlockCOO on its own grid; another grid is not ported."""
+    CSR, a BlockCOO on its own grid (itself) and on another (re-blocked:
+    the same matrix); the gspmd padding is not ported."""
     Ad = _er(7, 24, 20, 0.3)
     want = torch.from_numpy(Ad)
     coo = want.to_sparse_coo()
@@ -202,8 +203,9 @@ def test_blockify_takes_every_input_form():
         torch.testing.assert_close(blk.todense(), dense)
     blk = tbs.blockify(want, 2, 2)
     assert tbs.blockify(blk, 2, 2) is blk
-    with pytest.raises(NotImplementedError, match="faun"):
-        tbs.blockify(blk, 1, 1)
+    one = tbs.blockify(blk, 1, 1)
+    assert one.grid == (1, 1) and one.nnz == blk.nnz
+    torch.testing.assert_close(one.todense(), want)
     with pytest.raises(NotImplementedError, match="gspmd"):
         tbs.pad_nnz(blk, 4)
 
