@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Three paths run, at k = 50, and the dense one again at k = 160, the
-dense and sparse ones also through the distributed schedules (faun, naive)
-on a one-rank NCCL group:
+dense and sparse ones also through the distributed schedules (faun, naive,
+gspmd, and faun and naive with the int8 panel wire) on a one-rank NCCL
+group:
 
 * dense: the paper's serial loop, ``NMFSolver(k, algo=...).fit(A)``, on a
   dense fp32 A at the paper's Video shape (m = 1,013,400, n = 13,824; A is
@@ -115,16 +116,43 @@ Phases, each of which raises on failure:
                Video's width with m cut to 253,344: A made once by this
                process and handed to the ranks over CUDA IPC (each copies
                only its block); mu and hals for 3 iterations held against
-               the serial fit from the same seed (rel errors rtol 1e-4; W
-               and H no further from a float64 fit than twice the serial
-               fit is, + 1e-6 scaled) and each rank's launches against the
-               step's; A's memory back once the ranks are done;
+               a float64 fit from the same seed (W and H no further from
+               it than twice the serial fp32 fit is, + 1e-6 scaled; the
+               rel errors no further, relatively, than 4× the serial fit's
+               + 1e-6) and each rank's launches against the step's; A's
+               memory back once the ranks are done;
  16. sparse faun  (after 14) faun at 1×1 on the sparse A: mu for 2
                iterations on the sorted layout, bit-equal to serial sorted;
                mu for 2 on "auto" (the spmm kernel, whose sums change
                order from run to run) within the sparse kernels'
                tolerance of serial "auto"; A held as given; peak memory
                within 1 GB of serial's, as in phase 15.
+ 17. compressed  (after 15n, and after 16 on the sparse A) the int8 panel
+               wire, ``panel_compression="int8"``, on the one-rank NCCL
+               group, where every panel is still quantised: faun 1×1 mu
+               and hals for 3 iterations, bpp for 1, naive p = 1 mu for 3,
+               sparse sorted faun mu for 2; each beside the exact fit of
+               its schedule and seed: the direct ||A − WH|| / ||A||
+               within ``COMPRESSED_DIRECT_TOL`` of the exact fit's (the
+               reported int8 rel error, biased by the quantised
+               byproducts as in the reference, printed beside it; none
+               for bpp, whose H is left unchecked), W finite, the
+               residuals' keys and shapes, finite and not all zero, the
+               exact fit's launches, the peak memory above the exact
+               fit's within the panels ``COMPRESSED_PEAK_PANELS`` allows;
+               ms/iter beside the exact fit's and the quantiser's share;
+ 18. gspmd     the global-view schedule on the one-rank group: ``cuda``
+               (plain tensors) for mu and hals, 3 iterations, bit-equal to
+               serial; ``dense`` over a one-rank DeviceMesh (DTensors on
+               the card, the rule on the rank's rows, so the LUC kernels
+               launch) within a scaled 1e-4 of serial dense; sparse
+               "auto" mu for 2 within the sparse kernels' tolerance of
+               serial "auto"; every run with serial's launches; ms/iter
+               beside serial's.
+
+Phase 15g also runs mu and hals with ``panel_compression="int8"`` on its
+2×2 grid, each held by its direct ||A − WH|| / ||A|| against the exact
+grid's, within ``GRID_COMPRESSED_DIRECT_TOL``.
 
 Before the last line it prints the kernels as one JSON object; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -873,6 +901,13 @@ def phase_breakdown(A, seed: int, runs) -> dict:
 # The distributed schedules on one card: a one-rank NCCL group
 # ---------------------------------------------------------------------------
 
+def _storage(A):
+    """The tensor holding A's values: a BlockCOO's ``vals``, a DTensor's
+    local shard, or A itself."""
+    A = getattr(A, "vals", A)
+    return A.to_local() if hasattr(A, "to_local") else A
+
+
 @contextlib.contextmanager
 def nccl_group():
     """A one-rank NCCL process group for a phase (NCCL puts no two ranks on
@@ -888,18 +923,20 @@ def nccl_group():
         dist.destroy_process_group()
 
 
-def segment_fit(A, seed: int, iters: int, **solver_kw):
+def segment_fit(A, seed: int, iters: int, on_solver=None, **solver_kw):
     """A fixed fit split as fit() runs it (prepare, the iterations, collect),
     each part synchronised and timed; the launch counters reset just before
     and read just after, the peak memory over all three above what was
     allocated before the fit (A and whatever the caller holds: an earlier
-    fit's result among it).  Returns (result, launches, peak GB, ms per
-    iteration, set-up ms, the data pointers of the A the schedule
-    held)."""
+    fit's result among it).  ``on_solver`` is called with the solver before
+    the fit.  Returns (result, launches, peak GB, ms per iteration, set-up
+    ms, the data pointers of the A the schedule held)."""
     import torch
     from repro_torch.core.engine import NMFSolver
     from repro_torch.kernels import ops
     solver = NMFSolver(K, max_iters=iters, **solver_kw)
+    if on_solver is not None:
+        on_solver(solver)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -916,7 +953,7 @@ def segment_fit(A, seed: int, iters: int, **solver_kw):
     counts = dict(ops.LAUNCHES)
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     held = rs.A if isinstance(rs.A, tuple) else (rs.A,)
-    ptrs = {getattr(a, "vals", a).data_ptr() for a in held}
+    ptrs = {_storage(a).data_ptr() for a in held}
     del rs
     return res, counts, peak, (t2 - t1) * 1e3 / iters, (t1 - t0) * 1e3, ptrs
 
@@ -1007,20 +1044,245 @@ def phase_schedules(A, seed: int, runs, card: str, label: str,
     return launches, summary
 
 
+#: Phase 17's bound on a compressed fit's peak memory above the exact fit's,
+#: in panel-sized buffers (rows × k fp32, the panel of A's longer side), as
+#: PERF.md §6 predicted before the first run: the residuals the fit keeps
+#: (dense faun: rs_w and gather_w, m × k each; sparse, m = n: rs_w,
+#: gather_w, gather_h and rs_h) plus the quantiser's temporaries beside its
+#: input (the old residual, tot, q and the fused scale, and one more while
+#: the int8 sums are rescaled)
+COMPRESSED_PEAK_PANELS = {"dense": 7, "sparse": 9}
+
+
+def timed_quantiser(spans: list):
+    """An ``on_solver`` hook timing every ``_ef_quantize`` call of a
+    compressed solver with CUDA events (its MAX all-reduces included)."""
+    import torch
+
+    def hook(solver):
+        quantize = solver.compress._ef_quantize
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = quantize(*args, **kwargs)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        solver.compress._ef_quantize = timed
+
+    return hook
+
+
+#: Phase 17's bound on an int8 fit's direct rel error above the exact
+#: fit's, set between what tools/probe_compressed_tolerance.py read on the
+#: card (seeds 0–4; PERF.md §6) on a sound wire and with the reduce-scatter
+#: dequantising each row with its neighbour's scale: mu sound ≤ 2.4e-6,
+#: that fault ≥ 0.108 (the reference's own criterion, 5e-3 on a 1×1 grid,
+#: lies between); hals sound 8.7e-3–5.2e-2 (3 iterations of int8 HALS
+#: spread that far from seed to seed), that fault ≥ 0.120.  Dropping the
+#: error feedback reads inside the sound spread for both (no bound on the
+#: direct error after 3 iterations can see it).  bpp none: both packages'
+#: int8 bpp gives non-finite H at k = 50 (tools/probe_compressed_fits.py)
+COMPRESSED_DIRECT_TOL = {"mu": 5e-3, "hals": 8e-2}
+#: Phase 15g's bound for its int8 fits, the same measure on the 2×2 grid:
+#: sound mu ≤ 2.9e-5 and hals ≤ 2.1e-3, the row-scale fault ≥ 0.108 / 0.119
+#: (the same probe)
+GRID_COMPRESSED_DIRECT_TOL = 5e-3
+
+
+def phase_compressed(A, seed: int, runs, card: str, label: str,
+                     direct) -> tuple[dict, dict]:
+    """Phase 17: ``panel_compression="int8"`` on a one-rank NCCL group, each
+    run beside the exact fit of the same schedule and seed on the same A.
+    At one rank every panel is still quantised (int8 payloads through
+    NCCL's all-gather and all-to-all, the Grams through its int32 and MAX
+    all-reduces).  Held: the int8 fit's direct ||A − WH|| / ||A||
+    (``direct``) within ``COMPRESSED_DIRECT_TOL`` of the exact fit's (the
+    exact fit's reported rel error within 1 % of its direct one); W
+    finite; the residuals under the keys and shapes of
+    ``init_faun_residuals`` / ``init_naive_residuals`` in fp32, finite and
+    one at least not zero; the exact fit's kernel launches; the peak
+    memory above the exact fit's within ``COMPRESSED_PEAK_PANELS``.  bpp's
+    H is left unchecked (not finite at k = 50 in both packages), so bpp
+    has no direct-error bound.  The
+    int8 fit's reported rel error comes from byproducts that include the
+    dequantised reduce-scatter (as in the reference), which its rounding
+    biases: it is printed beside the direct value, not held to it.  Prints
+    ms/iter beside the exact fit's and the quantiser's share of it.
+    ``runs`` holds (schedule, algo, iters, solver kwargs, peak key)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.faun import init_faun_residuals, make_faun_grid
+    from repro_torch.core.naive import init_naive_residuals
+    launches, summary = {}, {}
+    m, n = A.shape
+    with nccl_group():
+        grid = make_faun_grid(1, 1)
+        for group in (None, grid.world, grid.row_group, grid.col_group):
+            dist.all_reduce(torch.zeros(1, device=_storage(A).device),
+                            group=group)
+        torch.cuda.synchronize()
+        for schedule, algo, iters, kw, peak_key in runs:
+            tag = f"{schedule:5s} {algo:4s}"
+            if schedule == "faun":
+                kw = dict(kw, grid=grid)
+                want_res = init_faun_residuals(grid, m, n, K)
+            else:
+                want_res = init_naive_residuals(1, m, n, K)
+            ex, e_counts, e_peak, e_ms, _, _ = segment_fit(
+                A, seed, iters, algo=algo, schedule=schedule, **kw)
+            e_rels = ex.rel_errors.numpy()
+            e_direct = direct(A, ex.W, ex.H)
+            del ex
+            torch.cuda.empty_cache()
+            spans = []
+            res, counts, peak, ms, prep, _ = segment_fit(
+                A, seed, iters, on_solver=timed_quantiser(spans), algo=algo,
+                schedule=schedule, panel_compression="int8", **kw)
+            quant_ms = sum(a.elapsed_time(b) for a, b in spans) / iters
+            rels = res.rel_errors.numpy()
+            finite = bool(torch.isfinite(res.W).all()
+                          and torch.isfinite(res.H).all())
+            nonfinite = int((~torch.isfinite(res.W)).sum()
+                            + (~torch.isfinite(res.H)).sum())
+            d = direct(A, res.W, res.H) if finite else float("nan")
+            panel_gb = max(m, n) * K * 4 / 1e9
+            allowed = COMPRESSED_PEAK_PANELS[peak_key] * panel_gb
+            log(f"[{label}] {tag} int8 {iters} iters at {(m, n, K)}: "
+                f"{ms:.2f} ms/iter (exact {e_ms:.2f}), quantiser "
+                f"{quant_ms:.2f} ms/iter ({100 * quant_ms / ms:.1f} %, "
+                f"{len(spans) // iters} calls an iteration), peak memory "
+                f"{peak:.3f} GB (exact {e_peak:.3f}; allowed + "
+                f"{allowed:.3f}), launches {counts}; card {card}")
+            log(f"[{label}] {tag} int8 direct ||A-WH||/||A|| {d:.6f} "
+                f"(exact {e_direct:.6f}, gap {d - e_direct:+.3e}); reported "
+                f"rel errors {rels.tolist()} (exact {e_rels.tolist()}); "
+                f"{nonfinite} non-finite entries of W and H")
+            require(abs(float(e_rels[-1]) - e_direct) <= 1e-2 * e_direct,
+                    f"{label} {tag}: the exact fit's rel error {e_rels[-1]} "
+                    f"disagrees with its direct value {e_direct}")
+            require(bool(torch.isfinite(res.W).all()),
+                    f"{label} {tag}: int8 W not finite")
+            if algo in COMPRESSED_DIRECT_TOL:
+                tol = COMPRESSED_DIRECT_TOL[algo]
+                require(finite and abs(d - e_direct) <= tol,
+                        f"{label} {tag}: int8 direct rel error {d} is more "
+                        f"than {tol} from the exact fit's {e_direct}")
+            got_res = res.extras["panel_residuals"]
+            require(sorted(got_res) == sorted(want_res)
+                    and all(tuple(got_res[k].shape) == tuple(v.shape)
+                            and got_res[k].dtype == torch.float32
+                            for k, v in want_res.items()),
+                    f"{label} {tag}: residuals "
+                    f"{ {k: tuple(v.shape) for k, v in got_res.items()} }")
+            # every residual is taken before H's update, so they are
+            # finite even where bpp's H is not
+            require(all(bool(torch.isfinite(v).all())
+                        for v in got_res.values())
+                    and any(bool((v != 0).any()) for v in got_res.values()),
+                    f"{label} {tag}: residuals not finite, or all zero")
+            require(counts == e_counts, f"{label} {tag}: int8 launches "
+                                        f"{counts} != the exact fit's "
+                                        f"{e_counts}")
+            require(peak <= e_peak + allowed,
+                    f"{label} {tag}: int8 peak memory {peak:.3f} GB > the "
+                    f"exact fit's {e_peak:.3f} + {allowed:.3f} GB")
+            add_launches(launches, counts)
+            summary["/".join(tag.split())] = {
+                "iters": iters, "ms_per_iter": ms, "exact_ms_per_iter": e_ms,
+                "quantiser_ms_per_iter": quant_ms, "prepare_ms": prep,
+                "peak_gb": peak, "exact_peak_gb": e_peak,
+                "rel_errors": rels.tolist(), "exact_rel_errors":
+                    e_rels.tolist(), "direct_rel_error": d,
+                "exact_direct_rel_error": e_direct, "nonfinite": nonfinite}
+            del res, got_res
+            torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_gspmd(A, seed: int, runs, card: str, label: str) -> tuple[dict,
+                                                                     dict]:
+    """Phase 18: ``schedule="gspmd"`` on a one-rank NCCL group, each run
+    beside the serial fit of the same backend and seed.  ``cuda`` runs on
+    plain tensors (its kernels are opaque to DTensor): bit-equal to serial.
+    ``dense`` and ``sparse`` run over a one-rank ``DeviceMesh`` (DTensors
+    on the card), the rule on the rank's rows (``gspmd.rule_on_rows``), so
+    the LUC kernels launch as serial's do: held within a scaled 1e-4
+    (dense) or the sparse kernels' tolerance (sparse "auto", whose spmm
+    sums change order from run to run) of the serial fit.  Every run
+    launches serial's kernels, as many times.  ``runs`` holds (algo,
+    iters, backend name, solver kwargs)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.faun import make_faun_grid
+    launches, summary = {}, {}
+    m, n = A.shape
+    with nccl_group():
+        grid = make_faun_grid(1, 1)
+        for group in (None, grid.world, grid.row_group, grid.col_group):
+            dist.all_reduce(torch.zeros(1, device=_storage(A).device),
+                            group=group)
+        for algo, iters, name, kw in runs:
+            tag = f"gspmd {algo:4s} {name}"
+            ser, s_counts, s_peak, s_ms, _, _ = segment_fit(
+                A, seed, iters, algo=algo, **kw)
+            res, counts, peak, ms, prep, ptrs = segment_fit(
+                A, seed, iters, algo=algo, schedule="gspmd", grid=grid,
+                **kw)
+            log(f"[{label}] {tag} {iters} iters at {(m, n, K)}: {ms:.2f} "
+                f"ms/iter (serial {s_ms:.2f}), peak memory {peak:.3f} GB "
+                f"(serial {s_peak:.3f}), launches {counts}; card {card}")
+            log(f"[{label}] {tag} rel errors {res.rel_errors.tolist()}")
+            require(counts == s_counts, f"{label} {tag}: launches {counts} "
+                                        f"!= serial's {s_counts}")
+            require(ptrs == {_storage(A).data_ptr()},
+                    f"{label} {tag}: the schedule holds a copy of A")
+            if name == "cuda":
+                for f, got, w in (("W", res.W, ser.W), ("H", res.H, ser.H),
+                                  ("rel errors", res.rel_errors,
+                                   ser.rel_errors)):
+                    require(torch.equal(got, w), f"{label} {tag}: {f} not "
+                                                 f"bit-equal to serial's")
+            else:
+                tol = 1e-4 if name == "dense" else TOL["float32"]
+                errs = {f: scaled_err(g, w)[1] for f, g, w in
+                        (("W", res.W, ser.W), ("H", res.H, ser.H))}
+                rels, s_rels = res.rel_errors.numpy(), ser.rel_errors.numpy()
+                log(f"[{label}] {tag} scaled distance to serial {errs}, "
+                    f"serial rel errors {s_rels.tolist()}")
+                require(all(e <= tol for e in errs.values())
+                        and np.allclose(rels, s_rels, rtol=tol, atol=0),
+                        f"{label} {tag}: outside {tol} of the serial fit")
+            add_launches(launches, counts)
+            summary[f"{algo}/{name}"] = {
+                "iters": iters, "ms_per_iter": ms, "serial_ms_per_iter": s_ms,
+                "prepare_ms": prep, "peak_gb": peak, "serial_peak_gb": s_peak}
+            del res, ser
+            torch.cuda.empty_cache()
+    return launches, summary
+
+
 #: Phase 15g's rows: a multiple of 16 near a quarter of Video's (m/4 rows of
 #: W and m/2 of A a rank on the 2×2 grid)
 GRID_M = 253_344
 
 
-def grid_rank(box: list, out: str, seed: int, runs) -> None:
+def grid_rank(box: list, out: str, seed: int, runs,
+              compressed=()) -> None:
     """Phase 15g's rank: ``faun`` on the 2×2 grid of four gloo ranks that
     share the card, on the A the parent made (a CUDA tensor received over
     CUDA IPC in the one-item list ``box``; this rank copies only its
-    block).  The rank lays out every run's state first and then drops A:
-    the parent's memory is freed only once no rank holds A, and a rank
-    that exits still holding it (in the arguments it was spawned with)
-    leaks it.  Rank 0 writes the global result, every rank its kernel
-    launches and ms per iteration."""
+    block): ``runs`` exact, then ``compressed`` with
+    ``panel_compression="int8"`` (saved as "<algo>_int8").  The rank lays
+    out every run's state first and then drops A: the parent's memory is
+    freed only once no rank holds A, and a rank that exits still holding
+    it (in the arguments it was spawned with) leaks it.  Rank 0 writes the
+    global result, every rank its kernel launches and ms per iteration."""
     import torch
     import torch.distributed as dist
     from repro_torch.core.engine import NMFSolver
@@ -1031,10 +1293,13 @@ def grid_rank(box: list, out: str, seed: int, runs) -> None:
     rank = dist.get_rank()
     sync = torch.cuda.synchronize if A.is_cuda else (lambda: None)
     fits = []
-    for algo, iters in runs:
+    for (algo, iters), comp in ([(r, None) for r in runs]
+                                + [(r, "int8") for r in compressed]):
         solver = NMFSolver(K, algo=algo, schedule="faun", grid=grid,
-                           device=A.device, max_iters=iters)
-        fits.append((algo, iters, solver, solver.prepare_state(A, seed=seed)))
+                           device=A.device, max_iters=iters,
+                           panel_compression=comp)
+        name = algo if comp is None else f"{algo}_{comp}"
+        fits.append((name, iters, solver, solver.prepare_state(A, seed=seed)))
     del A
     for algo, iters, solver, rs in fits:
         sync()
@@ -1103,25 +1368,37 @@ def float64_fit(A, seed: int, algo: str, iters: int):
     return res
 
 
+#: Phase 15g's limit on the grid's rel errors: their largest relative
+#: distance to the float64 fit's, as a factor of the serial fp32 fit's (+
+#: 1e-6), between what ``tools/probe_grid_tolerance.py`` read on the card
+#: (PERF.md §6): at most 1.88× on sound grids (seeds 0–4), 10.2× with the
+#: gathered panels rounded to bf16
+REL_F64_FACTOR = 4.0
+
+
 def phase_grid(dev, seed: int, runs, card: str, rank_fn=grid_rank,
-               check: bool = True) -> dict:
+               check: bool = True, compressed=()) -> dict:
     """Phase 15g: ``faun`` on a 2×2 grid of four processes sharing the card
     over gloo (which takes CUDA tensors; NCCL puts no two ranks on one
     card), at Video's width with m cut to ``GRID_M``, and each rank's
     launches against the step's (3 gram, 1 ts_matmul, 1 ts_matmul_t and
     the rule's LUC an iteration).  The grid changes only the order of the
-    sums, so the fit is held against the serial fit from the same seed:
-    its rel errors within rtol 1e-4, and W and H no further from a float64
-    fit than twice the serial fp32 fit's own distance to it, plus 1e-6
-    (scaled).  HALS's W is ill-conditioned in fp32 at this rank: the serial
-    fit sits ≈ 2.5e-3 (scaled) from the float64 one, and the grid as far.
+    sums, so the fit is held against a float64 fit from the same seed:
+    W and H no further from it than twice the serial fp32 fit's own
+    distance to it, plus 1e-6 (scaled), and the rel errors no further
+    (relatively) than ``REL_F64_FACTOR`` times the serial fit's, plus
+    1e-6.  HALS's W is ill-conditioned in fp32 at this rank: the serial
+    fit sits ≈ 2.5e-3 (scaled) from the float64 one, and the grid as far;
+    against serial itself hals's rel errors differ by 1.29e-4 at seed 2.
     The float64 fit is the serial schedule run by the same engine and
     rules in float64 (``float64_fit``): it witnesses the grid's schedule
     and collectives, not the rule code both share.  The factor 2 sits
     between what ``tools/probe_grid_tolerance.py`` read on the card: at
     most 1.13× the serial fit's distance on sound grids (seeds 0–4), at
     least 14.6× with the gathered panels rounded to bf16, and ≥ 347× with
-    their blocks swapped."""
+    their blocks swapped.  ``compressed`` runs the same grid with
+    ``panel_compression="int8"`` too, each held by its direct rel error
+    against the exact grid's (``GRID_COMPRESSED_DIRECT_TOL``)."""
     import tempfile
     import numpy as np
     import torch
@@ -1147,11 +1424,12 @@ def phase_grid(dev, seed: int, runs, card: str, rank_fn=grid_rank,
     summary = {"shape": (m, n), "grid": (2, 2)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as out:
         t0 = time.perf_counter()
-        rdist.spawn(rank_fn, 4, [A], out, seed, runs, backend="gloo",
+        rdist.spawn(rank_fn, 4, [A], out, seed, runs, *(
+                        (compressed,) if compressed else ()),
+                    backend="gloo",
                     device=(f"cuda:{dev.index or 0}" if dev.type == "cuda"
                             else "cpu"))
         wall = time.perf_counter() - t0
-        del A
         if dev.type == "cuda":      # A's memory, now that no rank holds it
             torch.cuda.ipc_collect()
         for algo, iters in runs:
@@ -1172,33 +1450,63 @@ def phase_grid(dev, seed: int, runs, card: str, rank_fn=grid_rank,
                                                      getattr(ex, f))[1]}
                     for f in ("W", "H")}
             rels, s_rels = got["rels"].numpy(), ser.rel_errors.numpy()
+            r64 = ex.rel_errors.numpy()
+            rel64 = {"grid": float(np.max(np.abs(rels - r64) / r64)),
+                     "serial": float(np.max(np.abs(s_rels - r64) / r64))}
             ms = [r["ms_per_iter"] for r in ranks]
             log(f"[grid] faun {algo:4s} 2×2 {iters} iters at {(m, n, K)}: "
                 f"{max(ms):.2f} ms/iter (slowest rank; ranks "
                 f"{[round(x, 2) for x in ms]}; serial {serial_ms[algo]:.2f} "
                 f"incl. set-up); scaled distances {errs}; rel errors "
-                f"{rels.tolist()} (serial {s_rels.tolist()}); launches per "
-                f"rank {ranks[0]['launches']}; card {card}")
+                f"{rels.tolist()} (serial {s_rels.tolist()}), relative "
+                f"distance to the float64 fit's {rel64}; launches per rank "
+                f"{ranks[0]['launches']}; card {card}")
             summary[algo] = {"iters": iters, "ms_per_iter": ms,
                              "serial_ms_per_iter_incl_setup": serial_ms[algo],
                              "scaled_err": errs, "rel_errors": rels.tolist(),
                              "serial_rel_errors": s_rels.tolist(),
-                             "float64_rel_errors": ex.rel_errors.tolist()}
+                             "float64_rel_errors": ex.rel_errors.tolist(),
+                             "rel_float64": rel64}
             if not check:
                 continue
             for r, row in enumerate(ranks):
                 require(row["launches"] == want,
                         f"grid {algo} rank {r}: launches {row['launches']} "
                         f"!= {want}")
-            require(np.allclose(rels, s_rels, rtol=1e-4, atol=0),
-                    f"grid {algo}: rel errors outside 1e-4 of the serial "
-                    f"fit's")
+            require(rel64["grid"] <= REL_F64_FACTOR * rel64["serial"] + 1e-6,
+                    f"grid {algo}: rel errors further from the float64 "
+                    f"fit's than {REL_F64_FACTOR}× the serial fit's: "
+                    f"{rel64}")
             for f, e in errs.items():
                 require(e["grid-float64"] <= 2 * e["serial-float64"] + 1e-6,
                         f"grid {algo}: {f} further from the float64 fit "
                         f"than twice the serial fit is: {e}")
+        for algo, iters in compressed:
+            got = torch.load(os.path.join(out, f"{algo}_int8.pt"))
+            exact = torch.load(os.path.join(out, f"{algo}.pt"))
+            d, e_d = (direct_rel_error(A, r["W"].to(A.device),
+                                       r["H"].to(A.device))
+                      for r in (got, exact))
+            rels = got["rels"].numpy()
+            ms = [torch.load(os.path.join(out, f"{algo}_int8_r{r}.pt"))
+                  ["ms_per_iter"] for r in range(4)]
+            log(f"[grid] faun {algo:4s} 2×2 int8 {iters} iters: "
+                f"{max(ms):.2f} ms/iter (slowest rank; exact "
+                f"{max(summary[algo]['ms_per_iter']):.2f}); direct "
+                f"||A-WH||/||A|| {d:.6f} (exact grid {e_d:.6f}, gap "
+                f"{d - e_d:+.3e}); reported rel errors {rels.tolist()} "
+                f"(exact grid {summary[algo]['rel_errors']}); card {card}")
+            summary[f"{algo}_int8"] = {"iters": iters, "ms_per_iter": ms,
+                                       "rel_errors": rels.tolist(),
+                                       "direct_rel_error": d,
+                                       "exact_direct_rel_error": e_d}
+            if check:
+                tol = GRID_COMPRESSED_DIRECT_TOL
+                require(abs(d - e_d) <= tol,
+                        f"grid {algo} int8: direct rel error {d} is more "
+                        f"than {tol} from the exact grid's {e_d}")
         summary["spawn_s"] = wall
-    del serial, exact
+    del serial, exact, A
     torch.cuda.empty_cache()
     # A went to the ranks over CUDA IPC: its memory comes back only once
     # every rank has dropped it
@@ -2038,10 +2346,26 @@ def main(argv=None) -> int:
                        ("faun", "bpp", 1, {}), ("naive", "mu", 3, {})),
         card, "schedules")
     add_launches(launches, counts)
+    t_new = time.perf_counter()
+    counts, summary["compressed"] = phase_compressed(
+        A, args.seed, (("faun", "mu", 3, {}, "dense"),
+                       ("faun", "hals", 3, {}, "dense"),
+                       ("faun", "bpp", 1, {}, "dense"),
+                       ("naive", "mu", 3, {}, "dense")),
+        card, "compressed", direct_rel_error)
+    add_launches(launches, counts)
+    counts, summary["gspmd"] = phase_gspmd(
+        A, args.seed, (("mu", 3, "cuda", {}), ("hals", 3, "cuda", {}),
+                       ("mu", 3, "dense", {"backend": "dense"}),
+                       ("hals", 3, "dense", {"backend": "dense"})),
+        card, "gspmd")
+    add_launches(launches, counts)
+    added_s = time.perf_counter() - t_new
+    log(f"[gspmd] phases 17 and 18 on Video took {added_s:.1f} s")
     del A
     torch.cuda.empty_cache()
     summary["grid"] = phase_grid(dev, args.seed, (("mu", 3), ("hals", 3)),
-                                 card)
+                                 card, compressed=(("mu", 3), ("hals", 3)))
 
     if args.sparse_dim != SPARSE_DIM:
         log(f"[data] cut: sparse m = n = {args.sparse_dim} of {SPARSE_DIM}")
@@ -2076,6 +2400,22 @@ def main(argv=None) -> int:
         card, "sparse schedules", exact=False)
     add_launches(launches, counts)
     sp_summary["schedules"].update(auto)
+    t_new = time.perf_counter()
+    counts, sp_summary["compressed"] = phase_compressed(
+        sp["srt"], args.seed,
+        (("faun", "mu", 2, {"backend": SparseOps(spmm_impl="sorted")},
+          "sparse"),),
+        card, "sparse compressed", direct_sparse_rel_error)
+    add_launches(launches, counts)
+    counts, sp_summary["gspmd"] = phase_gspmd(
+        sp["blk"], args.seed,
+        (("mu", 2, "sparse", {"backend": SparseOps(spmm_impl="auto")}),),
+        card, "sparse gspmd")
+    add_launches(launches, counts)
+    sparse_added_s = time.perf_counter() - t_new
+    log(f"[sparse gspmd] phases 17 and 18 on the sparse A took "
+        f"{sparse_added_s:.1f} s")
+    summary["added_phases_s"] = {"video": added_s, "sparse": sparse_added_s}
     sp_summary["breakdown_ms"] = phase_sparse_breakdown(
         sp["blk"], sp["srt"], args.seed,
         (("mu", 2, "sorted"), ("mu", 2, "auto"), ("hals", 2, "sorted"),

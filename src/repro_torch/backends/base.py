@@ -18,6 +18,10 @@ plus the representation hooks a schedule needs:
     pre_blockify(A)        one conversion before several blockify calls
     cast_block(A, dtype)   the local block for low-precision panels
     norm_sq(A)             ‖A‖_F² in fp32 (of the block it is given)
+    global_view_ops()      the variant for global-view (gspmd) programs
+
+and the cost-model hooks ``mm_flops``, ``storage_words`` and
+``mm_traffic_words`` (``core/costmodel.py``).
 
 Unlike the reference's, whose ``blockify`` lays out the whole matrix for a
 device mesh, the port's grid hooks return only the calling rank's block.
@@ -57,6 +61,11 @@ class LocalOps:
     #: whether low-precision factor panels (``panel_dtype=``) are supported:
     #: the products must then take low-precision inputs and return fp32
     supports_panel_dtype: bool = True
+
+    #: whether a global-view (gspmd) program may shard this backend's
+    #: operands: its products must run as torch operations DTensor can
+    #: propagate (a kernel bound through ctypes is opaque to DTensor)
+    partitionable: bool = True
 
     # -- the three local products ------------------------------------------
 
@@ -119,6 +128,31 @@ class LocalOps:
         """‖A‖_F² in fp32."""
         from repro_torch.core.error import sq_frobenius
         return sq_frobenius(A)
+
+    def global_view_ops(self) -> "LocalOps":
+        """The variant of this backend for global-view (gspmd) programs,
+        where DTensor's sharding propagation owns the parallelism.
+        Default: self."""
+        return self
+
+    # -- cost-model hooks ---------------------------------------------------
+
+    def mm_flops(self, m: float, n: float, k: float,
+                 nnz: float = 0.0) -> float:
+        """Flops of the two data-matrix products per iteration (A·Hᵀ and
+        AᵀW), used by ``costmodel.schedule_cost``."""
+        return 4.0 * m * n * k
+
+    def storage_words(self, m: float, n: float, nnz: float = 0.0) -> float:
+        """Words needed to store A in this backend's representation."""
+        return m * n
+
+    def mm_traffic_words(self, m: float, n: float, k: float,
+                         nnz: float = 0.0) -> float:
+        """Memory words moved by the two data-matrix products per
+        iteration: A streamed once plus the k-width panels read and
+        written, per product."""
+        return 2.0 * (m * n + n * k + m * k)
 
     # -- helpers ------------------------------------------------------------
 

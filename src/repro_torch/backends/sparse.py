@@ -111,6 +111,46 @@ class SparseOps(LocalOps):
     def norm_sq(self, A) -> torch.Tensor:
         return blocksparse.sq_norm(_require_blockcoo(A, "norm_sq"))
 
+    def global_view_ops(self) -> "SparseOps":
+        """The global-view (gspmd) layout splits the flat triplet dim over
+        every rank (``pad_global``), which breaks the sorted packed layout,
+        so gspmd runs the unsorted products: "auto" on an unsorted A, the
+        spmm kernel on CUDA tensors and ``index_add_`` on the CPU (the
+        reference forces its XLA scatter for the same reason)."""
+        if self.spmm_impl != "sorted":
+            return self
+        return SparseOps(spmm_impl="auto", align=self.align)
+
+    def pad_global(self, A: blocksparse.BlockCOO, p: int
+                   ) -> blocksparse.BlockCOO:
+        return blocksparse.pad_nnz(A, p)
+
+    # -- cost model ---------------------------------------------------------
+
+    def mm_flops(self, m: float, n: float, k: float,
+                 nnz: float = 0.0) -> float:
+        """2·nnz·k per product, two products per iteration."""
+        return 4.0 * nnz * k
+
+    def storage_words(self, m: float, n: float, nnz: float = 0.0) -> float:
+        """COO triplets: value + row + col per nonzero.  The sorted layout
+        stores the triplets twice (row- and column-sorted copies) plus the
+        per-row / per-column segment offsets."""
+        coo = 3.0 * nnz
+        if self.spmm_impl == "sorted":
+            return 2.0 * coo + (m + 1) + (n + 1)
+        return coo
+
+    def mm_traffic_words(self, m: float, n: float, k: float,
+                         nnz: float = 0.0) -> float:
+        """Memory words moved by the two A-products per iteration.  The
+        unsorted scatter re-reads and re-writes an output row per nonzero
+        (2k words); the sorted path streams each output tile once."""
+        triplets = 3.0 * nnz
+        if self.spmm_impl == "sorted":
+            return 2.0 * triplets + 2.0 * nnz * k + (m + n) * k
+        return 2.0 * triplets + 2.0 * nnz * k + 4.0 * nnz * k
+
 
 def _require_blockcoo(A, what: str) -> blocksparse.BlockCOO:
     if not isinstance(A, blocksparse.BlockCOO):

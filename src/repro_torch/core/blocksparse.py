@@ -7,8 +7,8 @@ the largest block's nonzero count, in three ``(gr, gc, nnz_max)`` tensors:
 Padding triplets are ``(row=0, col=0, val=0)``: no-ops for a scatter-add
 SpMM.  The serial path uses a 1 × 1 grid; on a grid each rank holds its
 own block as a 1 × 1 BlockCOO (``block``).  ``blockify`` re-blocks a
-BlockCOO onto another grid; ``pad_nnz`` (the gspmd layout) is not ported
-yet.
+BlockCOO onto another grid; ``pad_nnz`` pads the triplet dimension to a
+multiple of the rank count (the gspmd layout, ``core/gspmd.py``).
 
 ``sort_rows`` reorders each block's triplets by row into the reference's
 tile-aligned packed layout (array for array the same): a stable sort, each
@@ -324,10 +324,23 @@ def sq_norm(A: BlockCOO) -> torch.Tensor:
 
 
 def pad_nnz(blk: BlockCOO, multiple: int) -> BlockCOO:
-    """The gspmd schedule's nnz padding: not ported yet."""
-    raise NotImplementedError(
-        "pad_nnz (the gspmd sparse layout) is not ported yet (ROADMAP.md "
-        "queue 1 item 8, the other schedules)")
+    """Pad each block's triplet dim to a multiple (zero no-op entries), so
+    the nnz dimension splits evenly over ranks — the gspmd sparse layout.
+    Drops any ``sort_rows`` metadata: tail padding breaks the tile-aligned
+    packed layout.  ``row_major`` survives only where nothing is padded:
+    the padding triplets sit at row 0, after every later row."""
+    nnz_max = blk.vals.shape[-1]
+    pad = (-nnz_max) % multiple
+    if pad == 0 and not blk.align:
+        return blk
+
+    def padded(t):
+        return torch.nn.functional.pad(t, (0, pad))
+
+    return BlockCOO(vals=padded(blk.vals), rows=padded(blk.rows),
+                    cols=padded(blk.cols), shape=blk.shape,
+                    block_shape=blk.block_shape, nnz=blk.nnz,
+                    row_major=blk.row_major and pad == 0)
 
 
 # ---------------------------------------------------------------------------

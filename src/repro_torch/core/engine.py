@@ -4,8 +4,10 @@ layer and a pluggable update rule.  Counterpart of ``repro/core/engine.py``.
 * **schedule** — who computes which block and which collectives move the
   k-width panels: ``serial`` (Algorithm 1, one device), ``faun``
   (Algorithm 3 on a pr × pc grid of ``torch.distributed`` ranks,
-  ``core/faun.py``) or ``naive`` (Algorithm 2 on a 1-D group,
-  ``core/naive.py``).  ``gspmd`` is not ported yet.
+  ``core/faun.py``), ``naive`` (Algorithm 2 on a 1-D group,
+  ``core/naive.py``) or ``gspmd`` (the same iteration as a global-view
+  program over ``torch.distributed.tensor``, whose sharding propagation
+  picks the collectives, ``core/gspmd.py``).
 
 * **backend** — a ``repro_torch.backends.LocalOps`` implementation of the
   local products (A·Hᵀ, AᵀW, XᵀX): ``cuda`` (the hand-written kernels, the
@@ -22,6 +24,10 @@ tolerance, and stall detection.  PyTorch runs eagerly, so the reference's
 rel errors on the device and syncs once at the end; an adaptive run reads
 each iteration's rel error back (one sync per iteration) and applies the
 reference's stopping test in fp32.
+
+The distributed schedules share ``panel_compression="int8"``: error-feedback
+int8 quantisation of the panel collectives (``distributed/compression.py``),
+the residuals carried through the same loops beside the rule's state.
 """
 
 from __future__ import annotations
@@ -39,7 +45,6 @@ from repro_torch.util.convert import to_torch
 from repro_torch.util.device import make_generator, resolve_device
 
 SCHEDULES = ("serial", "faun", "naive", "gspmd")
-_PORTED_SCHEDULES = ("serial", "faun", "naive")
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +122,18 @@ class _SerialSchedule:
                                mm=ops.mm, mm_t=ops.mm_t, gram=ops.gram)
 
     def init_carry(self, m, n, dtype):
-        return self.s.rule.init_state(m, n, self.s.k, dtype)
+        """The loop's carry: the rule's state, extended to ``(rule_state,
+        residuals)`` by schedules running compressed panel collectives."""
+        state = self.s.rule.init_state(m, n, self.s.k, dtype)
+        if self.s.compress is None:
+            return state
+        return (state, self.init_residuals(m, n))
+
+    def split_state(self, state):
+        """(rule_state, residuals or None) from the loop's carry."""
+        if self.s.compress is None:
+            return state, None
+        return state
 
     def collect(self, W, Ht):
         return W, Ht.T.contiguous()
@@ -172,7 +188,13 @@ class _FaunSchedule(_SerialSchedule):
         from repro_torch.core.faun import faun_iteration
         return faun_iteration(A, W, Ht, normA_sq, state, grid=self.grid,
                               rule=self.s.rule, ops=self.s.ops,
-                              panel_dtype=self.s.panel_dtype)
+                              panel_dtype=self.s.panel_dtype,
+                              compress=self.s.compress)
+
+    def init_residuals(self, m, n):
+        from repro_torch.core.faun import init_faun_residuals
+        return init_faun_residuals(self.grid, m, n, self.s.k,
+                                   device=self.s.device)
 
     def collect(self, W, Ht):
         """Both factors gathered back into global order on every rank: W's
@@ -224,7 +246,12 @@ class _NaiveSchedule(_SerialSchedule):
         from repro_torch.core.naive import naive_iteration
         return naive_iteration(A[0], A[1], W, Ht, normA_sq, state,
                                group=self.group, rule=self.s.rule,
-                               ops=self.s.ops)
+                               ops=self.s.ops, compress=self.s.compress)
+
+    def init_residuals(self, m, n):
+        from repro_torch.core.naive import init_naive_residuals
+        return init_naive_residuals(self.p, m, n, self.s.k,
+                                    device=self.s.device)
 
     def collect(self, W, Ht):
         from repro_torch.core.faun import allgather_panel
@@ -299,10 +326,20 @@ class NMFSolver:
     (and the same seed or factors), holds only its own blocks, and gets
     the same global ``NMFResult``.  Both need an initialised process group,
     even for one rank: their collectives always go through
-    ``torch.distributed``.  ``panel_dtype`` (faun only; not on the sparse
-    backend) ships the panel gathers in that dtype; ``panel_compression``
-    is not ported yet; ``donate`` is accepted for the reference's
+    ``torch.distributed``.  ``schedule="gspmd"`` runs the same iteration
+    as a global-view program on ``grid`` (``core/gspmd.py``).
+    ``panel_dtype`` (faun only; not on the sparse backend) ships the panel
+    gathers in that dtype; ``donate`` is accepted for the reference's
     signature and has no effect in eager PyTorch.
+
+    ``panel_compression="int8"`` compresses the distributed schedules'
+    panel collectives (Gram all-reduces, panel all-gathers and
+    reduce-scatters) to int8 payloads with two-sided fp32 scales and
+    error feedback; each rank's residuals ride the loop's carry and
+    surface as ``NMFResult.extras["panel_residuals"]``
+    (``distributed/compression.py``; gspmd emulates the numerics only).
+    The default None keeps the exact wire bit for bit.  It does not
+    compose with ``panel_dtype`` (both rewrite the wire format).
     """
 
     def __init__(self, k: int, *, algo: "_rules.RuleSpec" = "bpp",
@@ -318,16 +355,6 @@ class NMFSolver:
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {schedule!r}; "
                              f"choose from {SCHEDULES}")
-        if schedule not in _PORTED_SCHEDULES:
-            raise NotImplementedError(
-                f"schedule {schedule!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md, queue 1: item 8 'the other schedules'); use "
-                f"{_PORTED_SCHEDULES}")
-        if panel_compression is not None:
-            raise NotImplementedError(
-                "panel_compression (int8 panel collectives with error "
-                "feedback) is not ported to repro_torch yet (ROADMAP.md, "
-                "queue 1: item 8, distributed/compression.py)")
         self.rule = self._base_rule = _rules.get_rule(algo)
         self.ops = _backends.get_backend(backend)
         if panel_dtype is not None:
@@ -338,10 +365,26 @@ class NMFSolver:
                 raise ValueError(f"backend {self.ops.name!r} does not "
                                  f"support low-precision panels "
                                  f"(panel_dtype)")
+        self.compress = None
+        if panel_compression is not None:
+            from repro_torch.distributed.compression import get_compressor
+            self.compress = get_compressor(panel_compression)  # checks it
+            if schedule == "serial":
+                raise ValueError(
+                    "panel_compression compresses the distributed panel "
+                    "collectives; the serial schedule has none — use "
+                    "schedule='faun' (a 1×1 grid exercises the "
+                    "quantisation numerics on one rank)")
+            if panel_dtype is not None:
+                raise ValueError(
+                    "panel_dtype and panel_compression both rewrite the "
+                    "panel wire format and do not compose; pick one "
+                    "(int8 compression already halves bf16's panel bytes)")
         del donate
         self.device = resolve_device(device)
         self.k, self.algo = k, self.rule.name
         self.panel_dtype = panel_dtype
+        self.panel_compression = panel_compression
         self.stopping = StoppingCriterion(max_iters=max_iters, tol=tol,
                                           stall_iters=stall_iters,
                                           stall_tol=stall_tol)
@@ -349,6 +392,9 @@ class NMFSolver:
             self._schedule = _FaunSchedule(self, grid)
         elif schedule == "naive":
             self._schedule = _NaiveSchedule(self, group)
+        elif schedule == "gspmd":
+            from repro_torch.core.gspmd import GspmdSchedule
+            self._schedule = GspmdSchedule(self, grid)
         else:
             self._schedule = _SerialSchedule(self)
 
@@ -363,7 +409,19 @@ class NMFSolver:
     # -- solver lifecycle ---------------------------------------------------
 
     def fit(self, A, *, seed: int | None = None, H0=None, W0=None,
-            init=None) -> NMFResult:
+            init=None, profile: bool = False) -> NMFResult:
+        if profile:
+            if self.panel_compression is not None:
+                raise ValueError(
+                    "profile=True times the uncompressed wire format; it "
+                    "does not compose with panel_compression (the "
+                    "compressed collectives fuse payload and sidecar into "
+                    "one phase the segmented profiler cannot attribute); "
+                    "the profiler itself is ROADMAP.md queue 1, item 11a")
+            raise NotImplementedError(
+                "fit(profile=True), the segmented phase profiler of "
+                "repro.obs.phases, is not ported yet (ROADMAP.md queue 1, "
+                "item 11a)")
         rs = self.prepare_state(A, seed=seed, H0=H0, W0=W0, init=init)
         if self.stopping.adaptive:
             self._adaptive_loop(rs, self.stopping)
@@ -430,13 +488,52 @@ class NMFSolver:
         W, H = self._schedule.collect(rs.W, rs.Ht)
         rels = (torch.cat(rs.rel_history) if rs.rel_history
                 else torch.zeros((0,), dtype=torch.float32))
+        rule_state, residuals = self._schedule.split_state(rs.state)
         extras = {"schedule": self.schedule, "backend": self.backend,
                   "device": str(self.device),
                   "grid": self._schedule.grid_shape,
                   "stopped_early": rs.step < self.stopping.max_iters,
-                  "rule_state": rs.state}
+                  "rule_state": rule_state}
+        if residuals is not None:
+            extras["panel_residuals"] = residuals
         return NMFResult(W=W, H=H, rel_errors=rels, algo=self.algo,
                          iters=rs.step, extras=extras)
+
+    # -- AOT lowering and the cost model -------------------------------------
+
+    def lower_step(self, m: int, n: int, *, dtype=torch.float32,
+                   nnz: int | None = None):
+        """The reference lowers one iteration to XLA HLO for its roofline
+        and dry-run tools; eager PyTorch has no such program (see
+        ``core.faun.lower_step``)."""
+        from repro_torch.core.faun import lower_step
+        return lower_step(m, n, dtype=dtype, nnz=nnz)
+
+    def predict_cost(self, m: int, n: int, *, nnz: float = 0.0,
+                     bpp_iters: float = 1.0):
+        """α-β-γ per-iteration cost prediction for this solver's schedule
+        on its grid (faun, gspmd: pr × pc; naive: p × 1), with the
+        A-product flops from the backend and the words scaled for
+        ``panel_compression`` (``core/costmodel.py``)."""
+        from repro_torch.core import costmodel
+        pr, pc = self._schedule.grid_shape
+        rule = self._base_rule.prepare_global(m, n, self.k)
+        return costmodel.schedule_cost(
+            self.schedule, m, n, self.k, pr=pr, pc=pc, algo=rule,
+            backend=self.ops, nnz=nnz, bpp_iters=bpp_iters,
+            compression=self.panel_compression)
+
+    def predict_cost_terms(self, m: int, n: int, *, nnz: float = 0.0,
+                           bpp_iters: float = 1.0, machine=None):
+        """Per-phase-group predicted seconds (gram / mm / luc / comm /
+        error) on ``machine`` (default: ``costmodel.Machine()``)."""
+        from repro_torch.core import costmodel
+        pr, pc = self._schedule.grid_shape
+        rule = self._base_rule.prepare_global(m, n, self.k)
+        return costmodel.schedule_cost_terms(
+            self.schedule, m, n, self.k, pr=pr, pc=pc, algo=rule,
+            backend=self.ops, nnz=nnz, bpp_iters=bpp_iters,
+            compression=self.panel_compression, machine=machine)
 
     # -- loops ---------------------------------------------------------------
 

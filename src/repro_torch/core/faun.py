@@ -37,8 +37,15 @@ the bytes), as the bit pattern: the bf16 panel is viewed as bytes, which
 every backend gathers (gloo refuses int16, NCCL has no 16-bit integer).
 The backend casts the local A block once, when the schedule prepares it.
 
-Not ported yet (ROADMAP.md queue 1, item 8): ``panel_compression`` with its
-error-feedback residuals, and ``lower_step``.
+``panel_compression="int8"`` routes the four panel collectives (the two
+Gram all-reduces, the two gathers, the two reduce-scatters) through
+``distributed.compression``'s int8 wire with error feedback; each rank
+carries its own six residuals (``init_faun_residuals``).  The error's two
+all-reduces stay exact.
+
+``lower_step`` has nothing to lower in eager PyTorch: it goes with the
+profiler-based counterpart of ``repro/roofline/hlo.py`` (ROADMAP.md queue
+1, item 12) and raises until then.
 """
 
 from __future__ import annotations
@@ -174,7 +181,7 @@ def make_faun_grid(pr: int, pc: int, *, pods: int = 1) -> FaunGrid:
 # ---------------------------------------------------------------------------
 
 def faun_iteration(A_blk, W_blk, Ht_blk, normA_sq, state, *, grid: FaunGrid,
-                   rule, ops, panel_dtype=None):
+                   rule, ops, panel_dtype=None, compress=None):
     """One AU-NMF iteration of Algorithm 3 on this rank's blocks.
 
     A_blk  : (m/pr, n/pc) this rank's block of A, in ``ops``'s
@@ -182,40 +189,75 @@ def faun_iteration(A_blk, W_blk, Ht_blk, normA_sq, state, *, grid: FaunGrid,
     W_blk  : (m/p, k)     this rank's rows of W
     Ht_blk : (n/p, k)     this rank's rows of Hᵀ
     normA_sq: ‖A‖², all-reduced
-    state  : the rule's carry, the same on every rank
+    state  : the rule's carry, the same on every rank; under
+             ``compress`` the pair ``(rule_state, residuals)``, the
+             residuals this rank's own (``init_faun_residuals``), a dict
+             updated in place
+    compress: a ``distributed.compression`` panel compressor (None = the
+             exact collectives)
 
     Returns (W_blk, Ht_blk, sq_err, state); sq_err is the same on every
     rank.  At 1×1 the collectives copy and the step runs the serial step's
     operations in the serial step's order.
     """
     world, row_g, col_g = grid.world, grid.row_group, grid.col_group
+    res = None
+    if compress is not None:
+        # the residual dict is updated in place: a residual is dropped the
+        # moment its successor exists, and the caller's carry holds none
+        # of the older ones
+        state, res = state
 
     def norm_psum(v):       # HALS column norms, accelerated change norms
         return all_reduce(v, world)
 
-    if panel_dtype is None:
-        gather = allgather_panel
+    # The four panel collectives route through one indirection: exact, or
+    # the int8 + error-feedback equivalents (each threading its residual
+    # through ``res`` under its key).
+    if compress is None:
+        def panel_allreduce(x, group, _key):
+            dist.all_reduce(x, group=group)
+            return x
+
+        if panel_dtype is None:
+            def panel_allgather(x, group, _key):
+                return allgather_panel(x, group)
+        else:
+            def panel_allgather(x, group, _key):
+                return allgather_bits(x, group, panel_dtype)
+
+        def panel_reduce_scatter(x, group, _key):
+            return matmul_reducescatter(x, group)
     else:
-        def gather(x, group):
-            return allgather_bits(x, group, panel_dtype)
+        def panel_allreduce(x, group, key):
+            y, res[key] = compress.allreduce(x, group, res[key])
+            return y
+
+        def panel_allgather(x, group, key):
+            y, res[key] = compress.all_gather(x, group, res[key])
+            return y
+
+        def panel_reduce_scatter(x, group, key):
+            y, res[key] = compress.reduce_scatter(x, group, res[key])
+            return y
 
     # ---- W given H (paper lines 3–8) ----
-    HHt = gram_allreduce(Ht_blk, world, gram=ops.gram)           # k×k
-    Hj_t = gather(Ht_blk, col_g)                                 # (n/pc, k)
+    HHt = panel_allreduce(ops.gram(Ht_blk), world, "gram_w")     # k×k
+    Hj_t = panel_allgather(Ht_blk, col_g, "gather_h")            # (n/pc, k)
     V = ops.mm(A_blk, Hj_t)                                      # (m/pr, k)
     del Hj_t
-    AHt_blk = matmul_reducescatter(V, row_g)                     # (m/p, k)
+    AHt_blk = panel_reduce_scatter(V, row_g, "rs_w")             # (m/p, k)
     del V
     W_blk, state = rule.update_w(HHt, AHt_blk, W_blk, state,
                                  norm_psum=norm_psum)
     del AHt_blk             # freed before W's panel is gathered
 
     # ---- H given W (paper lines 9–14) ----
-    WtW = gram_allreduce(W_blk, world, gram=ops.gram)
-    Wi = gather(W_blk, row_g)                                    # (m/pr, k)
+    WtW = panel_allreduce(ops.gram(W_blk), world, "gram_h")
+    Wi = panel_allgather(W_blk, row_g, "gather_w")               # (m/pr, k)
     Yt = ops.mm_t(A_blk, Wi)                                     # (n/pc, k)
     del Wi
-    WtA_t_blk = matmul_reducescatter(Yt, col_g)                  # (n/p, k)
+    WtA_t_blk = panel_reduce_scatter(Yt, col_g, "rs_h")          # (n/p, k)
     del Yt
     Ht_blk, state = rule.update_h(WtW, WtA_t_blk, Ht_blk, state,
                                   norm_psum=norm_psum)
@@ -225,7 +267,29 @@ def faun_iteration(A_blk, W_blk, Ht_blk, normA_sq, state, *, grid: FaunGrid,
     cross = all_reduce((WtA_t_blk.float() * Ht_blk.float()).sum(), world)
     quad = (WtW.float() * HHt_new.float()).sum()
     sq_err = normA_sq - 2.0 * cross + quad
+    if compress is not None:
+        state = (state, res)
     return W_blk, Ht_blk, sq_err, state
+
+
+def init_faun_residuals(grid: FaunGrid, m: int, n: int, k: int, *,
+                        device=None):
+    """Zero error-feedback residuals of this rank's six compressed
+    collectives in one iteration, keyed as ``faun_iteration`` reads them:
+    the reference's leaves without their leading mesh dimensions, fp32."""
+    pr, pc, p = grid.pr, grid.pc, grid.p
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return {
+        "gram_w": z(k, k),            # HHᵀ all-reduce
+        "gather_h": z(n // p, k),     # H panel all-gather
+        "rs_w": z(m // pr, k),        # A·Hᵀ reduce-scatter
+        "gram_h": z(k, k),            # WᵀW all-reduce
+        "gather_w": z(m // p, k),     # W panel all-gather
+        "rs_h": z(n // pc, k),        # WᵀA reduce-scatter
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -250,3 +314,14 @@ def fit(A, k: int, *, grid: FaunGrid, algo="bpp", iters: int = 30,
                        max_iters=iters, panel_dtype=panel_dtype,
                        panel_compression=panel_compression, donate=donate)
     return solver.fit(A, seed=seed, H0=H0, W0=W0)
+
+
+def lower_step(*args, **kwargs):
+    """The reference AOT-lowers one iteration to XLA HLO for its roofline
+    and dry-run tools; eager PyTorch has no such program.  Its counterpart
+    (collective bytes counted through the profiler) is ROADMAP.md queue 1,
+    item 12."""
+    del args, kwargs
+    raise NotImplementedError(
+        "lower_step has no counterpart in eager PyTorch yet: it goes with "
+        "the profiler-based roofline (ROADMAP.md queue 1, item 12)")

@@ -12,32 +12,47 @@ The communication-inefficient baseline the paper measures against:
     words against FAUN's O(√(mnk²/p)));
   * every rank computes the k×k Gram of the whole factor, redundantly.
 
-Rank r holds rows r·m/p … of W and r·n/p … of Hᵀ.  ``panel_compression``
-(error-feedback int8 gathers) is not ported yet (ROADMAP.md queue 1,
-item 8).
+Rank r holds rows r·m/p … of W and r·n/p … of Hᵀ.  Under
+``panel_compression="int8"`` the two full-factor gathers — the schedule's
+only panel collectives — move int8 payloads with error feedback
+(``distributed.compression``); each rank carries its own two residuals
+(``init_naive_residuals``).
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core import rules as _rules
 from repro_torch.core.faun import all_reduce, allgather_panel, gram_allreduce
 
 
 def naive_iteration(Arow, Acol, W_blk, Ht_blk, normA_sq, state, *, group,
-                    rule, ops):
+                    rule, ops, compress=None):
     """One iteration of Algorithm 2 on this rank's blocks.
 
     Arow: (m/p, n)   row block of A       W_blk:  (m/p, k)
     Acol: (m, n/p)   column block of A    Ht_blk: (n/p, k)
 
-    Returns (W_blk, Ht_blk, sq_err, state); sq_err and ``state`` are the
-    same on every rank.
+    Under ``compress`` the carry is ``(rule_state, residuals)``.  Returns
+    (W_blk, Ht_blk, sq_err, state); sq_err and the rule state are the same
+    on every rank.
     """
+    res = None
+    if compress is not None:
+        state, res = state          # residuals updated in place (faun's)
+
     def norm_psum(v):
         return all_reduce(v, group)
 
+    def panel_allgather(x, key):
+        if compress is None:
+            return allgather_panel(x, group)
+        y, res[key] = compress.all_gather(x, group, res[key])
+        return y
+
     # --- W given H: all-gather the whole of H, redundant Gram (lines 3-4) ---
-    Ht = allgather_panel(Ht_blk, group)                       # (n, k)
+    Ht = panel_allgather(Ht_blk, "gather_h")                  # (n, k)
     HHt = ops.gram(Ht)
     AHt_blk = ops.mm(Arow, Ht)                                # (m/p, k)
     del Ht
@@ -46,7 +61,7 @@ def naive_iteration(Arow, Acol, W_blk, Ht_blk, normA_sq, state, *, group,
     del AHt_blk             # freed before the whole of W is gathered
 
     # --- H given W: all-gather the whole of W, redundant Gram (lines 5-6) ---
-    W = allgather_panel(W_blk, group)                         # (m, k)
+    W = panel_allgather(W_blk, "gather_w")                    # (m, k)
     WtW = ops.gram(W)
     WtA_t_blk = ops.mm_t(Acol, W)                             # (n/p, k)
     del W
@@ -58,7 +73,18 @@ def naive_iteration(Arow, Acol, W_blk, Ht_blk, normA_sq, state, *, group,
     cross = all_reduce((WtA_t_blk.float() * Ht_blk.float()).sum(), group)
     quad = (WtW.float() * HHt_new.float()).sum()
     sq_err = normA_sq - 2.0 * cross + quad
+    if compress is not None:
+        state = (state, res)
     return W_blk, Ht_blk, sq_err, state
+
+
+def init_naive_residuals(p: int, m: int, n: int, k: int, *, device=None):
+    """Zero error-feedback residuals of this rank's two factor gathers
+    (the reference's leaves without their leading mesh dimension)."""
+    return {"gather_h": torch.zeros((n // p, k), dtype=torch.float32,
+                                    device=device),
+            "gather_w": torch.zeros((m // p, k), dtype=torch.float32,
+                                    device=device)}
 
 
 def fit(A, k: int, *, group=None, algo="bpp", iters: int = 30,
@@ -76,3 +102,9 @@ def fit(A, k: int, *, group=None, algo="bpp", iters: int = 30,
                        backend=backend, group=group, device=device,
                        max_iters=iters, panel_compression=panel_compression)
     return solver.fit(A, seed=seed, H0=H0, W0=W0)
+
+
+def lower_step(*args, **kwargs):
+    """No counterpart in eager PyTorch yet (``core.faun.lower_step``)."""
+    from repro_torch.core.faun import lower_step as _lower
+    return _lower(*args, **kwargs)

@@ -17,9 +17,14 @@ Built-in rules (resolved by name through the registry): ``mu`` (Lee &
 Seung, paper §4.1), ``hals`` (Cichocki et al., §4.2), ``bpp`` (exact ANLS
 by block principal pivoting, §4.3; aliases ``abpp`` / ``anls``), and
 ``amu`` / ``ahals`` (Gillis & Glineur's accelerated MU / HALS,
-arXiv:1107.5194: repeated inner sweeps per (G, R)).  The cost hooks of the
-reference (``luc_flops``, ``extra_latency_words``) and ``cache_key`` are
-not ported: nothing of the port consumes them yet.
+arXiv:1107.5194: repeated inner sweeps per (G, R)).  Each rule carries the
+reference's cost hooks for ``core/costmodel.py``:
+
+    luc_flops(m, n, k)         F(m, n, k) of the paper's Table III
+    extra_latency_words(k, p)  (messages, wire words) of any collectives the
+                               rule itself performs (HALS's column norms)
+
+``cache_key`` is not ported: the port has no compiled-run cache.
 
 The MU update and the HALS H-step sweep run through the hand-written LUC
 kernels (``kernels.ops.mu_update`` / ``hals_sweep``) with
@@ -225,6 +230,25 @@ class UpdateRule:
             X = sweep(X)
         return X
 
+    # -- cost hooks (paper Table III) ---------------------------------------
+
+    def luc_flops(self, m: float, n: float, k: float, *,
+                  bpp_iters: float = 1.0) -> float:
+        """F(m, n, k): flops of the two local update computations per
+        iteration.  ``bpp_iters`` is the empirical pivot-round knob only the
+        BPP family consumes (the paper leaves C_BPP symbolic)."""
+        del bpp_iters
+        return 2.0 * (m + n) * k * k
+
+    def extra_latency_words(self, k: float, p: int) -> tuple[float, float]:
+        """(messages, wire words) per iteration of any collectives the RULE
+        itself performs beyond the schedule's matrix-product collectives.
+        The HALS family's per-column norm all-reduces are the paper's
+        example: k messages of log p latency each, one scalar of wire."""
+        if p <= 1 or not self.normalizes_w:
+            return 0.0, 0.0
+        return k * math.log2(p), 2.0 * k * (p - 1) / p
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}(name={self.name!r})"
 
@@ -303,6 +327,12 @@ class BPPRule(UpdateRule):
         del X0, iters               # exact solve, no warm start needed
         G, R = self.regularize(G, R)
         return solve_bpp(G, R, max_iter=self.max_iter)
+
+    def luc_flops(self, m, n, k, *, bpp_iters: float = 1.0):
+        # `bpp_iters` passes of a k×k solve per column: ~k³/3 + 2k² flops
+        # per column per pivot round (empirically 1–3 rounds dominate).
+        per_col = bpp_iters * (k ** 3 / 3.0 + 2.0 * k * k)
+        return (m + n) * per_col
 
 
 class _AcceleratedRule(UpdateRule):
@@ -423,6 +453,27 @@ class _AcceleratedRule(UpdateRule):
         X, _ = self._accelerate(sweep, X, _identity, budget=max(iters, 1),
                                 delta=self.fold_delta)
         return X
+
+    def luc_flops(self, m, n, k, *, bpp_iters: float = 1.0):
+        # Budgeted (worst-case) flops: the early stop can only spend less.
+        del bpp_iters
+        bw, bh = self._budgets()
+        return bw * 2.0 * m * k * k + bh * 2.0 * n * k * k
+
+    def extra_latency_words(self, k, p):
+        if p <= 1:
+            return 0.0, 0.0
+        # The base rule's per-sweep reductions (HALS: k column norms, a
+        # W-step property) are paid on every inner W sweep; the stall-norm
+        # all-reduce (one scalar per sweep, both halves) exists only when
+        # the stall exit is live (a budget above 1 and delta > 0).
+        bw, bh = self._budgets()
+        base_m, base_w = super().extra_latency_words(k, p)
+        msgs, words = bw * base_m, bw * base_w
+        if max(bw, bh) > 1 and self.delta > 0.0:
+            msgs += (bw + bh) / 2.0 * math.log2(p)
+            words += (bw + bh) * (p - 1) / p
+        return msgs, words
 
 
 class AcceleratedMURule(_AcceleratedRule, MURule):

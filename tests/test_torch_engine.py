@@ -170,15 +170,11 @@ def test_cuda_is_the_default_and_raises_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("schedule", ["faun", "naive", "gspmd"])
 def test_unported_schedules_raise(schedule):
-    """A schedule the port cannot run here raises: gspmd is not ported
-    (ROADMAP.md names its item); faun and naive are, and run only on the
-    ranks of an initialised process group, which this process has not."""
-    if schedule == "gspmd":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            NMFSolver(K, schedule=schedule, device="cpu")
-    else:
-        with pytest.raises(RuntimeError, match="no process group"):
-            NMFSolver(K, schedule=schedule, device="cpu")
+    """The distributed schedules (faun, naive and, since the global-view
+    port, gspmd) run only on the ranks of an initialised process group,
+    which this process has not: each raises, naming what is missing."""
+    with pytest.raises(RuntimeError, match="no process group"):
+        NMFSolver(K, schedule=schedule, device="cpu")
 
 
 def test_bad_arguments_raise():

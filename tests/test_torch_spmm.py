@@ -184,7 +184,7 @@ def test_sort_rows_layout_matches_jax(grid, orient, align):
 def test_blockify_takes_every_input_form():
     """Dense tensor, numpy (float64 → float32), sparse COO with duplicates,
     CSR, a BlockCOO on its own grid (itself) and on another (re-blocked:
-    the same matrix); the gspmd padding is not ported."""
+    the same matrix); the gspmd padding keeps the matrix."""
     Ad = _er(7, 24, 20, 0.3)
     want = torch.from_numpy(Ad)
     coo = want.to_sparse_coo()
@@ -206,8 +206,9 @@ def test_blockify_takes_every_input_form():
     one = tbs.blockify(blk, 1, 1)
     assert one.grid == (1, 1) and one.nnz == blk.nnz
     torch.testing.assert_close(one.todense(), want)
-    with pytest.raises(NotImplementedError, match="gspmd"):
-        tbs.pad_nnz(blk, 4)
+    padded = tbs.pad_nnz(blk, 4)
+    assert padded.vals.shape[-1] % 4 == 0 and padded.nnz == blk.nnz
+    torch.testing.assert_close(padded.todense(), want)
 
 
 @pytest.mark.parametrize("sort", [False, True])

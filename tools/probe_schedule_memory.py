@@ -4,6 +4,7 @@ serial schedule's, on one NVIDIA GPU.
 
     python3 tools/probe_schedule_memory.py [--dense-n 2048] [--sparse-dim N]
                                            [--iters 2] [--algo mu]
+                                           [--compressed]
 
 For each matrix (a dense low-rank A with Video's 1,013,400 rows, and the
 Webbase-density sparse A of chip_smoke.py at ``--sparse-dim``; 0 skips it)
@@ -17,8 +18,10 @@ it, beside ``torch.cuda.max_memory_allocated``.  A tensor held past its
 last use (by a collective's work, say) shows as an allocation site alive
 at the peak that the schedule's code has already dropped.
 
-``--hold`` names a variant of faun's step to run as well (after the plain
-one): ``sync`` synchronises the card after every collective, so every
+``--compressed`` runs faun and naive with ``panel_compression="int8"``
+as well (the residuals they keep and the quantiser's temporaries show by
+the line of ``distributed/compression.py`` that made them).  ``--hold``
+names a variant of faun's step to run as well (after the plain one): ``sync`` synchronises the card after every collective, so every
 collective has finished before the next allocation.  Everything is made on
 the device from ``--seed``.  Exits 1 without a CUDA device.
 """
@@ -118,6 +121,7 @@ def main(argv=None) -> int:
     ap.add_argument("--algo", default="mu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--hold", choices=("sync",), default=None)
+    ap.add_argument("--compressed", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -165,6 +169,14 @@ def main(argv=None) -> int:
             show(f"{label} naive p=1 {args.algo}",
                  run(A, args.seed, args.iters, args.algo, schedule="naive",
                      **kw))
+            if args.compressed:
+                show(f"{label} faun 1x1 {args.algo} int8",
+                     run(A, args.seed, args.iters, args.algo,
+                         schedule="faun", grid=grid,
+                         panel_compression="int8", **kw))
+                show(f"{label} naive p=1 {args.algo} int8",
+                     run(A, args.seed, args.iters, args.algo,
+                         schedule="naive", panel_compression="int8", **kw))
             if args.hold == "sync":
                 saved = (faun.allgather_panel, faun.matmul_reducescatter)
 
