@@ -19,7 +19,11 @@ group:
   the LUC kernels);
 * serving: ``FactorArtifact`` → ``FoldInProjector`` → ``TopK`` on the
   factors of the dense bpp fit (saved and loaded on local disk) and of the
-  sparse mu fit (in memory), for dense and sparse request rows.
+  sparse mu fit (in memory), for dense and sparse request rows; on the
+  factors of the dense mu fit, ``MicroBatcher``, the autotuned ``TopK``
+  and ``MeshServer`` on a four-shard serve mesh of the card;
+* the profiler (``fit(profile=True)``), the data generators and the
+  checkpoints, at the same widths.
 
 Phases, each of which raises on failure:
 
@@ -149,6 +153,40 @@ Phases, each of which raises on failure:
                "auto" mu for 2 within the sparse kernels' tolerance of
                serial "auto"; every run with serial's launches; ms/iter
                beside serial's.
+ 19. profile   (after 8b) ``fit(profile=True)`` for mu and hals, 3
+               iterations, serial on the dense A: the phase keys of
+               ``expected_phases("serial")``, W, H and the rel errors
+               bit-equal to the unprofiled fit from the same seed, its
+               launches per iteration (the profiled fit runs one untimed
+               iteration more), the phase times' sum within 25 % of the
+               unprofiled ms/iter; each phase's ms and ``format_report``'s
+               table on the card's published rates; faun 1×1 mu profiled
+               on a one-rank NCCL group: the faun keys, serial's bits;
+ 20. generators and checkpoints  (before phase 3's A exists)
+               ``video_like_matrix`` at Video's shape: its peak above what
+               was allocated before it within A, its factors and four
+               chunk-sized temporaries, its motion share within 1e-3;
+               (after 19) ``bow_like_matrix`` and ``stream_batch`` at a few
+               thousand rows, checked as the CPU tests check them, timed;
+               the mu fit's factors and state through ``AsyncCheckpointer``
+               and ``restore``, bit for bit, timed;
+ 21. batcher   1,000 single-row requests from 8 threads through
+               ``MicroBatcher`` over the bpp and mu projectors of the mu
+               fit, each result against ``project`` of its row alone as
+               8b holds a served batch, the mean batch and the latencies from the
+               registry; ``TopK(chunk=None)`` over W's 1,013,400 rows: the
+               chosen chunk, every candidate's µs, the answer against
+               ``chunk=4096``'s;
+ 22. mesh      ``MeshServer`` on ``serve_mesh(4, devices=[cuda:0] * 4)``
+               and on one shard, shard="batch" and "features", both
+               merges: codes against the single-device projector's as
+               8b holds a served batch, the top-k and ``retrieve`` against the
+               single-device ``TopK`` (rows whose scores tie within the
+               rounding of two computations may trade places; one shard
+               bit-equal), a served batch's launches (``ts_matmul`` once
+               per shard, ``mu_update`` once per shard per sweep); a hot
+               swap under load losing no request, a stale swap refused;
+               the batch latency at p = 4 against p = 1.
 
 Phase 15g also runs mu and hals with ``panel_compression="int8"`` on its
 2×2 grid, each held by its direct ||A − WH|| / ||A|| against the exact
@@ -1595,8 +1633,8 @@ def phase_sparse_data(dev, seed: int, dim: int) -> dict:
         getattr(srt, f) for f in blocksparse.LEAVES)) / 1e9
     log(f"[sparse data] A {blk.shape} fp32, density {density:.4e} "
         f"({WEBBASE_NNZ / WEBBASE_ROWS:.3f} nonzeros per row, Webbase-2001), "
-        f"nnz {blk.nnz} ({round(density * dim * dim) - blk.nnz} duplicate "
-        f"draws dropped), made in {t_make:.2f} s; COO triplets "
+        f"nnz {blk.nnz} (round(density·m·n): repeated draws are redrawn), "
+        f"made in {t_make:.2f} s; COO triplets "
         f"{coo_gb:.3f} GB")
     log(f"[sparse data] sorted layout (align {SPARSE_ALIGN}, both "
         f"orientations) built on the device in {t_sort:.3f} s: "
@@ -2264,6 +2302,568 @@ def served_spmm_plans(Ht, reqs) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The profiler, the data generators, checkpoints and the rest of serving
+# ---------------------------------------------------------------------------
+
+# The video-like matrix at Video's shape is built a chunk of rows at a time:
+# its peak above what was allocated before is A, its rank-20 factors and at
+# most four chunk-sized fp32 temporaries (the chunk's product, the mask's
+# draw, the mask, the object values: data/pipeline.py, 2^26 elements each)
+VIDEO_RANK, VIDEO_MOTION = 20, 0.05
+VIDEO_CHUNK_TEMPS = 4
+# The bag-of-words matrix and the streaming batches at a few thousand rows
+BOW_SHAPE, BOW_DOC_LEN = (4_000, 3_000), 100
+# the rank-frequency slope over the 200 most frequent words: the CPU draws
+# of the same generator at this size fall in -0.240 … -0.217 (seeds 0–5),
+# the JAX package's at 2,000 × 400 in -0.275 … -0.241 (tests/test_torch_data.py)
+BOW_SLOPE_BAND = (-0.35, -0.15)
+STREAM_SHAPE = (4_096, 2_000, 20)                # rows, n, k
+# The profiled fits' phase times summed, against the unprofiled ms/iter of
+# the same run (a synchronisation per phase is all the profiler adds)
+PROFILE_SUM_TOL = 0.25
+# Phase 21: 1,000 single-row requests from 8 threads
+BATCHER_REQUESTS, BATCHER_THREADS, BATCHER_MAX = 1_000, 8, 64
+BATCHER_ALGOS = ("bpp", "mu")
+TOPK_QUERIES = 64
+MESH_SHARDS = 4
+MESH_BATCH = 64
+
+
+def topk_within_ties(tk, codes, ref_scores, ref_idx, got_idx):
+    """How far an answer ``got_idx`` of top-k rows for ``codes`` is from
+    the single-device ``tk``'s answer (``ref_scores``, ``ref_idx``): the
+    largest difference, over max |ref_scores|, between each returned row's
+    score under ``tk`` and the reference score at its rank, and the number
+    of positions whose row differs.  Rows whose scores tie within the
+    rounding of two computations may trade places; any other row scores
+    far from the reference at its rank."""
+    import torch
+    Q = codes.float()
+    Qt = Q @ tk.gram
+    qn = torch.clamp_min(torch.sqrt(torch.clamp_min((Qt * Q).sum(1), 0)),
+                         1e-12)
+    at = (torch.einsum("bk,bjk->bj", Qt, tk.W[got_idx])
+          / (torch.clamp_min(tk.row_norms[got_idx], 1e-12) * qn[:, None]))
+    err = (at - ref_scores).abs().max().item() / (
+        ref_scores.abs().max().item() + 1e-9)
+    return err, int((got_idx != ref_idx).sum())
+
+
+def card_machine():
+    """The cost model's machine with the card's published rates (HBM3
+    3.35 TB/s per fp32 word, fp32 67 TFLOP/s outside the tensor cores) and
+    no message latency: a one-card run sends no message."""
+    from repro_torch.core.costmodel import Machine
+    return Machine(alpha=0.0, beta=4 / HBM_BYTES_PER_S,
+                   gamma=1 / PEAK_FLOPS["float32"])
+
+
+def phase_video_generator(dev, seed: int, m: int, n: int) -> dict:
+    """Phase 20, first part (before A exists): ``video_like_matrix`` at
+    Video's shape, its peak memory above what was allocated before it
+    against A's bytes, its factors and VIDEO_CHUNK_TEMPS chunk-sized fp32
+    temporaries, and its motion share (the entries off the low-rank
+    background, rebuilt chunk by chunk from the same seed) within 1e-3 of
+    VIDEO_MOTION; then freed."""
+    import torch
+    from repro_torch.data import pipeline
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    V = pipeline.video_like_matrix(
+        torch.Generator(device=dev).manual_seed(seed), m, n,
+        rank=VIDEO_RANK, motion=VIDEO_MOTION)
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    a_bytes = m * n * 4
+    budget = (a_bytes + (m + n) * VIDEO_RANK * 4
+              + VIDEO_CHUNK_TEMPS * pipeline._CHUNK_ELEMS * 4)
+    # the background: the same seed's first draws, the generator's chunks;
+    # an entry moved when it differs from it by more than the rounding of
+    # two fp32 products of the same chunk (an object value below that is
+    # counted as no motion: a share of about 1e-5 of the moved ones)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    W = torch.rand((m, VIDEO_RANK), generator=gen, device=dev)
+    H = torch.rand((VIDEO_RANK, n), generator=gen, device=dev)
+    moved = torch.zeros((), dtype=torch.int64, device=dev)
+    rows = pipeline._chunk_rows(n)
+    for r0 in range(0, m, rows):
+        bg = W[r0:r0 + rows] @ H
+        moved += ((V[r0:r0 + rows] - bg).abs()
+                  > 1e-5 * bg.abs().clamp_min(1.0)).sum()
+    share = moved.item() / (m * n)
+    del V, W, H, bg
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    ok = peak <= budget and abs(share - VIDEO_MOTION) <= 1e-3
+    log(f"[generators] video_like_matrix {(m, n)} rank {VIDEO_RANK} in "
+        f"{t_make:.2f} s: peak {peak / 1e9:.3f} GB above base (A "
+        f"{a_bytes / 1e9:.3f} GB; budget {budget / 1e9:.3f} GB), motion "
+        f"share {share:.6f} (motion {VIDEO_MOTION}, tol 1e-3) "
+        f"{'ok' if ok else 'FAIL'}; phase {phase_s:.1f} s")
+    require(ok, f"video_like_matrix: peak {peak} B (budget {budget}), "
+                f"motion share {share}")
+    return {"make_s": t_make, "peak_gb": peak / 1e9, "share": share,
+            "phase_s": phase_s}
+
+
+def phase_profile(A, seed: int, runs, card: str) -> tuple[dict, dict, dict]:
+    """Phase 19: ``fit(profile=True)`` for each (algo, iters) of ``runs``,
+    serial at A's full width, beside the unprofiled fit from the same seed
+    (its prepare and iterations timed apart): the phase keys those of
+    ``expected_phases("serial")``, W, H and the rel errors bit-equal, the
+    launches per iteration equal (the profiled fit runs one untimed
+    iteration more), the phase times' sum within PROFILE_SUM_TOL of the
+    unprofiled ms/iter; each phase's ms and ``format_report``'s table on
+    the card's published rates.  Then faun 1×1 mu on a one-rank NCCL group:
+    the faun keys, and serial's profiled bits.  Returns (launches, summary,
+    the mu fit's result)."""
+    import torch
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.core.faun import make_faun_grid
+    from repro_torch.kernels import ops
+    from repro_torch.obs.phases import expected_phases
+    from repro_torch.obs.report import breakdown_report, format_report
+    t_phase = time.perf_counter()
+    m, n = A.shape
+    launches, summary, kept = {}, {}, None
+    mach = card_machine()
+    for algo, iters in runs:
+        plain, counts, _, ms_iter, setup_ms, _ = segment_fit(
+            A, seed, iters, algo=algo)
+        solver = NMFSolver(K, algo=algo, max_iters=iters)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        prof = solver.fit(A, seed=seed, profile=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pcounts = dict(ops.LAUNCHES)
+        pt = prof.extras["phase_times"]
+        total_ms = sum(pt.values()) * 1e3
+        same = (torch.equal(prof.W, plain.W) and torch.equal(prof.H, plain.H)
+                and torch.equal(prof.rel_errors, plain.rel_errors))
+        per_iter = all(pcounts[k] * iters == counts[k] * (iters + 1)
+                       for k in counts)
+        ok = (same and per_iter
+              and tuple(pt) == expected_phases("serial")
+              and abs(total_ms - ms_iter) <= PROFILE_SUM_TOL * ms_iter)
+        log(f"[profile] {algo:4s} {iters} iters at {(m, n, K)}: phases (ms) "
+            + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in pt.items())
+            + f"; sum {total_ms:.3f} vs unprofiled {ms_iter:.3f} ms/iter "
+            f"(tol {PROFILE_SUM_TOL:.0%}); profiled fit {wall:.2f} s; "
+            f"launches {pcounts} over {iters + 1} iterations vs {counts} over "
+            f"{iters}; bit-equal {same} {'ok' if ok else 'FAIL'}")
+        require(ok, f"profile {algo}: keys {tuple(pt)}, bit-equal {same}, "
+                    f"launches {pcounts} vs {counts}, sum {total_ms} vs "
+                    f"{ms_iter} ms/iter")
+        rows = breakdown_report(solver, prof, m, n, machine=mach)
+        log(format_report(rows, title=f"[profile] {algo}: measured against "
+                          f"the cost model on the card's published rates "
+                          f"(3.35 TB/s, 67 TFLOP/s fp32, no latency), "
+                          f"{card}"))
+        add_launches(launches, pcounts)
+        summary[algo] = {"phase_ms": {k: v * 1e3 for k, v in pt.items()},
+                         "sum_ms": total_ms, "unprofiled_ms_per_iter": ms_iter,
+                         "setup_ms": setup_ms, "report": rows}
+        if algo == "mu":
+            kept = prof
+        del plain
+    with nccl_group():
+        grid = make_faun_grid(1, 1)
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        res = NMFSolver(K, algo="mu", schedule="faun", grid=grid,
+                        max_iters=3).fit(A, seed=seed, profile=True)
+        torch.cuda.synchronize()
+        t_faun = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+    pt = res.extras["phase_times"]
+    ok = (tuple(pt) == expected_phases("faun")
+          and torch.equal(res.W, kept.W) and torch.equal(res.H, kept.H))
+    log(f"[profile] faun 1×1 mu, one-rank NCCL group: phases (ms) "
+        + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in pt.items())
+        + f"; {t_faun:.2f} s; serial's profiled bits "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"faun profile: keys {tuple(pt)}, bits differ from serial")
+    add_launches(launches, counts)
+    summary["faun_mu"] = {"phase_ms": {k: v * 1e3 for k, v in pt.items()},
+                          "s": t_faun}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[profile] phase 19 took {summary['phase_s']:.1f} s")
+    return launches, summary, kept
+
+
+def zipf_slope(X, top: int = 200) -> float:
+    """Slope of log frequency against log rank over the ``top`` most
+    frequent words (rows of a words × docs count matrix)."""
+    import torch
+    f = torch.sort(X.double().sum(1), descending=True).values[:top]
+    r = torch.arange(1, top + 1, dtype=torch.float64, device=X.device)
+    ok = f > 0
+    x, y = r[ok].log(), f[ok].log()
+    x, y = x - x.mean(), y - y.mean()
+    return float((x * y).sum() / (x * x).sum())
+
+
+def phase_generators_and_checkpoints(dev, seed: int, res) -> dict:
+    """Phase 20, second part: ``bow_like_matrix`` and ``stream_batch`` at a
+    few thousand rows and columns, checked as the CPU tests check them and
+    timed; then the fit's factors and rule state saved and restored through
+    ``AsyncCheckpointer``, bit for bit, timed."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.data import pipeline
+    t_phase = time.perf_counter()
+    out = {}
+    V, D = BOW_SHAPE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X = pipeline.bow_like_matrix(torch.Generator(device=dev).manual_seed(seed),
+                                 V, D, doc_len=BOW_DOC_LEN)
+    torch.cuda.synchronize()
+    out["bow_ms"] = (time.perf_counter() - t0) * 1e3
+    slope = zipf_slope(X)
+    mean_len = float(X.sum(0).mean())
+    sigma = (BOW_DOC_LEN / D) ** 0.5
+    ok = (tuple(X.shape) == (V, D) and bool((X >= 0).all())
+          and torch.equal(X, X.round())
+          and BOW_SLOPE_BAND[0] <= slope <= BOW_SLOPE_BAND[1]
+          and abs(mean_len - BOW_DOC_LEN) <= 3 * sigma)
+    log(f"[generators] bow_like_matrix {(V, D)} in {out['bow_ms']:.2f} ms: "
+        f"nonnegative integer counts, Zipf slope {slope:.4f} (band "
+        f"{BOW_SLOPE_BAND}), mean document length {mean_len:.3f} "
+        f"({BOW_DOC_LEN} ± {3 * sigma:.3f}) {'ok' if ok else 'FAIL'}")
+    require(ok, f"bow_like_matrix: slope {slope}, mean length {mean_len}")
+    del X
+    rows, n, k = STREAM_SHAPE
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = pipeline.stream_batch(seed, 5, rows=rows, n=n, k=k, drift=0.01,
+                              noise=0.01)
+    torch.cuda.synchronize()
+    out["stream_ms"] = (time.perf_counter() - t0) * 1e3
+    replay = torch.equal(a, pipeline.stream_batch(seed, 5, rows=rows, n=n,
+                                                  k=k, drift=0.01,
+                                                  noise=0.01))
+    H = pipeline.stream_truth(seed, n, k).double()
+    a0 = pipeline.stream_batch(seed, 5, rows=rows, n=n, k=k).double()
+    ad = pipeline.stream_batch(seed, 5, rows=rows, n=n, k=k,
+                               drift=0.01).double()
+    Xc = torch.linalg.lstsq(H.T, a0.T).solution                  # (k, rows)
+    resid = float((a0 - Xc.T @ H).norm() / a0.norm())
+    H_alt = pipeline.stream_truth(seed + 1, n, k).double()
+    drift_err = float((ad - a0 - 0.01 * 5 * Xc.T @ H_alt).abs().max())
+    ok = (replay and tuple(a.shape) == (rows, n) and resid < 1e-6
+          and drift_err < 1e-4)
+    log(f"[generators] stream_batch {(rows, n)} k={k} in "
+        f"{out['stream_ms']:.2f} ms: bit-identical on replay {replay}, rows "
+        f"in the truth's row space (rel residual {resid:.2e}, tol 1e-6), "
+        f"drift linear in step (max err {drift_err:.2e}, tol 1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"stream_batch: replay {replay}, residual {resid}, drift "
+                f"{drift_err}")
+    del a, a0, ad
+    state = {"W": res.W, "H": res.H, "rel_errors": res.rel_errors,
+             "rule_state": res.extras["rule_state"],
+             "seed": torch.tensor(seed)}
+    ckdir = os.path.join(ROOT, "build", "checkpoints", "video_mu")
+    ck = checkpoint.AsyncCheckpointer(ckdir, keep_last=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(state, res.iters)
+    t_save = time.perf_counter() - t0
+    ck.wait()
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    template = {key: (torch.empty_like(v) if isinstance(v, torch.Tensor)
+                      else v) for key, v in state.items()}
+    back, step = checkpoint.restore(ckdir, template)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(ck.last_path, "arrays.npz"))
+    ok = (step == res.iters and back["W"].device == res.W.device
+          and all(torch.equal(back[key], state[key])
+                  for key in ("W", "H", "rel_errors", "seed")))
+    log(f"[checkpoint] W {tuple(res.W.shape)}, H, rel errors, rule state "
+        f"through AsyncCheckpointer: save() returned in {t_save * 1e3:.1f} ms "
+        f"(host copy), written in {t_write:.2f} s ({size / 1e6:.1f} MB), "
+        f"restored to the card in {t_restore:.2f} s; bit for bit "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, "the checkpoint does not round-trip bit for bit")
+    out.update(save_ms=t_save * 1e3, write_s=t_write, restore_s=t_restore,
+               mb=size / 1e6, phase_s=time.perf_counter() - t_phase)
+    log(f"[generators] phase 20 (second part) took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_batcher(A, res) -> tuple[dict, dict]:
+    """Phase 21: BATCHER_REQUESTS single-row submits from BATCHER_THREADS
+    threads through ``MicroBatcher`` over the bpp and mu projectors of the
+    fit's artifact, each result against ``project`` of that row alone as
+    phase 8b holds a served batch (SERVE_TOL: the codes scaled, and both
+    solutions' residuals; a batch's ``ts_matmul`` splits the 13,824-long
+    sums by another plan than one row's, and the fold amplifies that
+    rounding), the mean batch and latencies from the registry; then
+    ``TopK(chunk=None)`` over W's rows: the chosen chunk, every candidate's
+    µs, and the answer against ``chunk=4096``'s."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve.artifact import FactorArtifact
+    from repro_torch.serve.batcher import MicroBatcher
+    from repro_torch.serve.foldin import FoldInProjector
+    from repro_torch.serve.topk import TopK
+    t_phase = time.perf_counter()
+    art = FactorArtifact.from_result(res)
+    rows = A[:BATCHER_REQUESTS]
+    launches, summary = {}, {}
+    for algo in BATCHER_ALGOS:
+        proj = FoldInProjector(art, algo=algo, iters=100,
+                               max_batch=BATCHER_MAX)
+        proj.warmup()
+        reg = MetricsRegistry()
+        results, lat = {}, []
+        lock = threading.Lock()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with MicroBatcher(proj.project, max_batch=BATCHER_MAX,
+                          max_delay_s=2e-3, registry=reg) as mb:
+            def client(lo):
+                for i in range(lo, BATCHER_REQUESTS, BATCHER_THREADS):
+                    ts = time.perf_counter()
+                    x = mb.submit(rows[i]).result(timeout=120)
+                    with lock:
+                        results[i] = x
+                        lat.append(time.perf_counter() - ts)
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(BATCHER_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        add_launches(launches, counts)
+        got = torch.stack([results[i] for i in range(BATCHER_REQUESTS)])
+        t0 = time.perf_counter()
+        alone = torch.cat([proj.project(rows[i:i + 1])
+                           for i in range(BATCHER_REQUESTS)])
+        torch.cuda.synchronize()
+        t_alone = time.perf_counter() - t0
+        _, err = scaled_err(got, alone)
+        res_diff = (fold_residual(proj, rows, got)
+                    - fold_residual(proj, rows, alone)).abs().max().item()
+        stats = mb.stats
+        h = next(x for x in reg.collect()
+                 if x.name == "serve_batcher_batch_latency_s")
+        lat_ms = np.sort(np.asarray(lat)) * 1e3
+        ok = (len(results) == BATCHER_REQUESTS and err <= SERVE_TOL["codes"]
+              and res_diff <= SERVE_TOL["residual"]
+              and stats.requests == BATCHER_REQUESTS
+              and not any(t.is_alive() for t in threads))
+        summary[algo] = {
+            "wall_s": wall, "mean_batch": stats.mean_batch,
+            "batches": stats.batches,
+            "batch_p50_ms": h.quantile(0.5) * 1e3,
+            "batch_p99_ms": h.quantile(0.99) * 1e3,
+            "request_p50_ms": float(np.percentile(lat_ms, 50)),
+            "request_p99_ms": float(np.percentile(lat_ms, 99)),
+            "err": err, "residual_err": res_diff, "alone_s": t_alone}
+        log(f"[batcher] {algo:4s} {BATCHER_REQUESTS} single-row requests "
+            f"from {BATCHER_THREADS} threads in {wall:.2f} s: {stats.batches} "
+            f"batches, mean batch {stats.mean_batch:.2f} (max "
+            f"{stats.max_batch_seen}); registry batch latency p50 ≤ "
+            f"{h.quantile(0.5) * 1e3:.1f} ms, p99 ≤ "
+            f"{h.quantile(0.99) * 1e3:.1f} ms (bucket bounds); per request "
+            f"p50 {summary[algo]['request_p50_ms']:.2f} ms, p99 "
+            f"{summary[algo]['request_p99_ms']:.2f} ms; launches "
+            f"{ {k: v for k, v in counts.items() if v} }; against each row "
+            f"alone ({t_alone:.2f} s): codes {err:.2e} (tol "
+            f"{SERVE_TOL['codes']:.0e}), rel residual {res_diff:.2e} (tol "
+            f"{SERVE_TOL['residual']:.0e}) {'ok' if ok else 'FAIL'}")
+        require(ok, f"batcher {algo}: {len(results)} results, codes {err}, "
+                    f"residual {res_diff}")
+        del proj, got, alone
+    os.environ[autotune.CACHE_ENV] = os.path.join(ROOT, "build",
+                                                  "autotune.json")
+    autotune.clear(memory_only=False)
+    codes = FoldInProjector(art, algo="mu", max_batch=TOPK_QUERIES).project(
+        A[-TOPK_QUERIES:])
+    tuned = TopK(art, chunk=None)
+    t0 = time.perf_counter()
+    _, ti = tuned.query(codes, k=10)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    dv, di = TopK(art, chunk=4096).query(codes, k=10)
+    entry = next(iter(autotune._load().values()))
+    chosen = entry["params"][0]
+    err, moved = topk_within_ties(tuned, codes, dv, di, ti)
+    ok = err <= 1e-6
+    log(f"[topk] TopK(chunk=None) over {art.W.shape[0]} rows, b = "
+        f"{TOPK_QUERIES}, k = 10: chose chunk {chosen} "
+        f"({entry['chosen_us']:.1f} µs) in a {t_search:.2f} s search; "
+        f"candidates (µs) {entry['times_us']}; against chunk=4096's answer: "
+        f"indices equal {torch.equal(ti, di)} ({moved} moved within ties), "
+        f"score err {err:.2e} (tol 1e-06) {'ok' if ok else 'FAIL'}")
+    require(ok, f"the tuned top-k disagrees with chunk=4096's: {err}")
+    summary["topk"] = {"chosen": chosen, "times_us": entry["times_us"],
+                       "search_s": t_search}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[batcher] phase 21 took {summary['phase_s']:.1f} s")
+    return launches, summary
+
+
+def phase_mesh(A, res) -> tuple[dict, dict]:
+    """Phase 22: ``MeshServer`` on a MESH_SHARDS-shard serve mesh of the
+    one card and on one shard: its codes against the single-device
+    projector's as phase 8b holds a served batch (SERVE_TOL: the codes
+    scaled, both solutions' residuals ||a − xH|| / ||a||; 100 MU sweeps
+    amplify the rounding of a differently summed R), its top-k on those codes against the
+    single-device ``TopK``'s on the same codes (the same indices), and
+    ``retrieve`` against the single-device project → TopK (each returned
+    row scoring the single-device answer's score at its rank within 1e-5:
+    rows whose scores tie within the codes' rounding may trade places),
+    under shard="batch" and "features" and both merges; a served batch's
+    launches (ts_matmul once per shard, the LUC once per shard per sweep);
+    a hot swap under load losing no request; a stale swap refused; the
+    p = MESH_SHARDS and p = 1 batch latency."""
+    import threading
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.artifact import FactorArtifact
+    from repro_torch.serve.foldin import FoldInProjector
+    from repro_torch.serve.mesh import MeshServer, serve_mesh
+    from repro_torch.serve.topk import TopK
+    t_phase = time.perf_counter()
+    dev = A.device
+    art = FactorArtifact.from_result(res)
+    rows = A[-MESH_BATCH:]
+    single = FoldInProjector(art, max_batch=MESH_BATCH, iters=100)
+    codes1 = single.project(rows)
+    tk1 = TopK(art, chunk=4096)
+    s1, i1 = tk1.query(codes1, k=10)
+    launches, summary = {}, {}
+    meshes = {MESH_SHARDS: serve_mesh(MESH_SHARDS, devices=[dev] * MESH_SHARDS),
+              1: serve_mesh(1, devices=[dev])}
+    for p, mesh in meshes.items():
+        for shard in ("batch", "features"):
+            for merge in (("tree", "gather") if p > 1 else ("auto",)):
+                with MeshServer(art, mesh=mesh, shard=shard, merge=merge,
+                                chunk=4096, max_batch=MESH_BATCH,
+                                iters=100) as srv:
+                    torch.cuda.synchronize()
+                    ops.reset_launches()
+                    t0 = time.perf_counter()
+                    codes = srv.project(rows)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    counts = dict(ops.LAUNCHES)
+                    add_launches(launches, counts)
+                    _, cerr = scaled_err(codes, codes1)
+                    res_diff = (fold_residual(single, rows, codes)
+                                - fold_residual(single, rows, codes1)
+                                ).abs().max().item()
+                    qs, qi = srv.query(codes, k=10)
+                    ws, wi = tk1.query(codes, k=10)
+                    _, ri = srv.retrieve(rows, k=10)
+                    qerr, qmoved = topk_within_ties(tk1, codes, ws, wi, qi)
+                    rerr, moved = topk_within_ties(tk1, codes1, s1, i1, ri)
+                    # one shard scans the single-device chunks: the same bits
+                    exact = p > 1 or (torch.equal(qi, wi)
+                                      and torch.equal(qs, ws))
+                    ok = (cerr <= SERVE_TOL["codes"]
+                          and res_diff <= SERVE_TOL["residual"]
+                          and qerr <= 1e-6 and rerr <= 1e-5
+                          and exact and counts["ts_matmul"] == p
+                          and counts["mu_update"] == p * 100)
+                    log(f"[mesh] p={p} shard={shard:8s} merge={merge:6s}: "
+                        f"batch of {MESH_BATCH} in {ms:.2f} ms, launches "
+                        f"{ {k: v for k, v in counts.items() if v} }; codes "
+                        f"vs one device {cerr:.2e} (tol "
+                        f"{SERVE_TOL['codes']:.0e}), rel residual "
+                        f"{res_diff:.2e} (tol {SERVE_TOL['residual']:.0e}); "
+                        f"top-k on the "
+                        f"same codes vs one device: {qmoved} of {qi.numel()} "
+                        f"rows moved within ties, score err {qerr:.2e} (tol "
+                        f"1e-06){', bit-equal' if p == 1 and exact else ''}; "
+                        f"retrieve vs one device's project → TopK: {moved} "
+                        f"moved within ties, score err {rerr:.2e} (tol "
+                        f"1e-05) {'ok' if ok else 'FAIL'}")
+                    require(ok, f"mesh p={p} {shard}/{merge}: codes {cerr}, "
+                                f"residual {res_diff}, "
+                                f"top-k {qerr} (exact {exact}), retrieve "
+                                f"{rerr}, launches {counts}")
+                    summary[f"p{p}_{shard}_{merge}"] = {
+                        "batch_ms": ms, "codes_err": cerr,
+                        "residual_err": res_diff, "topk_err": qerr,
+                        "topk_moved": qmoved, "retrieve_err": rerr,
+                        "retrieve_moved": moved}
+    # the served batch's latency, p shards against one, the same call
+    lat = {}
+    for p, mesh in meshes.items():
+        proj = FoldInProjector(art.shard(mesh), max_batch=MESH_BATCH,
+                               iters=100, mesh=mesh)
+        lat[p] = time_ms(lambda: proj.project(rows), 5)
+    log(f"[mesh] batch of {MESH_BATCH}, mu fold-in, 100 sweeps: p = "
+        f"{MESH_SHARDS} {lat[MESH_SHARDS]:.2f} ms against p = 1 "
+        f"{lat[1]:.2f} ms (CUDA events, 5 calls)")
+    summary["batch_latency_ms"] = lat
+    # a hot swap under load, then a stale swap
+    newer = art.evolve()
+    with MeshServer(art, mesh=meshes[MESH_SHARDS], chunk=4096,
+                    max_batch=MESH_BATCH, iters=20) as srv:
+        stop, errs, served = threading.Event(), [], [0]
+        lock = threading.Lock()
+
+        def client(i):
+            while not stop.is_set():
+                try:
+                    srv.submit(rows[i]).result(timeout=120)
+                except Exception as e:       # noqa: BLE001 — reported below
+                    errs.append(e)
+                    return
+                with lock:
+                    served[0] += 1
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        srv.swap(newer)
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        requests = srv.batcher.stats.requests
+        refused = False
+        try:
+            srv.swap(art)
+        except ValueError:
+            refused = True
+        ok = (not errs and served[0] == requests and srv.version == 1
+              and refused and not any(t.is_alive() for t in threads))
+        log(f"[mesh] hot swap under load: {served[0]} requests served of "
+            f"{requests} submitted, version {srv.version}; stale swap "
+            f"refused {refused} {'ok' if ok else 'FAIL'}")
+        require(ok, f"mesh swap: errors {errs}, served {served[0]} of "
+                    f"{requests}, refused {refused}")
+    summary["swap_served"] = served[0]
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase 22 took {summary['phase_s']:.1f} s")
+    return launches, summary
+
+
 def direct_rel_error(A, W, H, rows: int = 32_768) -> float:
     """||A − WH||_F / ||A||_F without the trace trick, in row chunks (a
     check only: torch.matmul, fp64 sums)."""
@@ -2306,6 +2906,8 @@ def main(argv=None) -> int:
     m, n = args.m, N_FULL
     if m != M_FULL:
         log(f"[data] cut: m = {m} of the Video shape's {M_FULL}")
+    new_phases = {"video_generator": phase_video_generator(dev, args.seed + 1,
+                                                            m, n)}
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     A = lowrank_matrix(gen, m, n, K, noise=NOISE)
@@ -2335,6 +2937,20 @@ def main(argv=None) -> int:
     add_launches(launches, counts)
     del res_bpp
     torch.cuda.empty_cache()
+    counts, new_phases["profile"], res_mu = phase_profile(
+        A, args.seed, (("mu", 3), ("hals", 3)), card)
+    add_launches(launches, counts)
+    new_phases["generators"] = phase_generators_and_checkpoints(
+        dev, args.seed, res_mu)
+    counts, new_phases["batcher"] = phase_batcher(A, res_mu)
+    add_launches(launches, counts)
+    counts, new_phases["mesh"] = phase_mesh(A, res_mu)
+    add_launches(launches, counts)
+    del res_mu
+    torch.cuda.empty_cache()
+    new_s = sum(v["phase_s"] for v in new_phases.values())
+    log(f"[profile] phases 19–22 took {new_s:.1f} s")
+    summary["phases_19_22"] = new_phases
     counts, summary["wide"], wide = phase_wide(A, args.seed, errs)
     add_launches(launches, counts)
     timings["hals_sweep_wide"] = wide.pop("hals_sweep_wide")

@@ -16,5 +16,5 @@ This package imports ``torch`` only — never ``jax``, and nothing of
 ``repro``.
 """
 
-__all__ = ["backends", "checkpoint", "core", "data", "kernels", "serve",
-           "util"]
+__all__ = ["backends", "checkpoint", "core", "data", "kernels", "obs",
+           "serve", "util"]

@@ -1,1 +1,2 @@
-"""Checkpoint payloads: ``arrays.npz`` + ``meta.json`` directories."""
+"""Train checkpoints and checkpoint payloads: ``arrays.npz`` + ``meta.json``
+directories."""

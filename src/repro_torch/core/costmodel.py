@@ -226,8 +226,7 @@ def schedule_cost_terms(schedule: str, m: int, n: int, k: int, *,
                         compression: str | None = None,
                         machine: Machine | None = None) -> dict[str, float]:
     """Per-phase-group predicted seconds — the join key for the measured
-    breakdown of the reference's ``NMFSolver.fit(profile=True)`` (its
-    profiler is not ported yet: ROADMAP.md queue 1, item 11a).
+    breakdown of ``NMFSolver.fit(profile=True)`` (``obs/report.py``).
 
     Returns ``{"gram", "mm", "luc", "comm", "error"}`` where the first four
     partition the model exactly: ``gram + mm + luc + comm ==

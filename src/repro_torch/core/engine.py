@@ -409,20 +409,31 @@ class NMFSolver:
     # -- solver lifecycle ---------------------------------------------------
 
     def fit(self, A, *, seed: int | None = None, H0=None, W0=None,
-            init=None, profile: bool = False) -> NMFResult:
-        if profile:
-            if self.panel_compression is not None:
-                raise ValueError(
-                    "profile=True times the uncompressed wire format; it "
-                    "does not compose with panel_compression (the "
-                    "compressed collectives fuse payload and sidecar into "
-                    "one phase the segmented profiler cannot attribute); "
-                    "the profiler itself is ROADMAP.md queue 1, item 11a")
-            raise NotImplementedError(
-                "fit(profile=True), the segmented phase profiler of "
-                "repro.obs.phases, is not ported yet (ROADMAP.md queue 1, "
-                "item 11a)")
+            init=None, profile: bool = False, tracer=None) -> NMFResult:
+        """Run the solver on A.  ``profile=True`` runs the same iteration
+        as a chain of per-phase segments, synchronised at each boundary
+        (``obs/phases.py``): the unprofiled fit's bits, plus
+        ``extras["phase_times"]``, the mean seconds per iteration of each
+        phase; ``tracer`` (an ``obs.trace.Tracer``) then records a
+        ``phase.<key>`` span per phase and a ``phase.iteration`` span per
+        iteration."""
+        if profile and self.panel_compression is not None:
+            raise ValueError(
+                "profile=True times the uncompressed wire format; it does "
+                "not compose with panel_compression (the compressed "
+                "collectives fuse payload and sidecar into one phase the "
+                "segmented profiler cannot attribute)")
+        if profile and self.panel_dtype is not None:
+            raise ValueError("profile=True does not compose with "
+                             "panel_dtype (same wire-format reason as "
+                             "panel_compression)")
         rs = self.prepare_state(A, seed=seed, H0=H0, W0=W0, init=init)
+        if profile:
+            from repro_torch.obs.phases import run_profiled
+            phase_times = run_profiled(self, rs, tracer=tracer)
+            res = self.collect_result(rs)
+            res.extras["phase_times"] = phase_times
+            return res
         if self.stopping.adaptive:
             self._adaptive_loop(rs, self.stopping)
         else:
@@ -551,23 +562,34 @@ class NMFSolver:
         bits on every rank, so every rank stops at the same iteration (a
         rank that stopped alone would leave the others waiting in a
         collective)."""
-        f32 = np.float32
-        tol = None if crit.tol is None else f32(crit.tol)
-        stall_tol = f32(crit.stall_tol)
-        best, stall, rels = f32(np.inf), 0, []
+        done, rels = _stopping_test(crit), []
         W, Ht, state = rs.W, rs.Ht, rs.state
         for _ in range(crit.max_iters):
             W, Ht, sq, state = self._step(rs, W, Ht, state)
-            rel = f32(_rel_error(sq, rs.normA_sq).item())
-            rels.append(rel)
-            stall = 0 if rel < best - stall_tol else stall + 1
-            best = min(best, rel)
-            if ((tol is not None and rel <= tol)
-                    or (crit.stall_iters and stall >= crit.stall_iters)):
+            rels.append(np.float32(_rel_error(sq, rs.normA_sq).item()))
+            if done(rels[-1]):
                 break
         rs.W, rs.Ht, rs.state = W, Ht, state
         rs.step += len(rels)
         rs.rel_history.append(torch.tensor(rels, dtype=torch.float32))
+
+
+def _stopping_test(crit: StoppingCriterion):
+    """The reference's stopping test, in fp32: a function of each
+    iteration's rel error (in order) that says whether to stop after it."""
+    f32 = np.float32
+    tol = None if crit.tol is None else f32(crit.tol)
+    stall_tol = f32(crit.stall_tol)
+    best, stall = f32(np.inf), 0
+
+    def done(rel) -> bool:
+        nonlocal best, stall
+        stall = 0 if rel < best - stall_tol else stall + 1
+        best = min(best, rel)
+        return bool((tol is not None and rel <= tol)
+                    or (crit.stall_iters and stall >= crit.stall_iters))
+
+    return done
 
 
 def _rel_error(sq: torch.Tensor, normA_sq: torch.Tensor) -> torch.Tensor:

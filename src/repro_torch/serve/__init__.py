@@ -1,2 +1,3 @@
-"""Single-device serving: factor artifacts (``artifact``), fold-in of new
-rows (``foldin``) and top-k retrieval (``topk``)."""
+"""Serving: factor artifacts (``artifact``), fold-in of new rows
+(``foldin``), top-k retrieval (``topk``), request coalescing (``batcher``)
+and mesh-sharded serving (``mesh``)."""

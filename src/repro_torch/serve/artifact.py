@@ -1,5 +1,5 @@
 """Factor artifacts: the on-disk serving format for trained NMF factors.
-Counterpart of ``repro/serve/artifact.py``, single-device.
+Counterpart of ``repro/serve/artifact.py``.
 
 An artifact bundles what a request path needs so nothing is recomputed per
 query: the factors ``W`` (m, k) and ``H`` (k, n) as tensors on one device,
@@ -19,8 +19,16 @@ bfloat16, so bf16 factors are saved as float32.
     proj = FoldInProjector(art)                           # serve.foldin
 
 ``evolve()`` builds the next artifact of a lineage (``version`` bumped,
-``parent_version`` and ``rows_absorbed`` recorded).  Sharded artifacts
-(``shard(mesh)``, ``valid_rows``) are not ported yet.
+``parent_version`` and ``rows_absorbed`` recorded).
+
+**Sharded artifacts:** ``shard(mesh)`` places W row-sharded over a 1-D
+serve mesh (``serve.mesh.serve_mesh``) as a ``serve.mesh.ShardedRows``,
+zero-padded to a multiple of the mesh size, the true row count in
+``valid_rows`` (``shape``, ``save`` and ``transposed`` see the unpadded
+matrix); H and the Gram stay on the mesh's first device, and the sharded
+entry points (``FoldInProjector(mesh=...)``, ``TopK(mesh=...)``) copy them
+to each shard's device once.  ``load(path, mesh=...)`` shards on load,
+from the host: W is never whole on a device.
 """
 
 from __future__ import annotations
@@ -37,10 +45,6 @@ from repro_torch.util.device import resolve_device
 
 FORMAT = "nmf-factor-artifact"
 VERSION = 1
-
-_MESH_TODO = ("sharded artifacts are not ported yet (ROADMAP.md queue 1 "
-              "item 10, mesh serving)")
-
 
 class ProjectionState(NamedTuple):
     """Per-artifact state a fold-in projection reuses across requests."""
@@ -69,14 +73,20 @@ def _factor_device(W, device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class FactorArtifact:
-    """Trained factors + precomputed serving state, on one device.
-    Immutable."""
+    """Trained factors + precomputed serving state.  Immutable.
 
-    W: Any                # (m, k)
+    ``valid_rows`` is set on sharded artifacts, whose W (a ``ShardedRows``
+    over ``mesh``) carries zero pad rows; everywhere the artifact is read
+    as data — ``shape``, ``save``, ``transposed`` — the pad is invisible.
+    """
+
+    W: Any                # (m, k); ShardedRows (m_pad, k) when sharded
     H: Any                # (k, n)
     algo: str
     gram: Any             # (k, k) fp32, HHᵀ
     meta: dict = dataclasses.field(default_factory=dict)
+    valid_rows: int | None = None   # true m when W is sharded; else None
+    mesh: Any = None                # the serve mesh W is sharded over
 
     @property
     def k(self) -> int:
@@ -84,15 +94,12 @@ class FactorArtifact:
 
     @property
     def shape(self) -> tuple[int, int]:
-        return (self.W.shape[0], self.H.shape[1])
+        m = self.W.shape[0] if self.valid_rows is None else self.valid_rows
+        return (m, self.H.shape[1])
 
     @property
     def device(self) -> torch.device:
-        return self.W.device
-
-    @property
-    def valid_rows(self):
-        raise NotImplementedError(_MESH_TODO)
+        return self.H.device
 
     # -- lineage -------------------------------------------------------------
 
@@ -118,7 +125,7 @@ class FactorArtifact:
         the parent version + rows absorbed since it are recorded.  Passing
         only ``W`` reuses the precomputed Gram; passing ``H`` recomputes
         it.  Free-form ``meta`` lands in the child's metadata."""
-        W_new = self.W if W is None else _place(W, self.device)
+        W_new = self._unpadded_W() if W is None else _place(W, self.device)
         if H is None:
             H_new, gram = self.H, self.gram
         else:
@@ -138,6 +145,12 @@ class FactorArtifact:
                   rows_absorbed=int(rows_absorbed))
         return FactorArtifact(W=W_new, H=H_new, algo=self.algo, gram=gram,
                               meta=md)
+
+    def _unpadded_W(self) -> torch.Tensor:
+        """W without its sharding pad, whole on the artifact's device."""
+        if self.valid_rows is None:
+            return self.W
+        return self.W.full(self.device)[:self.valid_rows]
 
     # -- construction -------------------------------------------------------
 
@@ -173,9 +186,13 @@ class FactorArtifact:
 
     def save(self, path: str) -> str:
         """Atomically publish to directory ``path`` (arrays.npz +
-        meta.json)."""
+        meta.json).  A sharded artifact saves its unpadded W: the format
+        on disk knows no mesh."""
         from repro_torch.checkpoint.checkpoint import write_payload
-        arrays = {"W": to_numpy(self.W), "H": to_numpy(self.H),
+        W = (to_numpy(self.W) if self.valid_rows is None else
+             np.concatenate([to_numpy(s) for s in self.W.shards])
+             [:self.valid_rows])
+        arrays = {"W": W, "H": to_numpy(self.H),
                   "gram": to_numpy(self.gram)}
         meta = {"format": FORMAT, "version": VERSION, "algo": self.algo,
                 "k": int(self.k), "shape": list(self.shape),
@@ -185,10 +202,13 @@ class FactorArtifact:
     @classmethod
     def load(cls, path: str, *, device=None, mesh=None) -> "FactorArtifact":
         """Read and verify an artifact (either package's) onto ``device``
-        (None: ``cuda``, as every entry point)."""
+        (None: ``cuda``, as every entry point), or with ``mesh`` sharded
+        over that serve mesh (``shard``), W split from the host."""
         from repro_torch.checkpoint.checkpoint import read_payload
         if mesh is not None:
-            raise NotImplementedError(_MESH_TODO)
+            if device is not None:
+                raise ValueError("pass device= or mesh=, not both")
+            return cls.load(path, device="cpu").shard(mesh)
         device = resolve_device(device)
         arrays, meta = read_payload(path)
         if meta.get("format") != FORMAT:
@@ -203,7 +223,17 @@ class FactorArtifact:
                    meta=dict(meta.get("meta", {})))
 
     def shard(self, mesh) -> "FactorArtifact":
-        raise NotImplementedError(_MESH_TODO)
+        """Place this artifact on a 1-D serve mesh: W row-sharded
+        (``ShardedRows``: zero pad rows up to a multiple of the mesh size,
+        ``valid_rows`` the true count), H and the Gram on the mesh's first
+        device.  Re-sharding a sharded artifact re-pads from its valid
+        rows."""
+        from repro_torch.serve.mesh import ShardedRows, mesh_devices
+        dev0 = mesh_devices(mesh)[0]
+        W = self._unpadded_W()
+        return dataclasses.replace(
+            self, W=ShardedRows.split(W, mesh), H=self.H.to(dev0),
+            gram=self.gram.to(dev0), valid_rows=W.shape[0], mesh=mesh)
 
     # -- serving state ------------------------------------------------------
 
@@ -214,8 +244,9 @@ class FactorArtifact:
     def transposed(self) -> "FactorArtifact":
         """The (Hᵀ, Wᵀ) view: fold COLUMNS of A (e.g. new frames, or new
         documents of a vocab×docs matrix) through the same row fold-in
-        API."""
-        Wt = self.W.T.contiguous()
+        API.  A sharded W loses its pad rows first (they would become
+        phantom columns of the transposed H)."""
+        Wt = self._unpadded_W().T.contiguous()
         return FactorArtifact(W=self.H.T.contiguous(), H=Wt, algo=self.algo,
                               gram=_gram_fp32(Wt),
                               meta=dict(self.meta, transposed=True))

@@ -14,11 +14,14 @@ N host devices in one process, the port runs N processes.
 ``spawn`` starts the ranks through ``torch.multiprocessing.spawn`` with a
 ``file://`` rendezvous in a fresh temporary directory (no TCP port, so
 concurrent jobs on one host never collide).  Under ``torchrun`` each rank
-calls ``init_from_env()`` instead.
+calls ``init_from_env()`` instead, and ``one_rank_group`` makes the
+calling process a one-rank group of its own (the distributed schedules at
+p = 1, without a second process).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 
@@ -86,3 +89,20 @@ def init_from_env() -> torch.device:
                        int(os.environ["LOCAL_RANK"]))
     dist.init_process_group("nccl" if cuda else "gloo", init_method="env://")
     return dev
+
+
+@contextlib.contextmanager
+def one_rank_group(device: torch.device):
+    """The calling process as the only rank of the default process group
+    for the ``with`` block: NCCL on a CUDA ``device``, gloo on the CPU,
+    over an in-memory store; destroyed on exit.  Raises if a default group
+    already exists."""
+    if dist.is_initialized():
+        raise RuntimeError("a default process group already exists")
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

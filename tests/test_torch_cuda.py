@@ -969,3 +969,108 @@ def test_ts_matmul_at_a_video_block_of_the_2x2_grid(cuda_device):
     assert ops.LAUNCHES == _launches(ts_matmul=1, ts_matmul_t=1)
     _assert_scaled(got.cpu(), ref.ts_matmul(A, Ht).cpu(), TOL["f32"])
     _assert_scaled(got_t.cpu(), ref.ts_matmul_t(A, W).cpu(), 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The profiler, the data generators, mesh serving and the autotuned tile
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["mu", "hals", "bpp", "amu", "ahals"])
+@pytest.mark.parametrize("backend", ["cuda", "sorted"])
+def test_profiled_fit_launches_the_unprofiled_kernels(cuda_device, algo,
+                                                      backend):
+    """fit(profile=True) on the card: the unprofiled fit's bits, and its
+    kernels as many times, plus its untimed warm-up pass's (the first
+    iteration's)."""
+    from repro_torch.obs.phases import expected_phases
+    a, w0, h0 = _inputs(21, (2_048, 1_536), (2_048, 16), (16, 1_536))
+    if backend == "sorted":
+        A = blocksparse.blockify(torch.from_numpy(a * (a > 0.9)).to(
+            cuda_device), 1, 1)
+        be = SparseOps(spmm_impl="sorted")
+    else:
+        A, be = torch.from_numpy(a).to(cuda_device), "cuda"
+    def launches(iters, **kw):
+        ops.reset_launches()
+        res = NMFSolver(16, algo=algo, backend=be, max_iters=iters).fit(
+            A, W0=w0 + 0.1, H0=h0, **kw)
+        torch.cuda.synchronize()
+        return res, dict(ops.LAUNCHES)
+
+    plain, want = launches(3)
+    _, first = launches(1)
+    prof, got = launches(3, profile=True)
+    assert got == {name: want[name] + first[name] for name in want}
+    assert sum(want.values()) > 0
+    assert torch.equal(prof.W, plain.W) and torch.equal(prof.H, plain.H)
+    assert torch.equal(prof.rel_errors, plain.rel_errors)
+    assert set(prof.extras["phase_times"]) == set(expected_phases("serial"))
+
+
+@pytest.mark.cuda
+def test_generators_draw_on_the_card(cuda_device):
+    from repro_torch.data import pipeline
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    V = pipeline.video_like_matrix(gen, 3_000, 2_000, rank=8, motion=0.05)
+    bg = pipeline.lowrank_matrix(
+        torch.Generator(device=cuda_device).manual_seed(0), 3_000, 2_000, 8)
+    assert V.is_cuda and abs(float((V != bg).float().mean()) - 0.05) < 1e-3
+    D = pipeline.erdos_renyi_matrix(
+        torch.Generator(device=cuda_device).manual_seed(1), 500, 400, 0.1)
+    S = pipeline.erdos_renyi_bcoo(
+        torch.Generator(device=cuda_device).manual_seed(1), 500, 400, 0.1)
+    assert torch.equal(S.to_dense(), D) and int((D != 0).sum()) == 20_000
+    X = pipeline.bow_like_matrix(
+        torch.Generator(device=cuda_device).manual_seed(2), 1_000, 300)
+    assert X.is_cuda and torch.equal(X, X.round()) and bool((X >= 0).all())
+    a = pipeline.stream_batch(3, 4, rows=8, n=50, k=4, drift=0.1)
+    assert a.is_cuda and torch.equal(a, pipeline.stream_batch(
+        3, 4, rows=8, n=50, k=4, drift=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["mu", "hals"])
+@pytest.mark.parametrize("shard", ["batch", "features"])
+def test_mesh_foldin_runs_the_kernels_on_every_shard(cuda_device, algo,
+                                                     shard):
+    """Four shards on one card: ``ts_matmul`` once per shard, the LUC
+    kernel once per shard per sweep; the codes agree with one device."""
+    from repro_torch.serve.mesh import serve_mesh
+    w, h, r = _inputs(22, (4_000, 16), (16, 3_000), (64, 16))
+    art = FactorArtifact.from_factors(w, h, algo=algo)
+    rows = torch.from_numpy(r @ h).to(cuda_device)
+    single = FoldInProjector(art, max_batch=64, iters=20)
+    want = single.project(rows)
+    mesh = serve_mesh(4, devices=[cuda_device] * 4)
+    proj = FoldInProjector(art, max_batch=64, iters=20, mesh=mesh,
+                           shard=shard)
+    ops.reset_launches()
+    got = proj.project(rows)
+    torch.cuda.synchronize()
+    luc = "mu_update" if algo == "mu" else "hals_sweep"
+    assert ops.LAUNCHES["ts_matmul"] == 4
+    assert ops.LAUNCHES[luc] == 4 * 20
+    _assert_scaled(got.cpu(), want.cpu(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["tree", "gather"])
+def test_mesh_topk_and_autotuned_chunk_on_the_card(cuda_device, merge,
+                                                   tmp_path, monkeypatch):
+    from repro_torch.kernels import autotune
+    from repro_torch.serve.mesh import serve_mesh
+    from repro_torch.serve.topk import topk_rows
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "tune.json"))
+    autotune.clear()
+    w, q = _inputs(23, (40_000, 16), (8, 16))
+    W = torch.from_numpy(w).to(cuda_device)
+    want = topk_rows(W, q, k=10, metric="dot")
+    got = topk_rows(W, q, k=10, metric="dot", chunk=None,
+                    mesh=serve_mesh(4, devices=[cuda_device] * 4),
+                    merge=merge)
+    assert torch.equal(got[1], want[1])
+    entry = next(iter(autotune._load().values()))
+    assert entry["chosen_us"] <= entry["times_us"][str((4096,))]
+    assert entry["chosen_us"] > 0
+    autotune.clear()

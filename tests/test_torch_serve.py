@@ -162,12 +162,11 @@ def test_artifact_rejects_foreign_payload_and_mesh(tmp_path):
     with pytest.raises(ValueError, match="format"):
         FactorArtifact.load(p, device="cpu")
     art = _art()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="serve mesh"):
         art.shard(object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        art.valid_rows
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FactorArtifact.load(p, device="cpu", mesh=object())
+    assert art.valid_rows is None
+    with pytest.raises(TypeError, match="serve mesh"):
+        FactorArtifact.load(art.save(str(tmp_path / "art")), mesh=object())
 
 
 def test_artifact_transposed_and_lineage_match_jax():
@@ -286,10 +285,13 @@ def test_foldin_validation():
         FoldInProjector(H, max_batch=8, buckets=(1, 4), device="cpu")
     with pytest.raises(ValueError, match="1×1"):
         proj.project(blocksparse.blockify(np.ones((4, N), np.float32), 2, 1))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FoldInProjector(H, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FoldInProjector(H, shard="features", device="cpu")
+    with pytest.raises(TypeError, match="serve mesh"):
+        FoldInProjector(H, mesh=object())
+    # without a mesh the shard axis has nothing to split (the reference's
+    # behaviour): the projection is the single-device one
+    feat = FoldInProjector(H, shard="features", device="cpu")
+    np.testing.assert_array_equal(feat.project(rows[:4]).numpy(),
+                                  proj.project(rows[:4]).numpy())
     with pytest.raises(ValueError, match="shard"):
         FoldInProjector(H, shard="rows", device="cpu")
 
@@ -359,9 +361,7 @@ def test_topk_handle_matches_jax_and_validates():
         topk_rows(art.W, codes, k=M + 1)
     with pytest.raises(ValueError, match="metric"):
         topk_rows(art.W, codes, metric="euclid")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        topk_rows(art.W, codes, chunk=None)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="serve mesh"):
         TopK(art, mesh=object())
 
 
