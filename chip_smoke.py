@@ -188,6 +188,31 @@ Phases, each of which raises on failure:
                swap under load losing no request, a stale swap refused;
                the batch latency at p = 4 against p = 1.
 
+ 23. mixed     (after 15g) fault F2: Video's A in bf16 (28.0 GB), the
+               products' bf16 A · fp32 B instantiation against the plain
+               versions (row chunks) at full height, float64 on a
+               65,536-row slice and a ragged shape, and the fp32 kernel on
+               the slice widened (bit for bit); both timed beside the
+               bytes bound; one bpp iteration on ``cuda`` at full height
+               (launches, rel error against the direct value), the same
+               fit at m = 253,344 against ``backend="dense"``, a bf16
+               request batch on fp32 factors;
+ 24. elastic   (after 18, on the fp32 A) ``ElasticRunner``: mu, hals and
+               amu killed at steps 2 and 4 of 6 and resumed, bit-equal to
+               ``fit()``; a corrupt newest payload skipped; int8 faun 1×1
+               and serial → faun 1×1 on a one-rank NCCL group, bit-equal;
+               save blocking, write and restore seconds, the overhead of
+               segments of 2 and 10 over the unsegmented fit;
+ 25. online    (after 23) ``OnlineNMF`` at Video's width: A0 of 262,144
+               ``stream_batch`` rows, an initial hals fit of 10 iterations,
+               12 batches of 4,096 rows on a scripted stream that takes
+               extend, refresh and refactor; launches and ms per action,
+               untouched H columns bit-equal through a refresh, the store
+               never copied; then the same stream under 4 client threads:
+               the same actions, stamps ≤ the latest version, 64 sampled
+               codes against a cold fold on their version, the staleness
+               share; rel_err against a from-scratch fit.
+
 Phase 15g also runs mu and hals with ``panel_compression="int8"`` on its
 2×2 grid, each held by its direct ||A − WH|| / ||A|| against the exact
 grid's, within ``GRID_COMPRESSED_DIRECT_TOL``.
@@ -252,6 +277,12 @@ KERNELS = {
                    "replaces": "src/repro/kernels/hals_sweep.py:53"},
     "hals_sweep_wide": {"source": "src/repro_torch/kernels/csrc/luc.cu",
                         "replaces": "src/repro/kernels/hals_sweep.py:53"},
+    # the products' bf16 A · fp32 B instantiation (phase 23)
+    "ts_matmul_mixed": {"source": "src/repro_torch/kernels/csrc/ts_matmul.cu",
+                        "replaces": "src/repro/kernels/ts_matmul.py:44"},
+    "ts_matmul_t_mixed": {
+        "source": "src/repro_torch/kernels/csrc/ts_matmul.cu",
+        "replaces": "src/repro/kernels/ts_matmul.py:76"},
 }
 # The wide-k phase's rank
 K_WIDE = 160
@@ -380,8 +411,12 @@ def kernel_label(mangled: str) -> str:
             return name
         names = {"13__nv_bfloat16": "bf16", "f": "f32", "Lb1E": "true",
                  "Lb0E": "false"}
-        args = [names.get(a, a[2:-1]) for a in re.findall(
-            r"13__nv_bfloat16|Li\d+E|Lb[01]E|f", rest[1:rest.index("EEv")])]
+        args = []
+        for a in re.findall(r"13__nv_bfloat16|S\d*_|Li\d+E|Lb[01]E|f",
+                            rest[1:rest.index("EEv")]):
+            # S<n>_: a substitution, here the type named before it
+            args.append(args[-1] if a.startswith("S") else
+                        names.get(a, a[2:-1]))
         return f"{name}<{','.join(args)}>"
     return mangled
 
@@ -2864,15 +2899,661 @@ def phase_mesh(A, res) -> tuple[dict, dict]:
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# Phases 23–25: mixed operands (fault F2), the elastic runtime, OnlineNMF
+# ---------------------------------------------------------------------------
+
+#: phase 23: rows of the bf16 bpp fit held against backend="dense" on the
+#: card (the dense backend's fp32 copy of a full-height bf16 A does not fit)
+MIXED_DENSE_M = 253_344
+#: a bf16 fit rounds W and H to bf16 after every step: a different fp32
+#: summation order flips single bf16 roundings (2⁻⁸ relative), so fits are
+#: held at a scaled 1e-2 (factors) and rtol 1e-3 (rel errors), as
+#: tests/test_torch_mixed.py holds them against the JAX package
+BF16_FIT_TOL = {"factors": 1e-2, "rel": 1e-3}
+#: rows of A per chunk of the plain mixed products (a plain version widens
+#: A to fp32: the whole of it would be 56 GB)
+MIXED_CHUNK = 65_536
+MIXED_SERVE_B = 64
+#: phase 24
+ELASTIC_ITERS, ELASTIC_SEG = 6, 2
+ELASTIC_RULES = ("mu", "hals", "amu")
+ELASTIC_OVERHEAD_ITERS, ELASTIC_OVERHEAD_SEGS = 10, (2, 10)
+#: phase 25: the initial store, the batches, the refactor solver's cap
+ONLINE_A0_ROWS, ONLINE_BATCH = 262_144, 4_096
+ONLINE_NOISE = 0.01
+ONLINE_BLOCKS, ONLINE_BLOCK_T, ONLINE_FULL_T = 8, 0.05, 0.5
+#: the scripted stream: stream_batch rows (drift 0); "block": block 3's
+#: columns tripled (excess in one block: a refresh); "spike": one value of
+#: 10 a row in a random column (excess no nonnegative mix of H's rows
+#: explains: a refactorization)
+ONLINE_SCRIPT = ("clean", "clean", "block", "clean", "clean", "spike",
+                 "clean", "clean", "block", "clean", "clean", "clean")
+ONLINE_CLIENTS, ONLINE_SAMPLES = 4, 64
+#: the top-k tile of the served retrievals: phase 21's tuned tile at 1M
+#: rows (chunk=None would tune it again for every published version, on
+#: the request path)
+ONLINE_TOPK_CHUNK = 16_384
+
+
+def mixed_plain(product: str, A, B):
+    """The plain mixed product in row chunks of A (each widened to fp32 by
+    ``kernels.ref``, as the whole of A cannot be)."""
+    import torch
+    from repro_torch.kernels import ref
+    if product == "ts_matmul":
+        return torch.cat([ref.ts_matmul(A[r0:r0 + MIXED_CHUNK], B)
+                          for r0 in range(0, A.shape[0], MIXED_CHUNK)])
+    out = torch.zeros((A.shape[1], B.shape[1]), dtype=torch.float32,
+                      device=A.device)
+    for r0 in range(0, A.shape[0], MIXED_CHUNK):
+        out += ref.ts_matmul_t(A[r0:r0 + MIXED_CHUNK],
+                               B[r0:r0 + MIXED_CHUNK])
+    return out
+
+
+def phase_mixed(dev, seed: int, m: int, n: int, errs: dict
+                ) -> tuple[dict, dict, dict]:
+    """Phase 23 (fault F2): Video's A in bf16 (28.0 GB), made after the fp32
+    A is freed.  ``ts_matmul_t(A bf16, W fp32)`` and ``ts_matmul(A bf16,
+    Hᵀ fp32)`` — the mixed instantiation — against their plain versions (in
+    row chunks) at full height, against float64 on a 65,536-row slice and
+    at a ragged shape, and against the fp32 kernel on the slice widened
+    (bit for bit: a bf16 value's small tf32 part is 0); both timed beside
+    the bytes bound and the chunked plain version.  Then one bpp iteration
+    on ``backend="cuda"`` at full height (launches counted, the rel error
+    against a direct ||A − WH|| / ||A||), the same fit at m = 253,344
+    against ``backend="dense"`` on the card, and a bf16 request batch
+    folded on fp32 factors (the served mixed product)."""
+    import torch
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.data.pipeline import lowrank_matrix
+    from repro_torch.kernels import ops
+    from repro_torch.serve.artifact import FactorArtifact
+    from repro_torch.serve.foldin import FoldInProjector
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A = lowrank_matrix(gen, m, n, K, noise=NOISE, dtype=torch.bfloat16)
+    Ht = torch.rand((n, K), generator=gen, device=dev)
+    W = torch.rand((m, K), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    log(f"[mixed] A {tuple(A.shape)} bf16 = {A.numel() * 2 / 1e9:.2f} GB "
+        f"in {time.perf_counter() - t0:.2f} s; Hᵀ, W fp32")
+    summary, timings, launches = {"checks": {}}, {}, {}
+    gr = torch.Generator(device=dev).manual_seed(seed + 24)
+    rm, rn, rk = RAGGED
+    ragged = (torch.rand((rm, rn), generator=gr, device=dev).to(
+        torch.bfloat16), torch.rand((rn, rk), generator=gr, device=dev),
+        torch.rand((rm, rk), generator=gr, device=dev))
+    rows = min(CHECK_ROWS, m)
+    cases = {
+        "ts_matmul": {"full": (A, Ht), "slice": (A[:rows], Ht),
+                      "ragged": (ragged[0], ragged[1])},
+        "ts_matmul_t": {"full": (A, W), "slice": (A[:rows], W[:rows]),
+                        "ragged": (ragged[0], ragged[2])},
+    }
+    for product, by_case in cases.items():
+        name = f"{product}_mixed"
+        kern = getattr(ops, product)
+        for case, (a, b) in by_case.items():
+            got = kern(a, b)
+            plain = mixed_plain(product, a, b)
+            torch.cuda.synchronize()
+            abs_err, err = scaled_err(got, plain)
+            line = (f"[mixed] {name:17s} {case:6s} {tuple(a.shape)}·"
+                    f"{tuple(b.shape)}: against the plain version {err:.3e}"
+                    f" (tol {TOL['float32']:.0e})")
+            ok = err <= TOL["float32"]
+            rec = {"plain_err": err}
+            if case != "full":
+                a64 = a.double() if product == "ts_matmul" else a.double().T
+                want = a64 @ b.double()
+                f64, p64 = (scaled_err(x.double(), want)[1]
+                            for x in (got, plain))
+                same = torch.equal(got, kern(a.float(), b))
+                line += (f", float64 {f64:.3e} (plain {p64:.3e}; tol "
+                         f"{TOL['float32']:.0e}), the fp32 kernel on A "
+                         f"widened bit for bit: {same}")
+                ok = ok and f64 <= TOL["float32"]
+                rec.update(f64_err=f64, plain_f64_err=p64, widened_equal=same)
+                del a64, want
+            log(line + f" {'ok' if ok else 'FAIL'}")
+            require(ok, f"{name} {case} disagrees: {rec}")
+            e = errs.setdefault(name, [0.0, 0.0])
+            e[0], e[1] = max(e[0], abs_err), max(e[1], err)
+            summary["checks"][f"{name} {case}"] = rec
+            del got, plain
+        torch.cuda.empty_cache()
+    # times at full height, in turns: plain, kernel, kernel, plain
+    f4, f2 = 4, 2
+    for product, b, out_rows in (("ts_matmul", Ht, m), ("ts_matmul_t", W, n)):
+        name = f"{product}_mixed"
+        kern = getattr(ops, product)
+        p1, k1, k2, p2 = (time_ms(f, 3) for f in (
+            lambda: mixed_plain(product, A, b), lambda: kern(A, b),
+            lambda: kern(A, b), lambda: mixed_plain(product, A, b)))
+        rb = m * n * f2 + b.numel() * f4
+        b_ms, b_by = bound_ms(rb, out_rows * K * f4, 2 * 2.0 * m * n * K,
+                              "tf32")
+        timings[name] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None}
+        log(f"[timings] {name:17s} bf16·fp32 kernel {k1:.3f}/{k2:.3f} ms, "
+            f"plain (row chunks) {p1:.3f}/{p2:.3f} ms, bound {b_ms:.3f} ms "
+            f"({b_by}: A's {m * n * f2 / 1e9:.2f} GB at 3.35 TB/s); no single "
+            f"PyTorch call takes a bf16 A beside an fp32 B without an fp32 "
+            f"copy of A; {(rb + out_rows * K * f4) / (min(k1, k2) * 1e-3) / 1e9:.0f}"
+            f" GB/s")
+    del W, Ht, ragged
+    torch.cuda.empty_cache()
+    # one bpp iteration at full height on backend="cuda"
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = NMFSolver(K, algo="bpp", max_iters=1).fit(A, seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    add_launches(launches, counts)
+    want = dict.fromkeys(counts, 0)
+    want.update(gram=3, ts_matmul=1, ts_matmul_t_mixed=1)
+    direct = direct_rel_error(A, res.W, res.H)
+    rel = float(res.rel_errors[-1])
+    ok = (counts == want and res.W.dtype == torch.bfloat16
+          and bool(torch.isfinite(res.W.float()).all()
+                   and torch.isfinite(res.H.float()).all())
+          and abs(direct - rel) <= 1e-2 * direct)
+    log(f"[mixed] bpp 1 iter, bf16 A at {tuple(A.shape)} on cuda: fit "
+        f"{wall:.2f} s incl. set-up; launches "
+        f"{ {k: v for k, v in counts.items() if v} }; rel error {rel:.6f}, "
+        f"direct {direct:.6f} {'ok' if ok else 'FAIL'}")
+    require(ok, f"bf16 bpp on cuda: launches {counts} (want {want}), rel "
+                f"{rel} against direct {direct}")
+    summary["bpp_full"] = {"s": wall, "rel": rel, "direct": direct}
+    # a bf16 request batch on fp32 factors: the served mixed product
+    art = FactorArtifact.from_factors(res.W.float(), res.H.float(),
+                                      algo="mu")
+    proj = FoldInProjector(art, iters=100)
+    req = A[:MIXED_SERVE_B].contiguous()
+    proj.project(req)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    codes = proj.project(req)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(ops.LAUNCHES)
+    add_launches(launches, counts)
+    widened = proj.project(req.float())
+    torch.cuda.synchronize()
+    same = torch.equal(codes, widened)
+    _, err = scaled_err(codes, widened)
+    ok = (counts["ts_matmul_mixed"] == 1 and counts["ts_matmul"] == 0
+          and err <= SERVE_TOL["codes"])
+    log(f"[mixed] a bf16 batch of {MIXED_SERVE_B} rows on fp32 factors (mu, "
+        f"100 sweeps): {ms:.3f} ms, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; codes against the "
+        f"batch widened to fp32: {err:.2e} (tol {SERVE_TOL['codes']:.0e}), "
+        f"bit for bit {same} {'ok' if ok else 'FAIL'}")
+    require(ok, f"bf16 batch on fp32 factors: launches {counts}, err {err}")
+    summary["serve"] = {"ms": ms, "bit_equal_widened": same}
+    del res, art, proj, req, codes, widened
+    torch.cuda.empty_cache()
+    # at m = 253,344: cuda against dense (the dense backend widens A)
+    Ad = A[:MIXED_DENSE_M]
+    fits = {}
+    ops.reset_launches()
+    for backend in ("cuda", "dense"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fits[backend] = NMFSolver(K, algo="bpp", max_iters=1,
+                                  backend=backend).fit(Ad, seed=seed)
+        torch.cuda.synchronize()
+        fits[backend + "_s"] = time.perf_counter() - t0
+    add_launches(launches, ops.LAUNCHES)
+    f_err = max(scaled_err(fits["cuda"].W.float(), fits["dense"].W.float())[1],
+                scaled_err(fits["cuda"].H.float(), fits["dense"].H.float())[1])
+    r_c, r_d = (float(fits[b].rel_errors[-1]) for b in ("cuda", "dense"))
+    ok = (f_err <= BF16_FIT_TOL["factors"]
+          and abs(r_c - r_d) <= BF16_FIT_TOL["rel"] * r_d)
+    log(f"[mixed] bpp 1 iter at m = {MIXED_DENSE_M}: cuda "
+        f"{fits['cuda_s']:.2f} s, dense {fits['dense_s']:.2f} s; factors "
+        f"{f_err:.2e} apart (scaled, tol {BF16_FIT_TOL['factors']:.0e}), rel "
+        f"errors {r_c:.6f} / {r_d:.6f} (rtol {BF16_FIT_TOL['rel']:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"bf16 bpp cuda vs dense at m={MIXED_DENSE_M}: factors "
+                f"{f_err}, rels {r_c} {r_d}")
+    summary["cuda_vs_dense"] = {"factors": f_err, "rel_cuda": r_c,
+                                "rel_dense": r_d}
+    del fits, Ad, A
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mixed] phase 23 took {summary['phase_s']:.1f} s")
+    return launches, summary, timings
+
+
+def _same_fit(res, ref) -> bool:
+    import torch
+    same = (torch.equal(res.W, ref.W) and torch.equal(res.H, ref.H)
+            and torch.equal(res.rel_errors, ref.rel_errors)
+            and res.iters == ref.iters
+            and res.extras["rule_state"] == ref.extras["rule_state"])
+    mine, theirs = (r.extras.get("panel_residuals") for r in (res, ref))
+    if mine is not None or theirs is not None:
+        same = same and mine.keys() == theirs.keys() and all(
+            torch.equal(mine[key], theirs[key]) for key in mine)
+    return same
+
+
+def _elastic_solver(algo: str, iters: int, **kw):
+    from repro_torch.core import rules
+    from repro_torch.core.engine import NMFSolver
+    rule = (type(rules.get_rule(algo))(inner_iters=4, delta=0.01)
+            if algo in ("amu", "ahals") else algo)
+    return NMFSolver(K, algo=rule, max_iters=iters, **kw)
+
+
+def _kill_resume(A, seed: int, mk, ckdir: str, crashes, fault=None):
+    """The elastic run of ``mk()`` killed after the checkpoint at each step
+    of ``crashes`` (``fault``: a storage fault at the last one too) and
+    resumed, to its end; returns (result, the last runner, the restore
+    seconds of each resume)."""
+    from repro_torch.elastic import ElasticRunner, FaultPlan, InjectedFault
+    from repro_torch.obs.trace import Tracer
+    import shutil
+    shutil.rmtree(ckdir, ignore_errors=True)
+    restores = []
+    for i, at in enumerate(crashes):
+        extra = ({f"{fault}_at": (at,)} if fault and i == len(crashes) - 1
+                 else {})
+        tracer = Tracer()
+        try:
+            ElasticRunner(mk(), ckdir, segment_iters=ELASTIC_SEG,
+                          fault_plan=FaultPlan(crash_at=(at,), **extra),
+                          tracer=tracer).fit(A, seed=seed)
+        except InjectedFault:
+            pass
+        else:
+            raise RuntimeError(f"chip_smoke: no crash at step {at}")
+        restores += [s.dur_us / 1e6 for s in tracer.spans()
+                     if s.name == "elastic.restore"]
+    tracer = Tracer()
+    runner = ElasticRunner(mk(), ckdir, segment_iters=ELASTIC_SEG,
+                           tracer=tracer)
+    res = runner.fit(A)
+    restores += [s.dur_us / 1e6 for s in tracer.spans()
+                 if s.name == "elastic.restore"]
+    return res, runner, restores
+
+
+def phase_elastic(A, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 24, on the fp32 Video A (k = 50, ``backend="cuda"``): for mu,
+    hals and amu (inner_iters=4, delta=0.01: a rule state), 6 iterations in
+    segments of 2, killed after the checkpoints at steps 2 and 4 and
+    resumed to the end: W, H, the rel errors and the rule state bit-equal
+    to ``fit(max_iters=6)`` from the same seed.  mu again with the newest
+    payload corrupted (the run resumes from the one before it, bit-equal).
+    int8 faun mu on a one-rank NCCL group killed at step 2 and resumed:
+    bit-equal, residuals restored.  A serial checkpoint resumed as faun
+    1×1 on NCCL: bit-equal to serial's uninterrupted fit.  Then the
+    per-save blocking seconds, write and restore seconds, and the
+    segmented run's overhead over the unsegmented fit at segment_iters 2
+    and 10."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core.faun import make_faun_grid
+    from repro_torch.elastic import ElasticRunner, remesh_solver
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "elastic")
+    launches, summary = {}, {"resume": {}}
+    refs = {}
+    for algo in ELASTIC_RULES:
+        ops.reset_launches()
+        refs[algo] = ref = _elastic_solver(algo, ELASTIC_ITERS).fit(
+            A, seed=seed)
+        add_launches(launches, ops.LAUNCHES)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, runner, restores = _kill_resume(
+            A, seed, lambda: _elastic_solver(algo, ELASTIC_ITERS),
+            os.path.join(root, algo), (2, 4))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        add_launches(launches, ops.LAUNCHES)
+        same = _same_fit(res, ref)
+        log(f"[elastic] {algo:4s} {ELASTIC_ITERS} iters in segments of "
+            f"{ELASTIC_SEG}, killed at steps 2 and 4, resumed twice in "
+            f"{wall:.2f} s (restores {', '.join(f'{r:.2f}' for r in restores)}"
+            f" s): bit-equal to fit() {same}; rule state "
+            f"{res.extras['rule_state']} {'ok' if same else 'FAIL'}")
+        require(same, f"elastic {algo}: the resumed run is not bit-equal")
+        summary["resume"][algo] = {"s": wall, "restore_s": restores}
+        del res
+    # the newest payload corrupted: the run resumes from the one before it
+    res, runner, _ = _kill_resume(
+        A, seed, lambda: _elastic_solver("mu", ELASTIC_ITERS),
+        os.path.join(root, "corrupt"), (4,), fault="corrupt")
+    same = _same_fit(res, refs["mu"]) and runner.corrupt_payloads.value == 1
+    log(f"[elastic] mu with the step-4 payload corrupted: skipped "
+        f"({int(runner.corrupt_payloads.value)} corrupt), resumed from step 2, "
+        f"bit-equal {same} {'ok' if same else 'FAIL'}")
+    require(same, "elastic: the corrupt-payload fallback is not bit-equal")
+    del res
+    with nccl_group():
+        grid = make_faun_grid(1, 1)
+        mk = lambda: _elastic_solver("mu", ELASTIC_ITERS, schedule="faun",
+                                     grid=grid, panel_compression="int8")
+        ref8 = mk().fit(A, seed=seed)
+        res, runner, _ = _kill_resume(A, seed, mk, os.path.join(root, "int8"),
+                                      (2,))
+        arrays, _ = ckpt.read_payload(os.path.join(root, "int8",
+                                                   "step_00000002"))
+        stacked = {k: tuple(v.shape) for k, v in arrays.items()
+                   if k.startswith("res::")}
+        same = (_same_fit(res, ref8) and runner.residual_reinits.value == 0
+                and stacked["res::gather_w"] == (1, 1, A.shape[0], K))
+        log(f"[elastic] int8 faun 1×1 mu on NCCL killed at step 2: residuals "
+            f"restored in the stacked layout {stacked['res::rs_w']} "
+            f"(rs_w), bit-equal with its residuals {same} "
+            f"{'ok' if same else 'FAIL'}")
+        require(same, "elastic: int8 faun resume is not bit-equal")
+        del res, ref8
+        # a serial checkpoint resumed as faun 1×1
+        d = os.path.join(root, "remesh")
+        shutil.rmtree(d, ignore_errors=True)
+        serial = _elastic_solver("mu", ELASTIC_ITERS)
+        ElasticRunner(serial, d, segment_iters=ELASTIC_SEG).fit(
+            A, seed=seed, max_iters=2)
+        runner = ElasticRunner(remesh_solver(serial, schedule="faun",
+                                             grid=grid), d,
+                               segment_iters=ELASTIC_SEG)
+        res = runner.fit(A)
+        same = (_same_fit(res, refs["mu"]) and runner.restores.value == 1)
+        log(f"[elastic] a serial checkpoint (step 2) resumed as faun 1×1 on "
+            f"NCCL: bit-equal to serial's uninterrupted fit {same} "
+            f"{'ok' if same else 'FAIL'}")
+        require(same, "elastic: serial → faun 1×1 is not bit-equal")
+        del res
+    del refs
+    # the price of checkpointing: the unsegmented fit against the runner
+    over = {}
+    solver = _elastic_solver("mu", ELASTIC_OVERHEAD_ITERS)
+    solver.fit(A, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.fit(A, seed=seed)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for seg in ELASTIC_OVERHEAD_SEGS:
+        d = os.path.join(root, f"overhead_{seg}")
+        shutil.rmtree(d, ignore_errors=True)
+        runner = ElasticRunner(solver, d, segment_iters=seg, keep_last=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.fit(A, seed=seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        h = runner.ckpt_block_seconds
+        over[seg] = {"s": wall, "plain_s": plain_s,
+                     "overhead": wall / plain_s - 1, "saves": h.count,
+                     "block_s_mean": h.sum / max(h.count, 1),
+                     "block_s_max": h.max}
+        log(f"[elastic] mu {ELASTIC_OVERHEAD_ITERS} iters, segment_iters "
+            f"{seg}: {wall:.3f} s against fit() {plain_s:.3f} s "
+            f"(+{100 * (wall / plain_s - 1):.1f} %); {h.count} saves "
+            f"blocking {h.sum / max(h.count, 1) * 1e3:.1f} ms each on "
+            f"average, {h.max * 1e3:.1f} at most (host copy + joining the "
+            f"previous write)")
+    # one synchronous save, and a restore, timed on their own
+    d = os.path.join(root, "sync")
+    shutil.rmtree(d, ignore_errors=True)
+    from repro_torch.elastic import FaultPlan
+    runner = ElasticRunner(solver, d, segment_iters=2, fault_plan=FaultPlan())
+    runner.fit(A, seed=seed, max_iters=2)
+    write_s = runner.ckpt_block_seconds.sum
+    size = os.path.getsize(os.path.join(d, "step_00000002", "arrays.npz"))
+    from repro_torch.obs.trace import Tracer
+    tracer = Tracer()
+    ElasticRunner(solver, d, segment_iters=2, tracer=tracer).fit(
+        A, max_iters=2)
+    restore_s = [s.dur_us / 1e6 for s in tracer.spans()
+                 if s.name == "elastic.restore"][0]
+    log(f"[elastic] a synchronous save (host copy + write of "
+        f"{size / 1e6:.1f} MB) {write_s:.3f} s; a restore (scan, read, "
+        f"verify, prepare) {restore_s:.3f} s; card {card}")
+    summary.update(overhead=over, write_s=write_s, restore_s=restore_s,
+                   mb=size / 1e6)
+    shutil.rmtree(root, ignore_errors=True)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[elastic] phase 24 took {summary['phase_s']:.1f} s")
+    return launches, summary
+
+
+def online_batch(seed: int, step: int, kind: str):
+    """One batch of phase 25's scripted stream (ONLINE_SCRIPT)."""
+    import torch
+    from repro_torch.data.pipeline import stream_batch
+    from repro_torch.online import block_slices
+    rows = stream_batch(seed, step, rows=ONLINE_BATCH, n=N_FULL, k=K,
+                        noise=ONLINE_NOISE)
+    if kind == "block":
+        sl = block_slices(N_FULL, ONLINE_BLOCKS)[3]
+        rows[:, sl] *= 3.0
+    elif kind == "spike":
+        gen = torch.Generator(device=rows.device).manual_seed(seed + step)
+        cols = torch.randint(0, N_FULL, (ONLINE_BATCH,), generator=gen,
+                             device=rows.device)
+        rows.zero_()
+        rows[torch.arange(ONLINE_BATCH, device=rows.device), cols] = 10.0
+    return rows
+
+
+def _online_service(A0, res):
+    from repro_torch.online import OnlineNMF
+    return OnlineNMF(A0, k=K, algo="hals", result=res,
+                     max_batch=ONLINE_BATCH, chunk=ONLINE_TOPK_CHUNK,
+                     n_blocks=ONLINE_BLOCKS,
+                     block_threshold=ONLINE_BLOCK_T,
+                     full_threshold=ONLINE_FULL_T)
+
+
+def phase_online(dev, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 25: ``OnlineNMF`` at Video's width (n = 13,824, k = 50, hals on
+    ``cuda``): A0 = 262,144 rows of ``stream_batch`` (14.5 GB), the initial
+    fit 10 iterations, passed as ``result=``; then 12 batches of 4,096 rows
+    (ONLINE_SCRIPT).  A first, quiet pass counts each ingest's launches and
+    times it (synchronised), holds a refresh's untouched H columns bit-equal
+    and checks the store is never copied; a second pass ingests the same
+    stream while four client threads ``submit`` single rows and
+    ``retrieve`` top-10: it must take the same actions, every stamp ≤ the
+    latest version, and 64 sampled responses must match a cold fold on
+    their version's artifact (SERVE_TOL).  The staleness share, the peak
+    memory over the final store, and rel_err against a from-scratch fit
+    of the accumulated matrix are reported."""
+    import random
+    import threading
+    import torch
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.data.pipeline import stream_batch
+    from repro_torch.kernels import ops
+    from repro_torch.online import block_slices
+    from repro_torch.serve.foldin import FoldInProjector
+    t_phase = time.perf_counter()
+    A0 = stream_batch(seed, 0, rows=ONLINE_A0_ROWS, n=N_FULL, k=K,
+                      noise=ONLINE_NOISE)
+    launches, summary = {}, {}
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = NMFSolver(K, algo="hals", max_iters=10).fit(A0, seed=seed)
+    torch.cuda.synchronize()
+    add_launches(launches, ops.LAUNCHES)
+    log(f"[online] A0 {tuple(A0.shape)} fp32 "
+        f"{A0.numel() * 4 / 1e9:.2f} GB; initial hals fit, 10 iters, "
+        f"{time.perf_counter() - t0:.2f} s, rel error "
+        f"{float(res.rel_errors[-1]):.6f}")
+    batches = [online_batch(seed, step, kind)
+               for step, kind in enumerate(ONLINE_SCRIPT, 1)]
+    # the quiet pass: launches, times and the store
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    svc = _online_service(A0, res)
+    buf = svc.A.data_ptr()
+    per_action, actions = {}, []
+    for rows in batches:
+        H_before = svc.H
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = svc.ingest(rows)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in ops.LAUNCHES.items() if v}
+        add_launches(launches, counts)
+        actions.append(rep.action)
+        row = per_action.setdefault(rep.action, {"ms": [], "launches": []})
+        row["ms"].append(ms)
+        row["launches"].append(counts)
+        if rep.action == "refresh":
+            mask = torch.zeros(N_FULL, dtype=torch.bool, device=dev)
+            for b in rep.touched_blocks:
+                mask[block_slices(N_FULL, ONLINE_BLOCKS)[b]] = True
+            kept = torch.equal(svc.H[:, ~mask], H_before[:, ~mask])
+            require(kept, "online: a refresh changed untouched H columns")
+            row.setdefault("touched", []).append(rep.touched_blocks)
+        log(f"[online] v{rep.version} {rep.action:8s} {ms:9.2f} ms, drift "
+            f"{rep.drift_total:.4f}, touched {rep.touched_blocks}, launches "
+            f"{counts}")
+        del H_before
+    peak = torch.cuda.max_memory_allocated()
+    # the store's buffers, and the phase's own inputs: A0 and the batches
+    store = svc._A.buf.numel() * 4 + svc._W.buf.numel() * 4
+    inputs = (A0.numel() + sum(b.numel() for b in batches)) * 4
+    same_buf = svc.A.data_ptr() == buf
+    require(same_buf, "online: an ingest copied the store")
+    require({"extend", "refresh", "refactor"} <= set(actions),
+            f"online: the stream took only {set(actions)}")
+    online_rel = svc.rel_err()
+    m_total = svc.shape[0]
+    A_acc = svc.A
+    scratch = NMFSolver(K, algo="hals", max_iters=30, tol=1e-5).fit(
+        A_acc, seed=seed)
+    scratch_rel = direct_rel_error(A_acc, scratch.W, scratch.H)
+    ok = online_rel <= 2.0 * scratch_rel + 0.05
+    log(f"[online] quiet pass: actions {actions}; store {m_total} rows, "
+        f"never copied ({same_buf}); peak {peak / 1e9:.2f} GB: the store's "
+        f"buffers {store / 1e9:.2f}, A0 and the batches {inputs / 1e9:.2f}, "
+        f"{(peak - store - inputs) / 1e9:.2f} GB over them; rel_err "
+        f"{online_rel:.6f} against a from-scratch fit (hals, 30 iters, tol "
+        f"1e-5) {scratch_rel:.6f} {'ok' if ok else 'FAIL'}")
+    require(ok, f"online rel_err {online_rel} outside 2 × {scratch_rel} + "
+                f"0.05")
+    summary["quiet"] = {"actions": actions, "per_action": {
+        a: {"ms": v["ms"], "launches": v["launches"]}
+        for a, v in per_action.items()},
+        "peak_gb": peak / 1e9, "store_gb": store / 1e9,
+        "peak_over_store_and_inputs_gb": (peak - store - inputs) / 1e9,
+        "rel_err": online_rel,
+        "scratch_rel_err": scratch_rel}
+    svc.close()
+    del svc, scratch, A_acc
+    torch.cuda.empty_cache()
+    # the live pass: four clients during ingest
+    probes = stream_batch(seed, 99, rows=ONLINE_CLIENTS, n=N_FULL, k=K,
+                          noise=ONLINE_NOISE)
+    svc = _online_service(A0, res)
+    del A0
+    arts = {0: svc.artifact}
+    results, errors = [], []
+    stop = threading.Event()
+    lock = threading.Lock()
+
+    def client(tid):
+        try:
+            futs, got = [], []
+            while not stop.is_set():
+                futs.append(svc.submit(probes[tid]))
+                if len(futs) % 8 == 0:
+                    _, idx, v = svc.retrieve(probes[tid:tid + 1], k=10)
+                    got.append(("retrieve", v, tuple(idx.shape)))
+                time.sleep(0.002)
+            got += [("submit", f.result(timeout=120)) for f in futs]
+            with lock:
+                results.extend((tid,) + g for g in got)
+        except Exception as e:                    # reported after join
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,), daemon=True)
+               for t in range(ONLINE_CLIENTS)]
+    for t in threads:
+        t.start()
+    live = []
+    t0 = time.perf_counter()
+    try:
+        for rows in batches:
+            rep = svc.ingest(rows)
+            live.append(rep.action)
+            arts[rep.version] = svc.artifact
+    finally:                     # a failed ingest must not leave them running
+        stop.set()
+        ingest_s = time.perf_counter() - t0
+        for t in threads:
+            t.join(timeout=300)
+    require(not any(t.is_alive() for t in threads), "online: a client hung")
+    require(not errors, f"online: a client failed: {errors[:1]}")
+    latest = svc.version
+    staleness = svc.stats.staleness
+    served = [r for r in results if r[1] == "submit"]
+    stamps_ok = all(r[2].version <= latest for r in served) and all(
+        r[2] <= latest and r[3] == (1, 10) for r in results
+        if r[1] == "retrieve")
+    random.seed(seed)
+    sample = random.sample(served, min(ONLINE_SAMPLES, len(served)))
+    cold = {}
+    worst = 0.0
+    for tid, _, r in sample:
+        if r.version not in cold:
+            cold[r.version] = FoldInProjector(arts[r.version]).project(
+                probes)
+        worst = max(worst, scaled_err(r.code.to(dev),
+                                      cold[r.version][tid])[1])
+    ok = (live == actions and stamps_ok and worst <= SERVE_TOL["codes"]
+          and len(served) >= ONLINE_SAMPLES)
+    log(f"[online] live pass: {len(served)} single-row responses and "
+        f"{len(results) - len(served)} top-10 retrievals from "
+        f"{ONLINE_CLIENTS} clients during {ingest_s:.2f} s of ingest; the "
+        f"same actions {live == actions}; every stamp ≤ v{latest} "
+        f"{stamps_ok}; staleness {staleness:.4f}; {len(sample)} sampled "
+        f"codes against a cold fold on their version: {worst:.2e} (tol "
+        f"{SERVE_TOL['codes']:.0e}) {'ok' if ok else 'FAIL'}; card {card}")
+    require(ok, f"online live pass: actions {live} vs {actions}, stamps "
+                f"{stamps_ok}, codes {worst}, served {len(served)}")
+    summary["live"] = {"served": len(served), "staleness": staleness,
+                       "ingest_s": ingest_s, "codes_err": worst,
+                       "versions": sorted({r[2].version for r in served})}
+    svc.close()
+    del svc, arts, cold, res, batches
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"[online] phase 25 took {summary['phase_s']:.1f} s")
+    return launches, summary
+
+
 def direct_rel_error(A, W, H, rows: int = 32_768) -> float:
     """||A − WH||_F / ||A||_F without the trace trick, in row chunks (a
-    check only: torch.matmul, fp64 sums)."""
+    check only: torch.matmul in fp32 whatever A's and the factors' dtype,
+    fp64 sums)."""
     import torch
     num = torch.zeros((), dtype=torch.float64, device=A.device)
     den = torch.zeros((), dtype=torch.float64, device=A.device)
     for r0 in range(0, A.shape[0], rows):
-        blk = A[r0:r0 + rows]
-        diff = blk - W[r0:r0 + rows] @ H
+        blk = A[r0:r0 + rows].float()
+        diff = blk - W[r0:r0 + rows].float() @ H.float()
         num += (diff * diff).sum(dtype=torch.float64)
         den += (blk * blk).sum(dtype=torch.float64)
     return float((num / den).sqrt())
@@ -2978,10 +3659,20 @@ def main(argv=None) -> int:
     add_launches(launches, counts)
     added_s = time.perf_counter() - t_new
     log(f"[gspmd] phases 17 and 18 on Video took {added_s:.1f} s")
+    counts, summary["elastic"] = phase_elastic(A, args.seed, card)
+    add_launches(launches, counts)
     del A
     torch.cuda.empty_cache()
     summary["grid"] = phase_grid(dev, args.seed, (("mu", 3), ("hals", 3)),
                                  card, compressed=(("mu", 3), ("hals", 3)))
+    counts, summary["mixed"], mixed = phase_mixed(dev, args.seed, m, n, errs)
+    add_launches(launches, counts)
+    timings.update(mixed)
+    counts, summary["online"] = phase_online(dev, args.seed, card)
+    add_launches(launches, counts)
+    late_s = sum(summary[key]["phase_s"]
+                 for key in ("elastic", "mixed", "online"))
+    log(f"[online] phases 23–25 took {late_s:.1f} s")
 
     if args.sparse_dim != SPARSE_DIM:
         log(f"[data] cut: sparse m = n = {args.sparse_dim} of {SPARSE_DIM}")

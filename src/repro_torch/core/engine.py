@@ -82,8 +82,9 @@ class RunState:
     ``collect_result`` packs it into an ``NMFResult``.  Segments of a fixed
     run compose bit-identically to one longer run (the same step on the
     same state).  ``rel_history`` holds one rel-error tensor per segment;
-    ``seed`` is the seed the factors were drawn from (None for explicit or
-    warm-started factors).
+    ``m``, ``n`` and ``dtype`` are the global problem's (what a snapshot
+    records); ``seed`` is the seed the factors were drawn from (None for
+    explicit or warm-started factors).
     """
 
     A: Any
@@ -91,6 +92,9 @@ class RunState:
     Ht: Any
     normA_sq: Any
     state: Any
+    m: int = 0
+    n: int = 0
+    dtype: Any = torch.float32
     step: int = 0
     rel_history: list = field(default_factory=list)
     seed: int | None = None
@@ -138,6 +142,43 @@ class _SerialSchedule:
     def collect(self, W, Ht):
         return W, Ht.T.contiguous()
 
+    # -- the error-feedback residuals in the reference's stacked layout ------
+
+    #: whether the schedule runs on torch.distributed ranks, and the
+    #: process group every one of them is in (None: the default group)
+    distributed = False
+    group = None
+    #: leading dimensions of a residual in the reference's stacked global
+    #: layout (faun (pr, pc), naive (p,); gspmd's are global-shaped)
+    res_stack: tuple = ()
+
+    def res_index(self) -> tuple:
+        """This rank's index into ``res_stack``."""
+        return ()
+
+    def gather_residuals(self, res: dict) -> dict:
+        """The residuals of every rank, stacked as the reference lays them
+        out (every rank calls it: a collective on the grid)."""
+        return res
+
+    def place_residuals(self, res: dict) -> dict:
+        """The carry form of stacked global residuals (arrays or tensors):
+        this rank's, fp32 on the solver's device (sliced before they
+        move)."""
+        idx = self.res_index()
+        return {key: to_torch(v[idx] if idx else v, device=self.s.device,
+                              dtype=torch.float32).contiguous()
+                for key, v in res.items()}
+
+
+def _stack_gather(res: dict, group, stack: tuple) -> dict:
+    """Each rank's residual panels ((rows, k) leaves) gathered in rank order
+    and stacked to ``stack`` + the panel's shape (one all-gather a
+    leaf)."""
+    from repro_torch.core.faun import allgather_panel
+    return {key: allgather_panel(v, group).reshape(stack + tuple(v.shape))
+            for key, v in res.items()}
+
 
 def _rows(X, block: int, p: int):
     """Rows block·r/p … (block+1)·r/p of X, contiguous."""
@@ -166,7 +207,14 @@ class _FaunSchedule(_SerialSchedule):
             raise TypeError(f"grid must be a FaunGrid (make_faun_grid), got "
                             f"{type(grid).__name__}")
         self.s, self.grid = solver, grid
-        self.grid_shape = (grid.pr, grid.pc)
+        self.grid_shape = self.res_stack = (grid.pr, grid.pc)
+        self.distributed, self.group = True, grid.world
+
+    def res_index(self) -> tuple:
+        return (self.grid.i, self.grid.j)
+
+    def gather_residuals(self, res: dict) -> dict:
+        return _stack_gather(res, self.grid.world, self.res_stack)
 
     def prepare_A(self, A):
         from repro_torch.core.faun import all_reduce
@@ -224,6 +272,14 @@ class _NaiveSchedule(_SerialSchedule):
         if self.rank < 0:
             raise ValueError("this rank is not in the naive schedule's group")
         self.grid_shape = (self.p, 1)
+        self.res_stack = (self.p,)
+        self.distributed = True
+
+    def res_index(self) -> tuple:
+        return (self.rank,)
+
+    def gather_residuals(self, res: dict) -> dict:
+        return _stack_gather(res, self.group, self.res_stack)
 
     def prepare_A(self, A):
         """A twice: the row block for A·Hᵀ and the column block for AᵀW,
@@ -476,7 +532,7 @@ class NMFSolver:
         del W0, H0
         state0 = self._schedule.init_carry(m, n, dtype)
         return RunState(A=A, W=W, Ht=Ht, normA_sq=normA_sq, state=state0,
-                        seed=used_seed)
+                        m=m, n=n, dtype=dtype, seed=used_seed)
 
     def run_segment(self, rs: RunState, iters: int) -> RunState:
         """Advance ``iters`` fixed iterations in place.  The rel errors stay
@@ -492,6 +548,73 @@ class NMFSolver:
         rs.step += iters
         rs.rel_history.append(rels.cpu())
         return rs
+
+    def restore_carry(self, rs: RunState, *, rule_state=None,
+                      residuals=None) -> bool:
+        """Install a checkpointed loop carry into a freshly prepared state,
+        laid out for THIS solver's schedule.  The rule state is the same on
+        every rank and restores onto any layout (each leaf in the template
+        leaf's type: a tensor's dtype and device, or a Python number).
+        ``residuals`` are the panel residuals in the reference's stacked
+        global layout (``res_stack`` + each rank's shape; gspmd's
+        global-shaped): when their keys and shapes match this schedule's
+        they are placed onto it, each rank taking its own; otherwise (a
+        pr × pc remesh, a schedule change) they stay at their zero
+        initialisation and the call returns False, so callers can count
+        the re-initialisation.  A stateless rule refuses a checkpointed
+        rule state."""
+        compressed = self.compress is not None
+        t_rule, t_res = self._schedule.split_state(rs.state)
+        new_rule = t_rule
+        if rule_state is not None:
+            if t_rule is None:
+                raise ValueError(
+                    f"checkpoint carries rule state but rule "
+                    f"{self.algo!r} is stateless — refusing to resume a "
+                    f"different algorithm's carry")
+            from repro_torch.checkpoint.checkpoint import _map_leaves
+            saved = dict(_flat_leaves(rule_state))
+            new_rule = _map_leaves(
+                t_rule, lambda path, t: _like(t, saved["::".join(path)]))
+        kept = True
+        if compressed:
+            new_res = rs.state[1]           # the carry's zero residuals
+            if residuals is not None:
+                stack = self._schedule.res_stack
+                want = {key: stack + tuple(v.shape)
+                        for key, v in t_res.items()}
+                got = {key: tuple(np.shape(v)) for key, v in
+                       residuals.items()}
+                if got == want:
+                    new_res = self._schedule.place_residuals(
+                        {key: residuals[key] for key in want})
+                else:
+                    kept = False
+            rs.state = (new_rule, new_res)
+        else:
+            rs.state = new_rule
+        return kept
+
+    def config_fingerprint(self) -> dict:
+        """JSON-able identity of this solver, recorded in every elastic
+        checkpoint, with the reference's keys.  ``k`` and ``rule`` are
+        ENFORCED on resume; the layout fields (schedule, backend, grid,
+        compression) are provenance and may change (the remesh path).
+        ``rule`` is the reference's string for the same rule: the class's
+        module and qualname, then ``cache_key()``'s parameters — a built-in
+        rule of the port names the JAX package's module
+        (``repro.core.rules``), so the two packages' checkpoints resume in
+        each other; a user's own rule names its own module."""
+        ck = self._base_rule.cache_key()
+        module = _REFERENCE_MODULES.get(ck[0].__module__, ck[0].__module__)
+        return {"k": self.k,
+                "rule": f"{module}.{ck[0].__qualname__}{ck[1:]!r}",
+                "algo": self.algo,
+                "schedule": self.schedule, "backend": self.backend,
+                "grid": list(self._schedule.grid_shape),
+                "panel_compression": self.panel_compression,
+                "panel_dtype": (None if self.panel_dtype is None
+                                else str(self.panel_dtype))}
 
     def collect_result(self, rs: RunState) -> NMFResult:
         """Pack a run state into an ``NMFResult``: H back to (k, n), the
@@ -572,6 +695,28 @@ class NMFSolver:
         rs.W, rs.Ht, rs.state = W, Ht, state
         rs.step += len(rels)
         rs.rel_history.append(torch.tensor(rels, dtype=torch.float32))
+
+
+#: the reference's module of each of the port's rule modules, named in
+#: ``config_fingerprint``'s rule string (a string only: nothing imports it)
+_REFERENCE_MODULES = {"repro_torch.core.rules": "repro.core.rules"}
+
+
+def _flat_leaves(tree):
+    """("::"-joined key path, leaf) pairs of a nested container, in the
+    checkpoint module's order."""
+    from repro_torch.checkpoint.checkpoint import _map_leaves
+    out = []
+    _map_leaves(tree, lambda path, x: out.append(("::".join(path), x)))
+    return out
+
+
+def _like(template, value):
+    """``value`` (an array or number) in the type of ``template``: a tensor
+    of its dtype on its device, or the same Python number type."""
+    if isinstance(template, torch.Tensor):
+        return to_torch(value, device=template.device, dtype=template.dtype)
+    return type(template)(np.asarray(value).item())
 
 
 def _stopping_test(crit: StoppingCriterion):

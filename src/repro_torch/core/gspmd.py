@@ -63,6 +63,7 @@ import torch
 from repro_torch.core import rules as _rules
 from repro_torch.core.engine import _SerialSchedule
 from repro_torch.core.error import sq_error_from_products
+from repro_torch.util.convert import to_torch
 
 
 def is_dtensor(x) -> bool:
@@ -221,6 +222,7 @@ class GspmdSchedule(_SerialSchedule):
                             f"{type(grid).__name__}")
         self.s, self.grid = solver, grid
         self.grid_shape = (grid.pr, grid.pc)
+        self.distributed, self.group = True, grid.world
         # A global-view program leaves the parallelism to DTensor, which
         # cannot split hand-written kernels: the backend swaps in its
         # partitionable variant, and one without any runs on one rank
@@ -283,7 +285,15 @@ class GspmdSchedule(_SerialSchedule):
         return self._rows(W0), self._rows(H0.T)
 
     def init_residuals(self, m, n):
-        res = init_gspmd_residuals(m, n, self.s.k, device=self.s.device)
+        return self.place_residuals(
+            init_gspmd_residuals(m, n, self.s.k, device=self.s.device))
+
+    def place_residuals(self, res):
+        """Global-shaped residuals (arrays or tensors) in the carry's form:
+        fp32 on the solver's device; on the mesh the Grams' replicated, the
+        panels' row-sharded as the factors."""
+        res = {key: to_torch(v, device=self.s.device, dtype=torch.float32)
+               for key, v in res.items()}
         if self.mesh is None:
             return res
         from torch.distributed.tensor import Replicate

@@ -24,7 +24,10 @@ reference's cost hooks for ``core/costmodel.py``:
     extra_latency_words(k, p)  (messages, wire words) of any collectives the
                                rule itself performs (HALS's column norms)
 
-``cache_key`` is not ported: the port has no compiled-run cache.
+``cache_key()`` is the rule's identity: the class and its parameters, in
+the reference's fields and order.  The port has no compiled-run cache; the
+engine's ``config_fingerprint`` names the rule by it, and the elastic
+runtime refuses to resume a checkpoint under another one.
 
 The MU update and the HALS H-step sweep run through the hand-written LUC
 kernels (``kernels.ops.mu_update`` / ``hals_sweep``) with
@@ -249,6 +252,12 @@ class UpdateRule:
             return 0.0, 0.0
         return k * math.log2(p), 2.0 * k * (p - 1) / p
 
+    def cache_key(self):
+        """Hashable identity: the concrete class object, then the
+        parameters that change what the rule computes (the reference's
+        fields, in its order).  Stateful configuration must extend it."""
+        return (type(self), self.name, self.l1, self.l2)
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}(name={self.name!r})"
 
@@ -333,6 +342,9 @@ class BPPRule(UpdateRule):
         # per column per pivot round (empirically 1–3 rounds dominate).
         per_col = bpp_iters * (k ** 3 / 3.0 + 2.0 * k * k)
         return (m + n) * per_col
+
+    def cache_key(self):
+        return super().cache_key() + (self.max_iter,)
 
 
 class _AcceleratedRule(UpdateRule):
@@ -474,6 +486,11 @@ class _AcceleratedRule(UpdateRule):
             msgs += (bw + bh) / 2.0 * math.log2(p)
             words += (bw + bh) * (p - 1) / p
         return msgs, words
+
+    def cache_key(self):
+        return super().cache_key() + (self.inner_iters, self.delta,
+                                      self.fold_delta, self._budget_w,
+                                      self._budget_h)
 
 
 class AcceleratedMURule(_AcceleratedRule, MURule):

@@ -41,10 +41,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: columns per block of hals_sweep's column-blocked sweep).
 SIGNATURES = {
     "ts_matmul": {
-        "ts_matmul_launch": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                             _I64, _I, _I, _P],
-        "ts_matmul_t_launch": [_I, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                               _I64, _I, _I, _P],
+        "ts_matmul_launch": [_I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
+                             _I64, _I64, _I, _I, _P],
+        "ts_matmul_t_launch": [_I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
+                               _I64, _I64, _I, _I, _P],
         "ts_matmul_tiles": [_IP],
     },
     "gram": {

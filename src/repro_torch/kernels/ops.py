@@ -5,10 +5,12 @@
 
 Each wrapper
 
-  * checks device, dtype (fp32 or bf16, the same for every float operand of
-    the products; int32 indices; for the LUC kernels X fp32 or bf16, G fp32
-    and R fp32 or X's dtype, as the update rules hand them over), shape and
-    contiguity, and raises on anything its kernel does not take;
+  * checks device, dtype (fp32 or bf16: for ``gram`` and the SpMMs the same
+    for every float operand; for ``ts_matmul`` / ``ts_matmul_t`` A's and B's
+    independently, as the reference's products promote mixed operands; int32
+    indices; for the LUC kernels X fp32 or bf16, G fp32 and R fp32 or X's
+    dtype, as the update rules hand them over), shape and contiguity, and
+    raises on anything its kernel does not take;
   * on a CPU tensor, runs the plain PyTorch version (``kernels/ref.py``);
   * on a CUDA tensor, allocates the output (and the slab or bucket scratch)
     with ``torch.empty``, launches the kernel on the current stream, raises if
@@ -30,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -38,10 +41,11 @@ from repro_torch.kernels import build, ref
 
 #: launches of each kernel on CUDA tensors since the last reset
 #: (``hals_sweep_wide``: hals_sweep's row-per-warp kernel, for the k that
-#: no plan of its column-blocked kernel fits)
-LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0, "spmm": 0,
-            "spmm_sorted": 0, "mu_update": 0, "hals_sweep": 0,
-            "hals_sweep_wide": 0}
+#: no plan of its column-blocked kernel fits; ``ts_matmul_mixed`` /
+#: ``ts_matmul_t_mixed``: the products' bf16 A · fp32 B instantiation)
+LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0, "ts_matmul_mixed": 0,
+            "ts_matmul_t_mixed": 0, "spmm": 0, "spmm_sorted": 0,
+            "mu_update": 0, "hals_sweep": 0, "hals_sweep_wide": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SLABS = 65535                         # gridDim.z limit
@@ -116,8 +120,10 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(name: str, *tensors: torch.Tensor) -> bool:
-    """Validate operands; True when they lie on a CUDA device."""
+def _check(name: str, *tensors: torch.Tensor, mixed: bool = False) -> bool:
+    """Validate operands; True when they lie on a CUDA device.  ``mixed``:
+    each operand's dtype is fp32 or bf16 on its own (the dense products);
+    otherwise all share one."""
     if not all(isinstance(t, torch.Tensor) and t.layout == torch.strided
                for t in tensors):
         raise TypeError(f"{name}: operands must be dense tensors")
@@ -126,14 +132,15 @@ def _check(name: str, *tensors: torch.Tensor) -> bool:
         if t.dim() != 2 or 0 in t.shape:
             raise ValueError(f"{name}: operands must be non-empty 2-D, got "
                              f"shape {tuple(t.shape)}")
-        if t.device != dev or t.dtype != dt:
+        if t.device != dev or (t.dtype != dt and not mixed):
             raise ValueError(f"{name}: operands must share device and dtype, "
                              f"got {dev}/{dt} and {t.device}/{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous (pass Hᵀ "
                              f"as a contiguous (n, k) tensor, not H.T)")
-    if dt not in _DTYPE_CODES:
-        raise TypeError(f"{name}: dtype must be float32 or bfloat16, got {dt}")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name}: dtype must be float32 or bfloat16, got "
+                            f"{t.dtype}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: tensors must be on cpu or cuda, got {dev}")
     return dev.type == "cuda"
@@ -309,17 +316,26 @@ def tiles(name: str) -> tuple[int, ...]:
     return _TILES[name]
 
 
+#: serialises the entry points across threads: gram's and the LUC kernels'
+#: set a kernel's dynamic shared-memory limit for the call's plan and then
+#: launch it (ctypes releases the GIL in between), so two threads launching
+#: one kernel on two plans would otherwise race — a served batch beside an
+#: ingest's fold gets "too many resources requested for launch"
+_LAUNCH_LOCK = threading.Lock()
+
+
 def _launch(lib, fn: str, name: str, device: torch.device, *args,
             count: bool = True) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+        with _LAUNCH_LOCK:
+            rc = getattr(lib, fn)(*args, stream)
+            if rc == 0 and count:
+                LAUNCHES[name] += 1
     if rc != 0:
         msg = lib.cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA kernel launch failed with error "
                            f"{rc} ({msg})")
-    if count:
-        LAUNCHES[name] += 1
 
 
 def _ptr(t: torch.Tensor | None):
@@ -366,14 +382,31 @@ def gram_parts(X: torch.Tensor):
     return (lambda: launch(1, False)), (lambda: launch(2, False))
 
 
+def _product_b(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """B as the product kernel takes it beside A: as it is, or, for an fp32
+    A with a bf16 B, widened to fp32 (exact; B is the tall-skinny n × k or
+    m × k factor, never the data matrix), so fp32 · fp32 runs.  A itself is
+    never widened: a bf16 A with an fp32 B runs the mixed instantiation."""
+    if A.dtype == torch.float32 and B.dtype == torch.bfloat16:
+        return B.float()
+    return B
+
+
+def _product_name(name: str, A: torch.Tensor, B: torch.Tensor) -> str:
+    """The LAUNCHES key of a product launch: ``<name>_mixed`` for bf16 A ·
+    fp32 B."""
+    return name if A.dtype == B.dtype else f"{name}_mixed"
+
+
 def ts_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """A @ B (fp32, (m, k)) for A (m, n), B (n, k)."""
-    on_cuda = _check("ts_matmul", A, B)
+    """A @ B (fp32, (m, k)) for A (m, n), B (n, k), each fp32 or bf16."""
+    on_cuda = _check("ts_matmul", A, B, mixed=True)
     if A.shape[1] != B.shape[0]:
         raise ValueError(f"ts_matmul: shapes {tuple(A.shape)} and "
                          f"{tuple(B.shape)} do not chain")
     if not on_cuda:
         return ref.ts_matmul(A, B)
+    B = _product_b(A, B)
     m, n = A.shape
     k = B.shape[1]
     tiles("ts_matmul")
@@ -382,21 +415,24 @@ def ts_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     C = torch.empty((m, k), dtype=torch.float32, device=A.device)
     scratch = (torch.empty((slabs, m, k), dtype=torch.float32,
                            device=A.device) if slabs > 1 else None)
-    _launch(build.load("ts_matmul"), "ts_matmul_launch", "ts_matmul",
-            A.device, _DTYPE_CODES[A.dtype], A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), _ptr(scratch), m, n, k, slab, slabs, int(a16),
-            int(copy_width(B.data_ptr(), 16) == 16))
+    _launch(build.load("ts_matmul"), "ts_matmul_launch",
+            _product_name("ts_matmul", A, B), A.device,
+            _DTYPE_CODES[A.dtype], _DTYPE_CODES[B.dtype], A.data_ptr(),
+            B.data_ptr(), C.data_ptr(), _ptr(scratch), m, n, k, slab, slabs,
+            int(a16), int(copy_width(B.data_ptr(), 16) == 16))
     return C
 
 
 def ts_matmul_t(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Aᵀ @ B (fp32, (n, k)) for A (m, n), B (m, k), without transposing A."""
-    on_cuda = _check("ts_matmul_t", A, B)
+    """Aᵀ @ B (fp32, (n, k)) for A (m, n), B (m, k), each fp32 or bf16,
+    without transposing A."""
+    on_cuda = _check("ts_matmul_t", A, B, mixed=True)
     if A.shape[0] != B.shape[0]:
         raise ValueError(f"ts_matmul_t: shapes {tuple(A.shape)} and "
                          f"{tuple(B.shape)} do not share rows")
     if not on_cuda:
         return ref.ts_matmul_t(A, B)
+    B = _product_b(A, B)
     m, n = A.shape
     k = B.shape[1]
     tiles("ts_matmul")
@@ -405,10 +441,11 @@ def ts_matmul_t(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     Y = torch.empty((n, k), dtype=torch.float32, device=A.device)
     scratch = (torch.empty((slabs, n, k), dtype=torch.float32,
                            device=A.device) if slabs > 1 else None)
-    _launch(build.load("ts_matmul"), "ts_matmul_t_launch", "ts_matmul_t",
-            A.device, _DTYPE_CODES[A.dtype], A.data_ptr(), B.data_ptr(),
-            Y.data_ptr(), _ptr(scratch), m, n, k, slab, slabs, int(a16),
-            int(copy_width(B.data_ptr(), 16) == 16))
+    _launch(build.load("ts_matmul"), "ts_matmul_t_launch",
+            _product_name("ts_matmul_t", A, B), A.device,
+            _DTYPE_CODES[A.dtype], _DTYPE_CODES[B.dtype], A.data_ptr(),
+            B.data_ptr(), Y.data_ptr(), _ptr(scratch), m, n, k, slab, slabs,
+            int(a16), int(copy_width(B.data_ptr(), 16) == 16))
     return Y
 
 

@@ -218,7 +218,9 @@ class FoldInProjector:
         """Latent codes (b, k) fp32 for a (b, n) batch of rows — a dense
         tensor or numpy array, a sparse COO tensor, or a 1×1-grid
         BlockCOO — on the projector's device (a sharded projector's: its
-        mesh's first device).  Values are cast to the factor's dtype.
+        mesh's first device).  Values are cast to the factor's dtype,
+        except that a bf16 batch stays bf16 beside fp32 factors (the
+        product takes mixed operands, as the reference's does).
 
         Instrumented: rows into ``serve_foldin_rows_total``, the call's
         host seconds into ``serve_foldin_project_latency_s``, a
@@ -248,7 +250,10 @@ class FoldInProjector:
             idx = rows._indices()
             return self._project_triplets(rows.shape, rows._values(),
                                           idx[0], idx[1])
-        rows = to_torch(rows, device=self.device, dtype=self.Ht.dtype)
+        keep = (isinstance(rows, torch.Tensor)
+                and rows.dtype == torch.bfloat16)
+        rows = to_torch(rows, device=self.device,
+                        dtype=rows.dtype if keep else self.Ht.dtype)
         if rows.dim() == 1:
             rows = rows[None, :]
         b, n = rows.shape

@@ -1074,3 +1074,142 @@ def test_mesh_topk_and_autotuned_chunk_on_the_card(cuda_device, merge,
     assert entry["chosen_us"] <= entry["times_us"][str((4096,))]
     assert entry["chosen_us"] > 0
     autotune.clear()
+
+
+# The mixed instantiation (bf16 A · fp32 B) of both products: the shapes
+# above, every axis ragged and A's rows off the 16-byte grid, and an A past
+# 2³¹ elements (offsets that need 64 bits).
+MIXED_SHAPES = SHAPES + [(4_099, 1_001, 1), (20_001, 1_003, 128),
+                         (1_003, 301, 64)]
+
+
+def _mixed_pair(product, A, B):
+    """(mixed launch, plain version, float64 product) of ``product``."""
+    got = getattr(ops, product)(A, B)
+    plain = getattr(ref, product)(A, B)
+    A64 = A.double() if product == "ts_matmul" else A.double().T
+    return got, plain, A64 @ B.double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", MIXED_SHAPES)
+@pytest.mark.parametrize("product", ["ts_matmul", "ts_matmul_t"])
+def test_mixed_products_match_plain_and_float64(cuda_device, product, m, n,
+                                                k):
+    a, b = _inputs(31, (m, n), (n, k) if product == "ts_matmul" else (m, k))
+    A = torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+    B = torch.from_numpy(b).to(cuda_device)
+    for A_, B_ in ((A, B), (_off_grid(A), _off_grid(B))):
+        ops.reset_launches()
+        got, plain, f64 = _mixed_pair(product, A_, B_)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES == _launches(**{f"{product}_mixed": 1})
+        assert got.dtype == torch.float32 and A_.dtype == torch.bfloat16
+        _assert_scaled(got.cpu(), plain.cpu(), TOL["f32"])
+        _assert_scaled(got.cpu(), f64.cpu(), TOL["f32"])
+        # a bf16 value's small tf32 part is 0: the mixed kernel's sums are
+        # the fp32 kernel's on A widened to fp32, bit for bit
+        assert torch.equal(got, getattr(ops, product)(A_.float(), B_))
+        assert torch.equal(got, getattr(ops, product)(A_, B_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product", ["ts_matmul", "ts_matmul_t"])
+def test_mixed_products_past_2_31_offsets(cuda_device, product):
+    m, n, k = 163_840, 13_824, 50                 # 2.26e9 elements of A
+    A, B = _device_inputs(cuda_device, 32, (m, n),
+                          (n, k) if product == "ts_matmul" else (m, k))
+    A16 = A.to(torch.bfloat16)
+    del A
+    got = getattr(ops, product)(A16, B)
+    torch.cuda.synchronize()
+    rows = 16_384
+    if product == "ts_matmul":
+        for r0 in range(0, m, rows):
+            blk = A16[r0:r0 + rows]
+            _assert_scaled(got[r0:r0 + rows].cpu(),
+                           (blk.double() @ B.double()).cpu(), TOL["f32"])
+    else:
+        want = torch.zeros((n, k), dtype=torch.float64, device=cuda_device)
+        for r0 in range(0, m, rows):
+            want += A16[r0:r0 + rows].double().T @ B[r0:r0 + rows].double()
+        _assert_scaled(got.cpu(), want.cpu(), TOL["f32"])
+    assert torch.equal(got, getattr(ops, product)(A16.float(), B))
+
+
+@pytest.mark.cuda
+def test_bf16_bpp_fit_on_the_card_runs_the_mixed_kernel(cuda_device):
+    rng = np.random.default_rng(33)
+    m, n, k = 96, 64, 6
+    A = (rng.uniform(size=(m, k)) @ rng.uniform(size=(k, n))
+         + 0.5 * rng.uniform(size=(m, n))).astype(np.float32)
+    W0 = rng.uniform(0.1, 1.0, size=(m, k)).astype(np.float32)
+    H0 = rng.uniform(size=(k, n)).astype(np.float32)
+    A, W0, H0 = (torch.from_numpy(x).to(torch.bfloat16) for x in (A, W0, H0))
+    ops.reset_launches()
+    res = NMFSolver(k, algo="bpp", max_iters=3).fit(
+        A.to(cuda_device), W0=W0, H0=H0)
+    # the H-step's AᵀW meets BPP's fp32 W: the mixed instantiation
+    assert ops.LAUNCHES == _launches(gram=9, ts_matmul=3, ts_matmul_t_mixed=3)
+    assert res.W.dtype == torch.bfloat16
+    cpu = NMFSolver(k, algo="bpp", device="cpu", max_iters=3).fit(
+        A, W0=W0, H0=H0)
+    np.testing.assert_allclose(res.rel_errors.numpy(),
+                               cpu.rel_errors.numpy(), rtol=1e-3)
+    _assert_scaled(res.W.float().cpu(), cpu.W.float(), 1e-2)
+    _assert_scaled(res.H.float().cpu(), cpu.H.float(), 1e-2)
+
+
+@pytest.mark.cuda
+def test_bf16_batch_on_fp32_factors_runs_the_mixed_kernel(cuda_device):
+    rng = np.random.default_rng(34)
+    W = rng.uniform(size=(200, 6)).astype(np.float32)
+    H = rng.uniform(size=(6, 300)).astype(np.float32)
+    rows = torch.from_numpy((rng.uniform(size=(7, 6)) @ H).astype(np.float32))
+    art = FactorArtifact.from_factors(W, H, algo="mu", device=cuda_device)
+    proj = FoldInProjector(art, iters=20)
+    ops.reset_launches()
+    got = proj.project(rows.to(cuda_device, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ts_matmul_mixed"] == 1
+    assert ops.LAUNCHES["ts_matmul"] == 0
+    # the same batch widened to fp32 gives the same codes
+    assert torch.equal(got, proj.project(
+        rows.to(torch.bfloat16).float().to(cuda_device)))
+
+
+@pytest.mark.cuda
+def test_concurrent_launches_of_one_kernel_on_two_plans(cuda_device):
+    """hals_sweep's entry point sets the kernel's shared-memory limit for
+    the call's plan, then launches: two threads folding batches of other
+    sizes (a served request beside an ingest) launch it on two plans at
+    once, and every launch must go through (and count)."""
+    import threading
+    gen = torch.Generator(device=cuda_device).manual_seed(35)
+    G = torch.rand((50, 50), generator=gen, device=cuda_device)
+    G = G @ G.T + 50 * torch.eye(50, device=cuda_device)
+    cases = [(torch.rand((r, 50), generator=gen, device=cuda_device),
+              torch.rand((r, 50), generator=gen, device=cuda_device))
+             for r in (4_096, 3)]
+    alone = [ops.hals_sweep(X, G, R) for X, R in cases]
+    errors = []
+
+    def body(i):
+        try:
+            X, R = cases[i]
+            for _ in range(200):
+                got = ops.hals_sweep(X, G, R)
+            torch.cuda.synchronize()
+            assert torch.equal(got, alone[i])      # each plan's own bits
+        except Exception as e:                    # reported after join
+            errors.append(e)
+
+    ops.reset_launches()
+    threads = [threading.Thread(target=body, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert ops.LAUNCHES["hals_sweep"] == 400

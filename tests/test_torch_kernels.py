@@ -95,7 +95,11 @@ def test_cpu_path_counts_no_launch():
     G = ops.gram(B)
     ops.mu_update(B, G, B)
     ops.hals_sweep(B, G, B)
+    A16 = torch.from_numpy(a).to(torch.bfloat16)
+    ops.ts_matmul(A16, B)                            # bf16 A · fp32 B
+    ops.ts_matmul_t(A16, torch.from_numpy(a[:, :5].copy()))
     assert ops.LAUNCHES == {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0,
+                            "ts_matmul_mixed": 0, "ts_matmul_t_mixed": 0,
                             "spmm": 0, "spmm_sorted": 0, "mu_update": 0,
                             "hals_sweep": 0, "hals_sweep_wide": 0}
 
@@ -108,8 +112,9 @@ def test_wrappers_reject_what_kernels_do_not_take(case):
     with pytest.raises((ValueError, TypeError)):
         if case == "strided":
             ops.ts_matmul(A.T, torch.zeros(16, 4))       # the H.T view
-        elif case == "dtype_mix":
-            ops.ts_matmul(A, B.to(torch.bfloat16))
+        elif case == "dtype_mix":     # SpMM values and B in two dtypes
+            idx = torch.arange(4, dtype=torch.int32)
+            ops.spmm(torch.ones(4, dtype=torch.bfloat16), idx, idx, B, 16)
         elif case == "f16":
             ops.gram(B.half())
         elif case == "shape":
