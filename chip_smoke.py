@@ -23,7 +23,11 @@ group:
   factors of the dense mu fit, ``MicroBatcher``, the autotuned ``TopK``
   and ``MeshServer`` on a four-shard serve mesh of the card;
 * the profiler (``fit(profile=True)``), the data generators and the
-  checkpoints, at the same widths.
+  checkpoints, at the same widths;
+* the model stack (``repro_torch.models``): the ten architectures at their
+  reduced configs, smollm-135m served at full size and four more at full
+  width, depth cut; then the NMF compression of smollm-135m's FFN
+  weights (``aunmf.fit``, bpp) through the dense kernels.
 
 Phases, each of which raises on failure:
 
@@ -212,6 +216,35 @@ Phases, each of which raises on failure:
                the same actions, stamps ≤ the latest version, 64 sampled
                codes against a cold fold on their version, the staleness
                share; rel_err against a from-scratch fit.
+ 26. models    (after 25) the model stack: every architecture's reduced
+               config in fp32 (MoE at no-drop capacity), its forward
+               finite and shaped (B, S, V), prefill 32 tokens and 3 decode
+               steps each within ``DECODE_TOL`` of the forward; the
+               reduced recurrentgemma at prompts 40 and 70, longer than
+               its window and no multiple of it;
+ 27. serve     smollm-135m at full size in bf16, the port's seeded init:
+               prefill 8 × 2,048 (the blockwise path), 32 greedy steps,
+               twice (the same tokens): prefill ms and tokens/s, decode ms
+               per step, peak memory above the weights; then
+               recurrentgemma-9b, dbrx-132b, xlstm-125m and whisper-base
+               at full width, depth cut as ``FULL_WIDTH_CUTS`` says (each
+               cut printed), prefill and 4 decode steps.  Each is held
+               against the fp32 forward of its own weights (dense
+               attention): the bf16 decode within ``BF16_FACTOR`` × the
+               bf16 forward's own distance, the fp32 twin's decode within
+               ``DECODE_TOL``, its prefill within ``BLOCKWISE_TOL``;
+ 28. compress  examples/weight_compress.py on the port: |wi_up| of phase
+               27's smollm-135m (17,280 × 1,536), bpp for 30 iterations
+               through ``aunmf.fit`` on ``backend="cuda"`` at k = 4, 8,
+               16, 32: rel_err, the compression ratio, ms/iter, exactly 3
+               gram, 1 ts_matmul and 1 ts_matmul_t launches an iteration,
+               rel_err within ``WC_REL_TOL`` of ``backend="dense"`` from
+               the same W0/H0; the three kernels against their plain
+               versions at k = 4 and 32, and timed at 32.
+
+Last of all (the profiler doubles the host cost of every later launch,
+tools/probe_profiler_overhead.py), one smollm-135m decode step of phase
+27's shape is profiled: its kernels and device milliseconds.
 
 Phase 15g also runs mu and hals with ``panel_compression="int8"`` on its
 2×2 grid, each held by its direct ||A − WH|| / ||A|| against the exact
@@ -3544,6 +3577,481 @@ def phase_online(dev, seed: int, card: str) -> tuple[dict, dict]:
     return launches, summary
 
 
+# ----------------------------------------------------------------------------
+# Phases 26–28: the model stack (models/, configs/) and NMF weight compression
+
+#: a decode step against the full forward at the same position, max |Δ| over
+#: max |forward| (tests/test_decode.py's bound), in fp32
+DECODE_TOL = 5e-3
+#: the fp32 blockwise prefill (chunked online softmax) against the dense
+#: forward of the same weights, scaled
+BLOCKWISE_TOL = 1e-4
+#: bf16 serving: a decode step's logits no further from the fp32 forward of
+#: the same weights (upcast) than BF16_FACTOR times the bf16 forward's own
+#: distance from it, measured in the same run
+BF16_FACTOR = 3.0
+SMOLLM = ("smollm_135m", 8, 2_048, 32)          # arch, batch, prompt, steps
+CHECK_STEPS = 4
+#: full width, depth cut: arch -> (config overrides, batch, prompt, encoder
+#: frames, why).  attn_chunk is cut where the prompt (or Whisper's 1,500
+#: frames) is no multiple of 1,024: the blockwise path needs S % chunk = 0.
+FULL_WIDTH_CUTS = {
+    "recurrentgemma_9b": ({"n_layers": 3, "attn_chunk": 500}, 1, 2_500, 0,
+                          "one pattern group (rglru, rglru, local_attn) of "
+                          "38 layers; attn_chunk 1,024 -> 500 (2,500 = 5 x "
+                          "500); prompt 2,500 > W = 2,048, no multiple"),
+    "dbrx_132b": ({"n_layers": 2}, 1, 512, 0,
+                  "2 of 40 layers; no-drop capacity (capacity_factor 16)"),
+    "xlstm_125m": ({}, 2, 1_000, 0,
+                   "none (all 12 layers); prompt 1,000 against mlstm_chunk "
+                   "256 (ragged)"),
+    "whisper_base": ({"attn_chunk": 500}, 2, 64, 1_500,
+                     "none (6 + 6 layers); attn_chunk 1,024 -> 500 for "
+                     "1,500 encoder frames (3 x 500)"),
+}
+WC_KS = (4, 8, 16, 32)
+WC_ITERS = 30
+WC_CHECK_KS = (4, 32)
+#: the weight-compression fit on cuda against backend="dense" from the same
+#: W0/H0: last rel error, relative
+WC_REL_TOL = 1e-3
+
+
+def nodrop(cfg):
+    """No-drop capacity (tests/test_decode.py's ``_nodrop``): a full
+    forward and incremental decode then route every token alike."""
+    if cfg.moe.n_experts:
+        return cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    return cfg
+
+
+def model_batch(cfg, gen, B: int, S: int, enc_len: int = 0) -> dict:
+    """Random tokens and modality stubs on the generator's device."""
+    import torch
+    dev = gen.device
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=dev)}
+    if cfg.is_encdec:
+        batch["enc_frames"] = 0.1 * torch.randn(
+            (B, enc_len or S, cfg.d_model), generator=gen, device=dev)
+    if cfg.frontend == "image_patches":
+        batch["img_embeds"] = 0.1 * torch.randn(
+            (B, cfg.num_image_tokens, cfg.d_model), generator=gen,
+            device=dev)
+    return batch
+
+
+def twin(model, cfg):
+    """An ``LM`` of ``cfg`` on ``model``'s weights: shared where the dtype
+    is the same, upcast copies otherwise."""
+    import torch
+    from repro_torch.models.lm import LM
+    dt = cfg.param_dtype_torch
+    params = torch.utils._pytree.tree_map(
+        lambda t: t if t.dtype == torch.float32 else t.to(dt), model.tree())
+    return LM(cfg, device=model.device, params=params)
+
+
+def fp32_cfg(cfg):
+    return cfg.replace(param_dtype="float32", dtype="float32")
+
+
+def decode_errs(model, batch, P: int, full) -> list:
+    """Prefill P tokens, decode the rest of ``batch`` one by one, each
+    step's logits against ``full`` (B, S, V) at its position, scaled."""
+    import torch
+    S = batch["tokens"].shape[1]
+    pre = dict(batch, tokens=batch["tokens"][:, :P])
+    _, caches = model.prefill(pre, kv_len=S)
+    errs = []
+    for t in range(P, S):
+        dl, caches = model.decode_step(caches, batch["tokens"][:, t:t + 1], t)
+        errs.append(scaled_err(dl[:, 0], full[:, t])[1])
+    del caches
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_models_reduced(dev, seed: int) -> dict:
+    """Phase 26: every architecture at its reduced config, fp32."""
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.models.lm import LM
+    t_phase = time.perf_counter()
+    out = {}
+    for arch in cb.ARCH_IDS:
+        cfg = nodrop(cb.get_reduced_config(arch))
+        model = LM(cfg, device=dev, seed=seed)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        B, P = 2, 32
+        batch = model_batch(cfg, gen, B, P + 3)
+        with torch.inference_mode():
+            full, _, aux = model(batch)
+        require(tuple(full.shape) == (B, P + 3, cfg.vocab)
+                and full.dtype == torch.float32,
+                f"{arch}: logits {tuple(full.shape)} {full.dtype}")
+        require(bool(torch.isfinite(full).all()) and bool(torch.isfinite(aux)),
+                f"{arch}: the forward is not finite")
+        errs = decode_errs(model, batch, P, full)
+        ok = max(errs) <= DECODE_TOL
+        log(f"[models] {arch:20s} reduced fp32: logits {tuple(full.shape)} "
+            f"finite, {model.param_count()} params; decode vs forward "
+            f"{', '.join(f'{e:.2e}' for e in errs)} (tol {DECODE_TOL:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"{arch}: decode disagrees with the full forward")
+        out[arch] = {"params": model.param_count(), "decode_err": max(errs)}
+    # the reference's ring caveat: a local-attention prompt longer than the
+    # window and no multiple of it
+    cfg = cb.get_reduced_config("recurrentgemma_9b")
+    model = LM(cfg, device=dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for P in (40, 70):
+        batch = model_batch(cfg, gen, 2, P + 3)
+        with torch.inference_mode():
+            full, _, _ = model(batch)
+        errs = decode_errs(model, batch, P, full)
+        ok = max(errs) <= DECODE_TOL
+        log(f"[models] recurrentgemma reduced, prompt {P} (W = {cfg.window}, "
+            f"{P} mod W = {P % cfg.window}): decode vs forward "
+            f"{', '.join(f'{e:.2e}' for e in errs)} {'ok' if ok else 'FAIL'}")
+        require(ok, f"the ring at prompt {P} disagrees with the forward")
+        out[f"ring_p{P}"] = max(errs)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[models] phase 26 took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_decode_profile(dev, seed: int, decode_ms: float) -> dict:
+    """The kernels and device time of one smollm-135m decode step (phase
+    27's model, batch and cache, rebuilt from the seed), from
+    ``torch.profiler``; None where the profiler records no device work.
+    It runs last: after a profiler session every launch of the process
+    costs about twice the host time (tools/probe_profiler_overhead.py)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import base as cb
+    from repro_torch.models.lm import LM
+    arch, B, P, steps = SMOLLM
+    cfg = cb.get_config(arch)
+    model = LM(cfg, device=dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    fed, _, _, _, caches, token = greedy(model, prompt, steps, 0)
+    pos = P + steps - 1
+    del fed
+    # the last step again, on its own cache slot
+    model.decode_step(caches, token, pos)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(caches, token, pos)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        busy_us = sum(getattr(e, "device_time", None)
+                      or getattr(e, "cuda_time", 0.0) for e in kernels)
+    except (RuntimeError, AttributeError) as exc:
+        log(f"[serve] decode profile not measured: {exc}")
+        kernels = []
+    out = {"decode_step_kernels": len(kernels) or None,
+           "decode_step_device_ms": busy_us / 1e3 if kernels else None}
+    idle = (None if out["decode_step_device_ms"] is None
+            else 1 - out["decode_step_device_ms"] / decode_ms)
+    out["decode_idle_share"] = idle
+    log(f"[serve] one smollm-135m decode step ({B} x 1, cache "
+        f"{P + steps}): {out['decode_step_kernels']} kernels, "
+        f"{out['decode_step_device_ms']} ms on the device, "
+        f"{'not measured' if idle is None else format(idle, '.1%')} idle "
+        f"against phase 27's {decode_ms:.3f} ms per step")
+    return out
+
+
+def full_width_check(label: str, model, cfg, batch, P: int, dec_logits,
+                     prefill_logits=None) -> dict:
+    """Hold a bf16 model's decode logits (positions P.. of ``batch``)
+    against the fp32 forward of the same weights (BF16_FACTOR × the bf16
+    forward's own distance), its fp32 twin's decode against that forward
+    (DECODE_TOL) and the fp32 twin's prefill, blockwise where the config
+    is, against it (BLOCKWISE_TOL)."""
+    import torch
+    n = dec_logits.shape[1]
+    sl = slice(P, P + n)
+    dense = cfg.replace(attn_chunk=0)
+    with torch.inference_mode():
+        f16 = twin(model, dense)(batch)[0][:, sl].clone()
+        m32 = twin(model, fp32_cfg(dense))
+        full32 = m32(batch)[0]
+        f32 = full32[:, sl].clone()
+        e16 = scaled_err(f16, f32)[1]
+        e_dec16 = scaled_err(dec_logits, f32)[1]
+        e_dec_fwd16 = scaled_err(dec_logits, f16)[1]
+        del f16
+        m32 = twin(m32, fp32_cfg(cfg))      # its own chunks, the same tensors
+        pre = dict(batch, tokens=batch["tokens"][:, :P])
+        p32, caches = m32.prefill(pre, kv_len=P + n)
+        e_pre = scaled_err(p32, full32[:, :P])[1]
+        del p32, full32
+        errs32 = []
+        for i in range(n):
+            t = P + i
+            dl, caches = m32.decode_step(caches, batch["tokens"][:, t:t + 1], t)
+            errs32.append(scaled_err(dl[:, 0], f32[:, i])[1])
+    del caches, m32
+    torch.cuda.empty_cache()
+    tol16 = BF16_FACTOR * e16
+    ok16, ok32 = e_dec16 <= tol16, max(errs32) <= DECODE_TOL
+    ok_pre = e_pre <= BLOCKWISE_TOL
+    log(f"[serve] {label}: bf16 forward vs fp32 forward {e16:.3e}; bf16 "
+        f"decode vs fp32 forward {e_dec16:.3e} (tol {BF16_FACTOR:g} x "
+        f"{e16:.3e} = {tol16:.3e}) {'ok' if ok16 else 'FAIL'}, vs the bf16 "
+        f"forward {e_dec_fwd16:.3e}; fp32 decode vs fp32 forward "
+        f"{', '.join(f'{e:.2e}' for e in errs32)} (tol {DECODE_TOL:.0e}) "
+        f"{'ok' if ok32 else 'FAIL'}; fp32 prefill "
+        f"(attn_chunk {cfg.attn_chunk}) vs the dense forward {e_pre:.2e} "
+        f"(tol {BLOCKWISE_TOL:.0e}) {'ok' if ok_pre else 'FAIL'}")
+    require(ok16, f"{label}: bf16 decode beyond the bf16 tolerance")
+    require(ok32, f"{label}: fp32 decode disagrees with the forward")
+    require(ok_pre, f"{label}: the prefill disagrees with the dense forward")
+    return {"bf16_fwd_vs_fp32": e16, "bf16_decode_vs_fp32": e_dec16,
+            "bf16_decode_vs_bf16_fwd": e_dec_fwd16,
+            "fp32_decode_vs_fp32": max(errs32), "fp32_prefill_vs_dense": e_pre}
+
+
+def greedy(model, prompt, steps: int, keep: int):
+    """Prefill, then ``steps`` greedy decode steps as ``make_serve_step``
+    does inline: (tokens fed (B, steps), the first ``keep`` steps' logits,
+    prefill ms, decode ms per step, the caches, the last token)."""
+    import torch
+    B, P = prompt.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill({"tokens": prompt}, kv_len=P + steps)
+    cur = logits[:, -1].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fed, kept = [], []
+    for i in range(steps):
+        fed.append(cur)
+        dl, caches = model.decode_step(caches, cur, P + i)
+        if i < keep:
+            kept.append(dl[:, 0].clone())
+        cur = dl[:, 0].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del logits
+    return (torch.cat(fed, 1), torch.stack(kept, 1) if kept else None,
+            (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3 / steps, caches, cur)
+
+
+def phase_smollm(dev, seed: int):
+    """Phase 27: smollm-135m at full depth and width, bf16, the port's
+    seeded init: prefill 8 × 2,048 (blockwise), 32 greedy steps, twice."""
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.models.lm import LM
+    t_phase = time.perf_counter()
+    arch, B, P, steps = SMOLLM
+    cfg = cb.get_config(arch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    model = LM(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated(dev) - base
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev)
+    runs = []
+    for _ in range(2):
+        fed, kept, pre_ms, dec_ms, caches, cur = greedy(model, prompt, steps,
+                                                        CHECK_STEPS)
+        runs.append((fed, pre_ms, dec_ms))
+    peak = torch.cuda.max_memory_allocated(dev) - at_start
+    del caches, cur
+    same = bool(torch.equal(runs[0][0], runs[1][0]))
+    log(f"[serve] smollm-135m full ({cfg.n_layers} layers, d = "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv} KV, vocab "
+        f"{cfg.vocab}, bf16, {model.param_count()} params, "
+        f"{weights / 1e6:.1f} MB): prefill {B} x {P} "
+        f"{runs[0][1]:.2f} / {runs[1][1]:.2f} ms "
+        f"({B * P / (runs[1][1] * 1e-3):.0f} tokens/s), decode "
+        f"{runs[0][2]:.3f} / {runs[1][2]:.3f} ms per step over {steps} "
+        f"steps; peak {peak / 1e9:.3f} GB above the weights; greedy "
+        f"tokens of the two runs {'equal' if same else 'DIFFER'}")
+    require(same, "two greedy runs gave different tokens")
+    seq = torch.cat([prompt, runs[0][0][:, :CHECK_STEPS]], 1)
+    check = full_width_check("smollm-135m", model, cfg, {"tokens": seq}, P,
+                             kept)
+    out = {"params": model.param_count(), "weights_mb": weights / 1e6,
+           "prefill_ms": [r[1] for r in runs],
+           "prefill_tokens_per_s": B * P / (runs[1][1] * 1e-3),
+           "decode_ms_per_step": [r[2] for r in runs], "peak_gb": peak / 1e9,
+           **check}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[serve] phase 27 (smollm) took {out['phase_s']:.1f} s")
+    return model, out
+
+
+def phase_full_width(dev, seed: int) -> dict:
+    """Phase 27, continued: four more architectures at full width, their
+    depth cut as FULL_WIDTH_CUTS says, bf16: prefill, 4 decode steps."""
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.models.lm import LM
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, (over, B, P, enc_len, why) in FULL_WIDTH_CUTS.items():
+        t0 = time.perf_counter()
+        cfg = nodrop(cb.get_config(arch).replace(**over))
+        log(f"[serve] {arch}: cut: {why}")
+        model = LM(cfg, device=dev, seed=seed)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch = model_batch(cfg, gen, B, P + CHECK_STEPS, enc_len)
+        pre = dict(batch, tokens=batch["tokens"][:, :P])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, caches = model.prefill(pre, kv_len=P + CHECK_STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        kept = []
+        for t in range(P, P + CHECK_STEPS):
+            dl, caches = model.decode_step(caches, batch["tokens"][:, t:t + 1],
+                                           t)
+            kept.append(dl[:, 0].clone())
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del caches
+        log(f"[serve] {arch} full width (d = {cfg.d_model}, "
+            f"{cfg.n_layers} layers, bf16, {model.param_count()} params): "
+            f"prefill {B} x {P} {(t2 - t1) * 1e3:.1f} ms, decode "
+            f"{(t3 - t2) * 1e3 / CHECK_STEPS:.2f} ms per step")
+        check = full_width_check(arch, model, cfg, batch, P,
+                                 torch.stack(kept, 1))
+        del model, kept, batch, pre
+        torch.cuda.empty_cache()
+        out[arch] = {"prefill_ms": (t2 - t1) * 1e3,
+                     "decode_ms_per_step": (t3 - t2) * 1e3 / CHECK_STEPS,
+                     "s": time.perf_counter() - t0, **check}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[serve] phase 27 (cut architectures) took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_weight_compress(model, seed: int, errs: dict):
+    """Phase 28: examples/weight_compress.py on the port: |wi_up| of every
+    layer of phase 27's smollm-135m, stacked, factored by bpp through
+    ``aunmf.fit`` on ``backend="cuda"`` at k = 4, 8, 16, 32, each fit held
+    against ``backend="dense"`` from the same W0/H0; gram, ts_matmul and
+    ts_matmul_t against their plain versions at k = 4 and 32, and timed at
+    k = 32."""
+    import math
+
+    import torch
+    from repro_torch.core import aunmf
+    from repro_torch.kernels import ops, ref
+    t_phase = time.perf_counter()
+    wi = torch.stack([blk.ffn.mlp.wi_up.detach()
+                      for blk in model.dec.layers()])
+    L, D, F = wi.shape
+    A = wi.reshape(L * D, F).float().abs().contiguous()
+    del wi
+    m, n = A.shape
+    log(f"[compress] |W_ffn| of smollm-135m: {m} x {n} fp32 "
+        f"({A.numel() * 4 / 1e6:.1f} MB)")
+    gen = torch.Generator(device=A.device).manual_seed(seed)
+    launches: dict = {}
+    fits = {}
+    for k in WC_KS:
+        H0 = torch.rand((k, n), generator=gen, device=A.device)
+        W0 = torch.zeros((m, k), device=A.device)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = aunmf.fit(A, k, algo="bpp", iters=WC_ITERS, H0=H0, W0=W0,
+                        backend="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: c for name, c in ops.LAUNCHES.items() if c}
+        add_launches(launches, counts)
+        dense = aunmf.fit(A, k, algo="bpp", iters=WC_ITERS, H0=H0, W0=W0,
+                          backend="dense")
+        rel = float(res.rel_errors[-1])
+        rel_d = float(dense.rel_errors[-1])
+        gap = abs(rel - rel_d) / rel_d
+        ratio = A.numel() / (k * (m + n))
+        ok = gap <= WC_REL_TOL and math.isfinite(rel)
+        want = {"gram": 3 * WC_ITERS, "ts_matmul": WC_ITERS,
+                "ts_matmul_t": WC_ITERS}
+        log(f"[compress] k = {k:2d}: rel_err {rel:.6f} (dense {rel_d:.6f}, "
+            f"{gap:.2e} relative, tol {WC_REL_TOL:.0e}) "
+            f"{'ok' if ok else 'FAIL'}; compression {ratio:.1f}x; "
+            f"{wall * 1e3 / WC_ITERS:.2f} ms/iter (set-up included); "
+            f"launches {counts} (expected {want})")
+        require(ok, f"weight compression k = {k}: cuda and dense disagree")
+        require(counts == want, f"k = {k}: launches {counts}, not {want}")
+        fits[k] = {"rel_err": rel, "rel_err_dense": rel_d, "ratio": ratio,
+                   "ms_per_iter": wall * 1e3 / WC_ITERS, "launches": counts}
+        del res, dense
+    timings = {}
+    for k in WC_CHECK_KS:
+        Ht = torch.rand((n, k), generator=gen, device=A.device)
+        W = torch.rand((m, k), generator=gen, device=A.device)
+        for name, got, want in (
+                ("ts_matmul", ops.ts_matmul(A, Ht), ref.ts_matmul(A, Ht)),
+                ("ts_matmul_t", ops.ts_matmul_t(A, W), ref.ts_matmul_t(A, W)),
+                ("gram", ops.gram(W), ref.gram(W)),
+                ("gram", ops.gram(Ht), ref.gram(Ht))):
+            torch.cuda.synchronize()
+            abs_err, err = scaled_err(got, want)
+            ok = err <= TOL["float32"]
+            log(f"[compress] {name:12s} k = {k:2d} scaled err {err:.3e} "
+                f"(tol {TOL['float32']:.0e}) abs {abs_err:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"{name} at k = {k} on |W_ffn| disagrees with its "
+                        f"plain version: {err:.3e}")
+            e = errs.setdefault(name, [0.0, 0.0])
+            e[0], e[1] = max(e[0], abs_err), max(e[1], err)
+        if k != max(WC_CHECK_KS):
+            continue
+        f4 = 4
+        plans = {
+            "ts_matmul": (lambda: ops.ts_matmul(A, Ht),
+                          lambda: ref.ts_matmul(A, Ht),
+                          lambda: torch.matmul(A, Ht),
+                          (m * n + n * k) * f4, m * k * f4, 2.0 * m * n * k),
+            "ts_matmul_t": (lambda: ops.ts_matmul_t(A, W),
+                            lambda: ref.ts_matmul_t(A, W),
+                            lambda: torch.matmul(A.T, W),
+                            (m * n + m * k) * f4, n * k * f4,
+                            2.0 * m * n * k),
+            "gram": (lambda: ops.gram(W), lambda: ref.gram(W),
+                     lambda: torch.matmul(W.T, W), m * k * f4, k * k * f4,
+                     1.0 * m * k * (k + 1)),
+        }
+        for name, (kern, plain, lib, rb, wb, flops) in plans.items():
+            p1, k1, k2, p2 = (time_ms(f, 50) for f in (plain, kern, kern,
+                                                       plain))
+            lib_ms = time_ms(lib, 50)
+            b_ms, b_by = bound_ms(rb, wb, 3 * flops, "tf32")
+            timings[name] = {"ms_wc": min(k1, k2), "plain_ms_wc": min(p1, p2),
+                             "library_ms_wc": lib_ms, "bound_ms_wc": b_ms,
+                             "bound_by_wc": b_by, "wc_shape": [m, n, k]}
+            log(f"[compress] {name:12s} k = {k} on {m} x {n}: kernel "
+                f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+                f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    for name in timings:
+        timings[name]["launches_wc"] = launches.get(name, 0)
+    del A
+    torch.cuda.empty_cache()
+    summary = {"shape": [m, n], "fits": fits,
+               "phase_s": time.perf_counter() - t_phase}
+    log(f"[compress] phase 28 took {summary['phase_s']:.1f} s")
+    return launches, summary, timings
+
+
 def direct_rel_error(A, W, H, rows: int = 32_768) -> float:
     """||A − WH||_F / ||A||_F without the trace trick, in row chunks (a
     check only: torch.matmul in fp32 whatever A's and the factors' dtype,
@@ -3673,6 +4181,19 @@ def main(argv=None) -> int:
     late_s = sum(summary[key]["phase_s"]
                  for key in ("elastic", "mixed", "online"))
     log(f"[online] phases 23–25 took {late_s:.1f} s")
+    summary["models"] = phase_models_reduced(dev, args.seed)
+    smollm, summary["smollm"] = phase_smollm(dev, args.seed)
+    summary["full_width"] = phase_full_width(dev, args.seed)
+    counts, summary["compress"], compress = phase_weight_compress(
+        smollm, args.seed, errs)
+    add_launches(launches, counts)
+    for name, row in compress.items():
+        timings[name].update(row)
+    del smollm
+    torch.cuda.empty_cache()
+    model_s = sum(summary[key]["phase_s"]
+                  for key in ("models", "smollm", "full_width", "compress"))
+    log(f"[compress] phases 26–28 took {model_s:.1f} s")
 
     if args.sparse_dim != SPARSE_DIM:
         log(f"[data] cut: sparse m = n = {args.sparse_dim} of {SPARSE_DIM}")
@@ -3730,6 +4251,9 @@ def main(argv=None) -> int:
     summary["sparse"] = {"shape": sp["blk"].shape, "nnz": sp["blk"].nnz,
                          "sort_s": sp["sort_s"], "fits": sp_summary}
     del sp
+    torch.cuda.empty_cache()
+    summary["smollm"].update(phase_decode_profile(
+        dev, args.seed, summary["smollm"]["decode_ms_per_step"][-1]))
 
     kernels = [{"name": name, "route": "cuda", **KERNELS[name],
                 "launches": launches[name], "max_abs_err": errs[name][0],

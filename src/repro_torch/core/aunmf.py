@@ -1,5 +1,6 @@
 """Serial AU-NMF (paper Algorithm 1): the iteration body and the factor
-initialisers the engine composes.  Counterpart of ``repro/core/aunmf.py``.
+initialisers the engine composes, and ``fit``, the serial entry point.
+Counterpart of ``repro/core/aunmf.py``.
 
 The data matrix appears only inside the three local products (A·Hᵀ, AᵀW,
 and the factor Grams), which ``aunmf_step_rule`` takes as hooks — the
@@ -76,3 +77,20 @@ def aunmf_step_rule(A, W, Ht, rule, state, normA_sq, *, mm: Callable,
     HHt_new = gram(Ht)
     sq = sq_error_from_products(normA_sq, AtW, Ht, WtW, HHt_new)
     return W, Ht, sq, state
+
+
+def fit(A, k: int, *, algo="bpp", iters: int = 30, seed: int | None = None,
+        H0=None, W0=None, backend=None, device=None) -> NMFResult:
+    """Run AU-NMF for a fixed number of iterations (the paper's stopping
+    criterion for all benchmarks), serially on one device.  Counterpart of
+    the reference's ``aunmf.fit`` (``seed=`` for its ``key=``); a thin
+    wrapper over ``core.engine.NMFSolver(schedule="serial")``.
+    ``backend=None`` takes "sparse" for sparse input and the CUDA kernels
+    ("cuda") otherwise, as ``faun.fit`` does."""
+    from repro_torch.backends import infer_backend
+    from repro_torch.core.engine import NMFSolver
+    if backend is None:
+        backend = "sparse" if infer_backend(A) == "sparse" else "cuda"
+    solver = NMFSolver(k, algo=algo, schedule="serial", backend=backend,
+                       device=device, max_iters=iters)
+    return solver.fit(A, seed=seed, H0=H0, W0=W0)

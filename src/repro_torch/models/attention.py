@@ -1,0 +1,222 @@
+"""Attention: GQA/MQA/MHA, causal/bidirectional/local-window/cross, with a
+memory-efficient blockwise (flash-style) path in plain PyTorch.
+Counterpart of ``repro/models/attention.py``.
+
+The reference computes attention in plain JAX, not in a Pallas kernel (the
+paper under reproduction contributes no attention kernel), and so does the
+port: the chunk loops below are the reference's Rabe–Staats online softmax
+(no S×S score matrix at long S) with its local-window band slicing (only
+the in-band KV per query chunk) and its static above-diagonal skipping
+(``causal_skip``).  ``F.scaled_dot_product_attention`` is not used: it
+takes neither the soft cap nor the band, and would hide the chunked work.
+
+Conventions: q (B, Sq, H, hd); k/v (B, Skv, KH, hd); GQA groups G = H // KH.
+All softmax math in fp32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.models.common import KeyGen, dense_init
+
+NEG_INF = -1e30
+
+
+# ------------------------------------------------------------------ params
+
+def init_attn(seed, cfg, *, cross: bool = False, device):
+    kg = KeyGen(seed)
+    D, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    pdt = cfg.param_dtype_torch
+    p = {
+        "wq": dense_init(kg(), D, H * hd, pdt, device=device),
+        "wk": dense_init(kg(), D, KH * hd, pdt, device=device),
+        "wv": dense_init(kg(), D, KH * hd, pdt, device=device),
+        "wo": dense_init(kg(), H * hd, D, pdt, device=device,
+                         scale=(H * hd) ** -0.5 / math.sqrt(2 * cfg.n_layers)),
+    }
+    if cfg.qkv_bias:
+        for nm, dim in (("bq", H * hd), ("bk", KH * hd), ("bv", KH * hd)):
+            p[nm] = torch.zeros((dim,), dtype=pdt, device=device)
+    if cfg.attn_out_bias:
+        p["bo"] = torch.zeros((D,), dtype=pdt, device=device)
+    if cross:                                         # tanh-gated residual
+        p["gate"] = torch.zeros((), dtype=pdt, device=device)
+    return p
+
+
+def _proj(x, w, b=None):
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def qkv(p, x, cfg, ctx=None):
+    """Project to per-head (q, k, v); k/v from ctx when cross-attending."""
+    src = x if ctx is None else ctx
+    B, Sq, _ = x.shape
+    Skv = src.shape[1]
+    H, KH, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = _proj(x, p["wq"], p.get("bq")).reshape(B, Sq, H, hd)
+    k = _proj(src, p["wk"], p.get("bk")).reshape(B, Skv, KH, hd)
+    v = _proj(src, p["wv"], p.get("bv")).reshape(B, Skv, KH, hd)
+    return q, k, v
+
+
+# ---------------------------------------------------------------- core math
+
+def _scores_mask(qpos, kpos, *, causal: bool, window: int):
+    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                   device=qpos.device)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        m &= qpos[:, None] - kpos[None, :] < window
+    return m
+
+
+def _attend_chunk(q, k, v, mask, softcap: float):
+    """q (B,C,KH,G,hd) × k (B,L,KH,hd) -> (scores-softmax) @ v, unnormalised.
+
+    Returns (numerator (B,C,KH,G,hd), rowmax (B,C,KH,G), rowsum (B,C,KH,G)).
+    """
+    hd = q.shape[-1]
+    s = torch.einsum("bcigh,blih->bcigl", q.float(), k.float()) / math.sqrt(hd)
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    num = torch.einsum("bcigl,blih->bcigh", p, v.float())
+    return num, m, l
+
+
+def _online_merge(acc, m_run, l_run, num, m, l):
+    """Fold one chunk's (num, m, l) into the running softmax state."""
+    m_new = torch.maximum(m_run, m)
+    scale_old = torch.exp(m_run - m_new)
+    scale_new = torch.exp(m - m_new)
+    acc = acc * scale_old[..., None] + num * scale_new[..., None]
+    l_run = l_run * scale_old + l * scale_new
+    return acc, m_new, l_run
+
+
+def _running_state(q):
+    """Zero accumulator, −inf row max and zero row sum for q (B,C,KH,G,hd)."""
+    B, C, KH, G, hd = q.shape
+    acc = torch.zeros((B, C, KH, G, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, C, KH, G), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, C, KH, G), dtype=torch.float32, device=q.device)
+    return acc, m, l
+
+
+def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
+                        q_chunk: int = 1024, kv_chunk: int = 1024,
+                        q_offset: int = 0, kv_valid: int | None = None,
+                        softcap: float = 0.0, causal_skip: bool = False,
+                        unroll_limit: int = 32):
+    """Online-softmax attention.  q (B,Sq,H,hd), k/v (B,Skv,KH,hd).
+
+    ``kv_valid``: optional count of valid kv positions (decode).
+    ``q_offset``: absolute position of q[0] (decode/chunked prefill).
+    ``causal_skip``: q chunk i visits only kv chunks at or below the
+    diagonal, where the default visits every chunk and masks.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    q = q.reshape(B, Sq, KH, G, hd)
+    dev = q.device
+
+    q_chunk = min(q_chunk, Sq) if q_chunk else Sq
+    kv_chunk = min(kv_chunk, Skv) if kv_chunk else Skv
+    n_q, n_kv = Sq // q_chunk, Skv // kv_chunk
+    if Sq % q_chunk or Skv % kv_chunk:
+        raise ValueError(f"blockwise_attention: Sq = {Sq} and Skv = {Skv} "
+                         f"must be multiples of their chunks {q_chunk} and "
+                         f"{kv_chunk}")
+
+    if causal_skip and causal and window == 0 and Skv == Sq \
+            and 1 < n_q <= unroll_limit and kv_valid is None:
+        return _causal_skip_attention(q, k, v, q_chunk=q_chunk,
+                                      kv_chunk=kv_chunk, q_offset=q_offset,
+                                      softcap=softcap).reshape(B, Sq, H, hd)
+
+    def per_q_chunk(qi, qc):
+        qpos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+
+        if window > 0 and Skv == Sq and n_kv > 1:
+            # Local attention: slice only the in-band KV (length W + C).
+            band = ((window + q_chunk + kv_chunk - 1) // kv_chunk) * kv_chunk
+            band = min(band, Skv)
+            start = min(max(qi * q_chunk + q_chunk - band, 0), Skv - band)
+            kc, vc = k[:, start:start + band], v[:, start:start + band]
+            kpos = start + torch.arange(band, device=dev)
+            mask = _scores_mask(qpos, kpos, causal=causal, window=window)
+            num, m, l = _attend_chunk(qc, kc, vc, mask, softcap)
+            return (num / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+        acc, m_run, l_run = _running_state(qc)
+        for kj in range(n_kv):
+            kc = k[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            vc = v[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+            mask = _scores_mask(qpos, kpos, causal=causal, window=window)
+            if kv_valid is not None:
+                mask &= (kpos < kv_valid)[None, :]
+            num, m, l = _attend_chunk(qc, kc, vc, mask, softcap)
+            acc, m_run, l_run = _online_merge(acc, m_run, l_run, num, m, l)
+        return (acc / torch.clamp_min(l_run, 1e-30)[..., None]).to(q.dtype)
+
+    out = torch.cat([per_q_chunk(qi, q[:, qi * q_chunk:(qi + 1) * q_chunk])
+                     for qi in range(n_q)], dim=1)
+    return out.reshape(B, Sq, H, hd)
+
+
+def _causal_skip_attention(q, k, v, *, q_chunk, kv_chunk, q_offset, softcap):
+    """Causal blockwise attention whose q chunk i visits only kv chunks
+    0..ceil(((i+1)·qc)/kc)−1: above-diagonal work is never done."""
+    B, Sq, KH, G, hd = q.shape
+    n_q = Sq // q_chunk
+    dev = q.device
+    outs = []
+    for qi in range(n_q):
+        qc = q[:, qi * q_chunk:(qi + 1) * q_chunk]
+        qpos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+        hi = min(((qi + 1) * q_chunk + kv_chunk - 1) // kv_chunk,
+                 k.shape[1] // kv_chunk)
+        acc, m_run, l_run = _running_state(qc)
+        for kj in range(hi):
+            kc = k[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            vc = v[:, kj * kv_chunk:(kj + 1) * kv_chunk]
+            kpos = kj * kv_chunk + torch.arange(kc.shape[1], device=dev)
+            mask = _scores_mask(qpos, kpos, causal=True, window=0)
+            num, m, l = _attend_chunk(qc, kc, vc, mask, softcap)
+            acc, m_run, l_run = _online_merge(acc, m_run, l_run, num, m, l)
+        outs.append((acc / torch.clamp_min(l_run, 1e-30)[..., None])
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def dense_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset: int = 0, kv_valid: int | None = None,
+                    softcap: float = 0.0):
+    """Plain einsum attention (small S / decode)."""
+    B, Sq, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    q = q.reshape(B, Sq, KH, G, hd)
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = _scores_mask(qpos, kpos, causal=causal, window=window)
+    if kv_valid is not None:
+        mask &= (kpos < kv_valid)[None, :]
+    num, m, l = _attend_chunk(q, k, v, mask, softcap)
+    out = (num / torch.clamp_min(l, 1e-30)[..., None]).to(v.dtype)
+    return out.reshape(B, Sq, H, hd)

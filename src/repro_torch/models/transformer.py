@@ -1,0 +1,592 @@
+"""Pattern-based transformer stack covering all assigned architectures.
+Counterpart of ``repro/models/transformer.py``.
+
+A model is a cycled ``layer_pattern`` of block kinds over ``n_layers``
+(+ an optional encoder stack for enc-dec models):
+
+  attn        GQA/MQA/MHA self-attention + FFN        (dense/MoE archs)
+  local_attn  windowed self-attention + FFN           (recurrentgemma)
+  xattn       tanh-gated cross-attention + gated FFN  (llama-3.2 vision)
+  attn_cross  self-attn + cross-attn + FFN            (whisper decoder)
+  enc_attn    bidirectional self-attention + FFN      (whisper encoder)
+  rglru       Griffin recurrent block + FFN           (recurrentgemma)
+  mlstm       xLSTM matrix-memory block (self-contained projections)
+  slstm       xLSTM scalar-memory block + GeGLU FFN
+
+Each block kind is an ``nn.Module`` (a ``ParamTree`` of the reference's
+parameter dict plus a ``forward``); the functional ``apply_*`` bodies take
+either the module or a plain dict.  The reference stacks each pattern
+position's parameters over groups and runs the stack as one ``lax.scan``;
+here the stack is a loop over the layer modules, and layer ℓ is group
+g = ℓ // period at position i = ℓ % period (``dec.groups.p{i}.{g}``), then
+the tail (``dec.tail.{t}``).  ``cfg.remat`` / ``remat_policy`` are read
+and have no effect until training lands (ROADMAP.md item 12b).
+
+Every block supports three modes sharing parameters:
+  train/prefill: full-sequence; prefill fills the decode caches;
+  decode:        x is (B, 1, D) + per-block cache (KV ring buffers for
+                 local attention, constant-size recurrent states).
+
+Caches are a list with one dict of preallocated tensors per layer
+(``init_stack_cache``), written in place: prefill copies into them and a
+decode step writes its K/V at its slot (the reference returns a new pytree,
+which XLA updates in place under donation).  A local-attention ring holds
+position t in slot t mod W from the start: prefill rotates the last W keys
+into phase, where the reference writes them to slots 0..W−1, which agrees
+with its decode only when the prompt length is a multiple of W.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import recurrent as rec_lib
+from repro_torch.models.common import (KeyGen, ParamTree, apply_norm,
+                                       dense_init, gelu, init_norm, rope,
+                                       silu)
+
+
+# ---------------------------------------------------------------------- FFN
+
+def init_mlp(seed, cfg, *, device):
+    kg = KeyGen(seed)
+    D, F = cfg.d_model, cfg.d_ff
+    pdt = cfg.param_dtype_torch
+    p = {}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        p["wi_gate"] = dense_init(kg(), D, F, pdt, device=device)
+        p["wi_up"] = dense_init(kg(), D, F, pdt, device=device)
+    else:
+        p["wi"] = dense_init(kg(), D, F, pdt, device=device)
+    p["wo"] = dense_init(kg(), F, D, pdt, scale=F ** -0.5, device=device)
+    if cfg.mlp_bias:
+        p["bi"] = torch.zeros((F,), dtype=pdt, device=device)
+        p["bo"] = torch.zeros((D,), dtype=pdt, device=device)
+    return p
+
+
+def apply_mlp(p, x, cfg):
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        act = silu if cfg.mlp_kind == "swiglu" else gelu
+        h = act(x @ p["wi_gate"].to(x.dtype)) * (x @ p["wi_up"].to(x.dtype))
+    else:
+        h = x @ p["wi"].to(x.dtype)
+        if "bi" in p:
+            h = h + p["bi"].to(x.dtype)
+        h = gelu(h)
+    y = h @ p["wo"].to(x.dtype)
+    if "bo" in p:
+        y = y + p["bo"].to(x.dtype)
+    return y
+
+
+def _init_ffn(seed, cfg, *, device):
+    """FFN = dense MLP or MoE depending on cfg."""
+    if cfg.moe.n_experts > 0:
+        return {"moe": moe_lib.init_moe(seed, cfg, device=device)}
+    return {"mlp": init_mlp(seed, cfg, device=device)}
+
+
+def _apply_ffn(p, x, cfg, mode="train"):
+    """(y, aux): aux is the MoE router loss, or 0.0 without MoE."""
+    if "moe" in p:
+        return moe_lib.moe_local(p["moe"], x, cfg,
+                                 dropless=(mode == "decode"))
+    return apply_mlp(p["mlp"], x, cfg), 0.0
+
+
+# ----------------------------------------------------------- runtime context
+
+class Runtime:
+    """Mesh context for in-model parallel decisions.  Only the mesh-less
+    single-device runtime exists here: expert parallelism and sharding
+    constraints over a mesh go with training (ROADMAP.md item 12b)."""
+
+    def __init__(self, mesh=None, data_axes=("pod", "data"), ep_axis="model",
+                 constraint_fn=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a Runtime over a device mesh (expert parallelism, sharding "
+                "constraints) goes with the training slice, ROADMAP.md "
+                "queue 1 item 12b")
+        del data_axes, ep_axis
+        self.constraint_fn = constraint_fn
+
+    def shard(self, x, kind: str):
+        if self.constraint_fn is None:
+            return x
+        return self.constraint_fn(x, kind)
+
+
+NULL_RT = Runtime()
+
+
+# ------------------------------------------------------------ block: attn --
+
+def _rope_positions(mode, S, pos, device):
+    """Positions for rope: a decode step's ``pos`` (an int, or a 1-D tensor
+    of one position per sequence), else 0..S−1 offset by ``pos``."""
+    if mode == "decode":
+        if torch.is_tensor(pos) and pos.ndim == 1:
+            return pos[:, None]
+        return torch.full((1, 1), int(pos), device=device)
+    return torch.arange(S, device=device)[None, :] + pos
+
+
+def init_attn_block(seed, cfg, *, kind: str, device):
+    kg = KeyGen(seed)
+    D = cfg.d_model
+    pdt = cfg.param_dtype_torch
+    p = {"norm1": init_norm(kg(), D, pdt, cfg.norm_kind, device=device),
+         "attn": attn_lib.init_attn(kg(), cfg, device=device),
+         "norm2": init_norm(kg(), D, pdt, cfg.norm_kind, device=device),
+         "ffn": _init_ffn(kg(), cfg, device=device)}
+    if kind == "attn_cross":
+        p["norm_x"] = init_norm(kg(), D, pdt, cfg.norm_kind, device=device)
+        p["xattn"] = attn_lib.init_attn(kg(), cfg, cross=True, device=device)
+    return p
+
+
+def _fill_self_cache(cache, k, v, window: int) -> None:
+    """Prefill: write the prompt's K/V into the preallocated cache."""
+    S = k.shape[1]
+    W = cache["k"].shape[1]
+    if window > 0 and W < S:
+        # the ring in phase: position t in slot t mod W, where decode
+        # writes it (the last W positions rotated by S mod W)
+        cache["k"].copy_(torch.roll(k[:, -W:], S % W, dims=1))
+        cache["v"].copy_(torch.roll(v[:, -W:], S % W, dims=1))
+        return
+    if S > W:
+        raise ValueError(f"a prompt of {S} tokens does not fit a KV cache "
+                         f"of {W}")
+    cache["k"][:, :S] = k
+    cache["v"][:, :S] = v
+    cache["k"][:, S:] = 0
+    cache["v"][:, S:] = 0
+
+
+def _self_attention(p, h, cfg, *, causal, window, mode, cache, pos):
+    """Shared self-attention core; writes the cache in place."""
+    B, S, _ = h.shape
+    q, k, v = attn_lib.qkv(p, h, cfg)
+    if cfg.pos_kind == "rope":
+        rpos = _rope_positions(mode, S, pos, h.device)
+        q = rope(q, rpos, cfg.rope_theta)
+        k = rope(k, rpos, cfg.rope_theta)
+    if mode == "decode":
+        ck, cv = cache["k"], cache["v"]
+        W = ck.shape[1]
+        pos = int(pos)
+        slot = pos % W if window > 0 else pos
+        if slot >= W:
+            raise ValueError(f"decode position {pos} is past the KV cache's "
+                             f"{W} slots")
+        ck[:, slot:slot + 1] = k
+        cv[:, slot:slot + 1] = v
+        out = attn_lib.dense_attention(
+            q, ck, cv, causal=False, window=0, q_offset=0,
+            kv_valid=min(pos + 1, W), softcap=cfg.logit_softcap)
+    else:
+        if cfg.attn_chunk and S > cfg.attn_chunk:
+            out = attn_lib.blockwise_attention(
+                q, k, v, causal=causal, window=window,
+                q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk,
+                softcap=cfg.logit_softcap, causal_skip=cfg.causal_skip)
+        else:
+            out = attn_lib.dense_attention(q, k, v, causal=causal,
+                                           window=window,
+                                           softcap=cfg.logit_softcap)
+        if cache is not None:
+            _fill_self_cache(cache, k, v, window)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"].to(h.dtype)
+    if "bo" in p:
+        out = out + p["bo"].to(out.dtype)
+    return out
+
+
+def _cross_attention(p, h, cfg, *, ctx, cache, mode):
+    """Cross-attention; KV from ctx (train/prefill, which fills the cache)
+    or from the cache (decode)."""
+    B, S, _ = h.shape
+    if mode == "decode" and cache is not None and "ek" in cache:
+        q = h @ p["wq"].to(h.dtype)
+        if "bq" in p:
+            q = q + p["bq"].to(q.dtype)
+        q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+        k, v = cache["ek"], cache["ev"]
+    else:
+        q, k, v = attn_lib.qkv(p, h, cfg, ctx=ctx)
+        if cache is not None:
+            cache["ek"].copy_(k)
+            cache["ev"].copy_(v)
+    out = attn_lib.dense_attention(q, k, v, causal=False,
+                                   softcap=cfg.logit_softcap)
+    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"].to(h.dtype)
+
+
+def apply_attn_block(p, x, cfg, *, kind, mode, cache, pos, ctx):
+    causal = cfg.family != "audio_encoder" and kind != "enc_attn"
+    window = cfg.window if kind == "local_attn" else 0
+
+    h = apply_norm(p["norm1"], x, cfg.norm_kind)
+    sc = cache.get("self") if cache is not None else None
+    x = x + _self_attention(p["attn"], h, cfg, causal=causal, window=window,
+                            mode=mode, cache=sc, pos=pos)
+
+    if kind == "attn_cross":
+        h = apply_norm(p["norm_x"], x, cfg.norm_kind)
+        xc = cache.get("cross") if cache is not None else None
+        x = x + _cross_attention(p["xattn"], h, cfg, ctx=ctx, cache=xc,
+                                 mode=mode)
+
+    h = apply_norm(p["norm2"], x, cfg.norm_kind)
+    y, aux = _apply_ffn(p["ffn"], h, cfg, mode)
+    return x + y, aux
+
+
+# --------------------------------------------------- block: gated xattn ----
+
+def init_xattn_block(seed, cfg, *, device):
+    kg = KeyGen(seed)
+    D = cfg.d_model
+    pdt = cfg.param_dtype_torch
+    f32 = torch.float32
+    return {
+        "norm1": init_norm(kg(), D, pdt, cfg.norm_kind, device=device),
+        "xattn": attn_lib.init_attn(kg(), cfg, cross=True, device=device),
+        "gate_attn": torch.zeros((), dtype=f32, device=device),
+        "norm2": init_norm(kg(), D, pdt, cfg.norm_kind, device=device),
+        "ffn": _init_ffn(kg(), cfg, device=device),
+        "gate_ffn": torch.zeros((), dtype=f32, device=device),
+    }
+
+
+def apply_xattn_block(p, x, cfg, *, mode, cache, ctx):
+    """Llama-3.2-vision style gated cross-attention layer."""
+    h = apply_norm(p["norm1"], x, cfg.norm_kind)
+    xc = cache.get("cross") if cache is not None else None
+    out = _cross_attention(p["xattn"], h, cfg, ctx=ctx, cache=xc, mode=mode)
+    x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
+    h = apply_norm(p["norm2"], x, cfg.norm_kind)
+    y, aux = _apply_ffn(p["ffn"], h, cfg, mode)
+    return x + torch.tanh(p["gate_ffn"]).to(x.dtype) * y, aux
+
+
+# ------------------------------------------------------- block: rglru ------
+
+def init_rglru_block(seed, cfg, *, device):
+    kg = KeyGen(seed)
+    D = cfg.d_model
+    lru = cfg.d_model            # Griffin: lru_width == d_model
+    pdt = cfg.param_dtype_torch
+    return {
+        "norm1": init_norm(kg(), D, pdt, cfg.norm_kind, device=device),
+        "wy": dense_init(kg(), D, lru, pdt, device=device),
+        "wgate": dense_init(kg(), D, lru, pdt, device=device),
+        "conv": rec_lib.init_conv1d(kg(), lru, cfg.conv_width, pdt,
+                                    device=device),
+        "lru": rec_lib.init_rglru(kg(), lru, pdt, device=device),
+        "wout": dense_init(kg(), lru, D, pdt, scale=lru ** -0.5,
+                           device=device),
+        "norm2": init_norm(kg(), D, pdt, cfg.norm_kind, device=device),
+        "ffn": _init_ffn(kg(), cfg, device=device),
+    }
+
+
+def apply_rglru_block(p, x, cfg, *, mode, cache):
+    h = apply_norm(p["norm1"], x, cfg.norm_kind)
+    y = h @ p["wy"].to(h.dtype)
+    gate = gelu(h @ p["wgate"].to(h.dtype))
+    if mode == "decode":
+        yc, new_conv = rec_lib.conv1d_causal(p["conv"], y, cache["conv"])
+        y_t, new_h = rec_lib.rglru_step(p["lru"], yc[:, 0], cache["h"],
+                                        c=cfg.rglru_c)
+        y = y_t[:, None, :]
+    else:
+        yc, new_conv = rec_lib.conv1d_causal(p["conv"], y, None)
+        y, new_h = rec_lib.rglru_scan(p["lru"], yc, c=cfg.rglru_c)
+    x = x + (y * gate) @ p["wout"].to(x.dtype)
+    h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
+    z, aux = _apply_ffn(p["ffn"], h2, cfg, mode)
+    if cache is not None:
+        cache["h"].copy_(new_h)
+        cache["conv"].copy_(new_conv)
+    return x + z, aux
+
+
+# ------------------------------------------------- blocks: mlstm / slstm ---
+
+def init_mlstm_block(seed, cfg, *, device):
+    kg = KeyGen(seed)
+    D = cfg.d_model
+    d_in = 2 * D                                   # xLSTM proj_factor = 2
+    pdt = cfg.param_dtype_torch
+    return {
+        "norm": init_norm(kg(), D, pdt, cfg.norm_kind, device=device),
+        "wup": dense_init(kg(), D, 2 * d_in, pdt, device=device),  # [x_m, z]
+        "conv": rec_lib.init_conv1d(kg(), d_in, cfg.conv_width, pdt,
+                                    device=device),
+        "cell": rec_lib.init_mlstm_cell(kg(), d_in, cfg.n_heads, pdt,
+                                        device=device),
+        "wdown": dense_init(kg(), d_in, D, pdt, scale=d_in ** -0.5,
+                            device=device),
+    }
+
+
+def apply_mlstm_block(p, x, cfg, *, mode, cache):
+    h = apply_norm(p["norm"], x, cfg.norm_kind)
+    up = h @ p["wup"].to(h.dtype)
+    xm, z = torch.chunk(up, 2, dim=-1)
+    if mode == "decode":
+        c, new_conv = rec_lib.conv1d_causal(p["conv"], xm, cache["conv"])
+        c = silu(c)
+        y, new_state = rec_lib.mlstm_step(
+            p["cell"], c[:, 0], cfg.n_heads,
+            (cache["C"], cache["n"], cache["m"]))
+        y = y[:, None, :]
+    else:
+        c, new_conv = rec_lib.conv1d_causal(p["conv"], xm, None)
+        c = silu(c)
+        y, new_state = rec_lib.mlstm_chunked(p["cell"], c, cfg.n_heads,
+                                             chunk=cfg.mlstm_chunk)
+    out = (y * silu(z)) @ p["wdown"].to(x.dtype)
+    if cache is not None:
+        for name, t in zip(("C", "n", "m"), new_state):
+            cache[name].copy_(t)
+        cache["conv"].copy_(new_conv)
+    return x + out, 0.0
+
+
+def init_slstm_block(seed, cfg, *, device):
+    kg = KeyGen(seed)
+    D = cfg.d_model
+    pdt = cfg.param_dtype_torch
+    f = (4 * D) // 3
+    return {
+        "norm": init_norm(kg(), D, pdt, cfg.norm_kind, device=device),
+        "conv": rec_lib.init_conv1d(kg(), D, cfg.conv_width, pdt,
+                                    device=device),
+        "cell": rec_lib.init_slstm_cell(kg(), D, cfg.n_heads, pdt,
+                                        device=device),
+        "norm2": init_norm(kg(), D, pdt, cfg.norm_kind, device=device),
+        "ffn_gate": dense_init(kg(), D, f, pdt, device=device),
+        "ffn_up": dense_init(kg(), D, f, pdt, device=device),
+        "ffn_down": dense_init(kg(), f, D, pdt, scale=f ** -0.5,
+                               device=device),
+    }
+
+
+def apply_slstm_block(p, x, cfg, *, mode, cache):
+    h = apply_norm(p["norm"], x, cfg.norm_kind)
+    decode = mode == "decode"
+    c, new_conv = rec_lib.conv1d_causal(
+        p["conv"], h, cache["conv"] if decode else None)
+    c = silu(c)
+    if decode:
+        state = (cache["c"], cache["n"], cache["h"], cache["m"])
+        y, new_state = rec_lib.slstm_step(p["cell"], c[:, 0], cfg.n_heads,
+                                          state)
+        y = y[:, None, :]
+    else:
+        y, new_state = rec_lib.slstm_scan(p["cell"], c, cfg.n_heads, None)
+    x = x + y
+    h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
+    ff = gelu(h2 @ p["ffn_gate"].to(x.dtype)) \
+        * (h2 @ p["ffn_up"].to(x.dtype))
+    x = x + ff @ p["ffn_down"].to(x.dtype)
+    if cache is not None:
+        for name, t in zip(("c", "n", "h", "m"), new_state):
+            cache[name].copy_(t)
+        cache["conv"].copy_(new_conv)
+    return x, 0.0
+
+
+# ------------------------------------------------------------ the modules --
+
+class Block(ParamTree):
+    """One layer: the reference's parameter dict of its kind as a
+    ``ParamTree``; ``forward(x, *, mode, cache, pos, ctx)`` returns
+    (x, aux) and writes ``cache`` (this layer's dict, or None) in place."""
+
+    def __init__(self, cfg, kind: str, tree):
+        super().__init__(tree)
+        self.cfg, self.kind = cfg, kind
+
+
+class AttnBlock(Block):
+    """``attn``, ``local_attn``, ``attn_cross`` and ``enc_attn``."""
+
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
+        return apply_attn_block(self, x, self.cfg, kind=self.kind, mode=mode,
+                                cache=cache, pos=pos, ctx=ctx)
+
+
+class XAttnBlock(Block):
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
+        del pos
+        return apply_xattn_block(self, x, self.cfg, mode=mode, cache=cache,
+                                 ctx=ctx)
+
+
+class RGLRUBlock(Block):
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
+        del pos, ctx
+        return apply_rglru_block(self, x, self.cfg, mode=mode, cache=cache)
+
+
+class MLSTMBlock(Block):
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
+        del pos, ctx
+        return apply_mlstm_block(self, x, self.cfg, mode=mode, cache=cache)
+
+
+class SLSTMBlock(Block):
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
+        del pos, ctx
+        return apply_slstm_block(self, x, self.cfg, mode=mode, cache=cache)
+
+
+BLOCKS = {"attn": AttnBlock, "local_attn": AttnBlock,
+          "attn_cross": AttnBlock, "enc_attn": AttnBlock,
+          "xattn": XAttnBlock, "rglru": RGLRUBlock, "mlstm": MLSTMBlock,
+          "slstm": SLSTMBlock}
+
+
+def init_block(seed, cfg, kind: str, *, device):
+    if kind in ("attn", "local_attn", "attn_cross", "enc_attn"):
+        return init_attn_block(seed, cfg, kind=kind, device=device)
+    if kind == "xattn":
+        return init_xattn_block(seed, cfg, device=device)
+    if kind == "rglru":
+        return init_rglru_block(seed, cfg, device=device)
+    if kind == "mlstm":
+        return init_mlstm_block(seed, cfg, device=device)
+    if kind == "slstm":
+        return init_slstm_block(seed, cfg, device=device)
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+# ----------------------------------------------------------- cache init ----
+
+def init_block_cache(cfg, kind: str, batch: int, kv_len: int,
+                     enc_len: int = 0, *, device):
+    KH, hd = cfg.n_kv, cfg.head_dim
+    cdt = cfg.dtype_torch
+    f32 = torch.float32
+
+    def z(*shape, dtype=cdt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if kind in ("attn", "local_attn", "attn_cross", "enc_attn"):
+        W = min(cfg.window, kv_len) if kind == "local_attn" and cfg.window \
+            else kv_len
+        c = {"self": {"k": z(batch, W, KH, hd), "v": z(batch, W, KH, hd)}}
+        if kind == "attn_cross":
+            c["cross"] = {"ek": z(batch, enc_len, KH, hd),
+                          "ev": z(batch, enc_len, KH, hd)}
+        return c
+    if kind == "xattn":
+        return {"cross": {"ek": z(batch, enc_len, KH, hd),
+                          "ev": z(batch, enc_len, KH, hd)}}
+    if kind == "rglru":
+        lru = cfg.d_model
+        return {"h": z(batch, lru, dtype=f32),
+                "conv": z(batch, cfg.conv_width - 1, lru)}
+    if kind == "mlstm":
+        d_in = 2 * cfg.d_model
+        H = cfg.n_heads
+        dh = d_in // H
+        return {"C": z(batch, H, dh, dh, dtype=f32),
+                "n": z(batch, H, dh, dtype=f32),
+                "m": z(batch, H, dtype=f32) - 1e30,
+                "conv": z(batch, cfg.conv_width - 1, d_in)}
+    if kind == "slstm":
+        H = cfg.n_heads
+        dh = cfg.d_model // H
+        return {"c": z(batch, H, dh, dtype=f32),
+                "n": z(batch, H, dh, dtype=f32) + 1e-6,
+                "h": z(batch, H, dh, dtype=f32),
+                "m": z(batch, H, dh, dtype=f32) - 1e30,
+                "conv": z(batch, cfg.conv_width - 1, cfg.d_model)}
+    raise ValueError(kind)
+
+
+# ------------------------------------------------------------- stacks ------
+
+def layer_kinds(pattern, n_layers):
+    """(period, n_groups, tail kinds) of a cycled pattern."""
+    period = len(pattern)
+    n_groups = n_layers // period
+    tail = tuple(pattern[i] for i in range(n_layers - n_groups * period))
+    return period, n_groups, tail
+
+
+def init_stack(seed, cfg, pattern, n_layers, *, device):
+    """Per-layer params: {"groups": {"p{i}": [one dict per group]} or None,
+    "tail": [...]} (the reference stacks each "p{i}" over the groups)."""
+    period, n_groups, tail = layer_kinds(pattern, n_layers)
+    kg = KeyGen(seed)
+    groups = None
+    if n_groups > 0:
+        groups = {f"p{pos}": [init_block(kg(), cfg, pattern[pos],
+                                         device=device)
+                              for _ in range(n_groups)]
+                  for pos in range(period)}
+    tail_params = [init_block(kg(), cfg, kind, device=device)
+                   for kind in tail]
+    return {"groups": groups, "tail": tail_params}
+
+
+def init_stack_cache(cfg, pattern, n_layers, batch, kv_len, enc_len=0, *,
+                     device):
+    """One cache dict per layer, in layer order."""
+    return [init_block_cache(cfg, pattern[layer % len(pattern)], batch,
+                             kv_len, enc_len, device=device)
+            for layer in range(n_layers)]
+
+
+class Stack(nn.Module):
+    """The layers of one stack; ``state_dict`` keys ``groups.p{i}.{g}.…``
+    and ``tail.{t}.…`` name the reference's ``groups/p{i}/…`` leaf (at
+    index g of its stacked axis) and ``tail[t]/…``."""
+
+    def __init__(self, cfg, pattern, n_layers: int, tree):
+        super().__init__()
+        period, n_groups, tail = layer_kinds(pattern, n_layers)
+        self.groups = None
+        if n_groups > 0:
+            self.groups = nn.ModuleDict({
+                f"p{i}": nn.ModuleList(BLOCKS[pattern[i]](cfg, pattern[i], t)
+                                       for t in tree["groups"][f"p{i}"])
+                for i in range(period)})
+        self.tail = nn.ModuleList(BLOCKS[kind](cfg, kind, t)
+                                  for kind, t in zip(tail, tree["tail"]))
+        self._period, self._n_groups = period, n_groups
+
+    def layers(self) -> list:
+        """The blocks in layer order."""
+        out = [self.groups[f"p{i}"][g] for g in range(self._n_groups)
+               for i in range(self._period)]
+        return out + list(self.tail)
+
+    def tree(self):
+        groups = None
+        if self.groups is not None:
+            groups = {k: [b.tree() for b in ml]
+                      for k, ml in self.groups.items()}
+        return {"groups": groups, "tail": [b.tree() for b in self.tail]}
+
+    def forward(self, x, *, mode="train", caches=None, pos=0, ctx=None):
+        """Returns (x, aux_sum); ``caches`` (one dict per layer) are
+        written in place."""
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer, blk in enumerate(self.layers()):
+            c = caches[layer] if caches is not None else None
+            x, aux = blk(x, mode=mode, cache=c, pos=pos, ctx=ctx)
+            if torch.is_tensor(aux):
+                aux_total = aux_total + aux
+        return x, aux_total

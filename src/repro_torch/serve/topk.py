@@ -48,6 +48,7 @@ from repro_torch.obs.trace import span as _span
 from repro_torch.serve.artifact import FactorArtifact
 from repro_torch.util.convert import to_torch
 from repro_torch.util.device import resolve_device
+from repro_torch.util.order import top_k as _top
 
 _EPS = 1e-12
 
@@ -57,13 +58,6 @@ METRICS = ("dot", "cosine")
 #: replaces it with the measured choice from kernels/autotune
 DEFAULT_CHUNK = 4096
 _CHUNK_CANDIDATES = (512, 1024, 2048, 4096, 8192, 16384)
-
-
-def _top(vals: torch.Tensor, k: int):
-    """(values, positions) of the k largest per row, in ``lax.top_k``'s
-    order: descending, equal values by position."""
-    v, pos = torch.sort(vals, dim=1, descending=True, stable=True)
-    return v[:, :k], pos[:, :k]
 
 
 def _row_norms(W: torch.Tensor, G: torch.Tensor, *,

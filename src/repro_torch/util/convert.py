@@ -74,3 +74,94 @@ def blockcoo_to_numpy(blk) -> dict:
     out.update(shape=tuple(blk.shape), block_shape=tuple(blk.block_shape),
                nnz=int(blk.nnz), align=int(blk.align))
     return out
+
+
+# ------------------------------------------------------------ model params
+
+_STACKS = ("enc", "dec")
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _stack_trees(trees: list):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def _leading_dim(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
+
+
+def lm_params_from_numpy(cfg, tree, *, device=None):
+    """A port ``models.lm.LM`` holding the JAX package's parameters:
+    ``tree`` is the reference's nested dict (``jax.tree.map(np.asarray,
+    params)``), stacked ``{enc,dec}/groups/p{i}`` leaves and ``tail`` list
+    included; group g of ``p{i}`` becomes layer g·period + i."""
+    from repro_torch.models.lm import LM
+    from repro_torch.util.device import resolve_device
+    dev = resolve_device(device)
+
+    def conv(a):
+        return to_torch(a, device=dev)
+
+    port = {}
+    for key, sub in tree.items():
+        if key not in _STACKS:
+            port[key] = _map_tree(sub, conv)
+            continue
+        groups = sub["groups"]
+        if groups is not None:
+            n = _leading_dim(groups)
+            groups = {pk: [_map_tree(g_tree, lambda a, g=g: conv(
+                np.asarray(a)[g])) for g in range(n)]
+                for pk, g_tree in groups.items()}
+        port[key] = {"groups": groups,
+                     "tail": [_map_tree(t, conv) for t in sub["tail"]]}
+    return LM(cfg, device=dev, params=port)
+
+
+def _np_copy(t: torch.Tensor) -> np.ndarray:
+    return np.array(to_numpy(t), copy=True)
+
+
+def lm_params_to_numpy(model) -> dict:
+    """The reference's nested parameter dict of a port ``LM`` (numpy
+    arrays; bf16 as float32): each stack's layers restacked per pattern
+    position."""
+    out = {}
+    for key, sub in model.tree().items():
+        if key not in _STACKS:
+            out[key] = _map_tree(sub, _np_copy)
+            continue
+        groups = sub["groups"]
+        if groups is not None:
+            groups = {pk: _stack_trees([_map_tree(t, _np_copy)
+                                        for t in layers])
+                      for pk, layers in groups.items()}
+        out[key] = {"groups": groups,
+                    "tail": [_map_tree(t, _np_copy) for t in sub["tail"]]}
+    return out
+
+
+def lm_caches_to_numpy(cfg, caches) -> dict:
+    """The port's per-layer decode caches in the reference's layout
+    (``{"groups": {"p{i}": stacked}, "tail": [...]}``), numpy arrays."""
+    period = len(cfg.layer_pattern)
+    n_groups = cfg.n_layers // period
+    layers = [_map_tree(c, _np_copy) for c in caches]
+    groups = None
+    if n_groups > 0:
+        groups = {f"p{i}": _stack_trees([layers[g * period + i]
+                                         for g in range(n_groups)])
+                  for i in range(period)}
+    return {"groups": groups, "tail": layers[n_groups * period:]}
