@@ -27,7 +27,10 @@ group:
 * the model stack (``repro_torch.models``): the ten architectures at their
   reduced configs, smollm-135m served at full size and four more at full
   width, depth cut; then the NMF compression of smollm-135m's FFN
-  weights (``aunmf.fit``, bpp) through the dense kernels.
+  weights (``aunmf.fit``, bpp) through the dense kernels;
+* training (``repro_torch.train``): every reduced architecture, then
+  smollm-135m at full size and dbrx-132b at full width (one layer), and
+  the sharded step and ``moe_ep`` on a one-rank NCCL mesh.
 
 Phases, each of which raises on failure:
 
@@ -240,7 +243,31 @@ Phases, each of which raises on failure:
                gram, 1 ts_matmul and 1 ts_matmul_t launches an iteration,
                rel_err within ``WC_REL_TOL`` of ``backend="dense"`` from
                the same W0/H0; the three kernels against their plain
-               versions at k = 4 and 32, and timed at 32.
+               versions at k = 4 and 32, and timed at 32;
+ 29. train     (after 28) training (``repro_torch.train``): every
+               architecture's reduced config in fp32, the gradients of one
+               step on the card against the CPU port's from the same
+               params and batch (``TRAIN_GRAD_TOL``), one adamw step, and
+               five steps descending;
+ 30. train     smollm-135m at full size (bf16, remat, AdamW), cut from
+               train_4k's 256 × 4,096 to 8 × 2,048: eight steps on one
+               batch descend (ms a step, tokens/s, peak memory above the
+               state); against an fp32 twin of the same weights, the
+               bf16 loss within ``TRAIN_LOSS_TOL`` and the gradient
+               within ``BF16_FACTOR`` × the bf16 forward's own distance;
+               two microbatches against one within ``TRAIN_MB_TOL``;
+               a ``train()`` loop of 6
+               steps, checkpoints every 2, a failure injected at step 3,
+               the only failure either loop absorbs (the steps each ran
+               checked), bit-identical to the loop without it;
+ 31. train     dbrx-132b at full width, depth cut to 1 of 40 layers,
+               Adafactor, 1 × 512: 3 steps, each finite, the factored
+               state's shapes checked;
+ 32. train     the mesh on one card (a one-rank NCCL ``DeviceMesh``,
+               ("data", "model")): the sharded step of reduced smollm
+               bit-equal to the step without a mesh, ``moe_ep`` at
+               mp = 1 against ``moe_local``, and reduced dbrx's sharded
+               Adafactor step against the plain one (``EP_TOL``).
 
 Last of all (the profiler doubles the host cost of every later launch,
 tools/probe_profiler_overhead.py), one smollm-135m decode step of phase
@@ -262,6 +289,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4052,6 +4080,435 @@ def phase_weight_compress(model, seed: int, errs: dict):
     return launches, summary, timings
 
 
+# ----------------------------------------------------------------------------
+# Phases 29–32: training (optim/, train/, distributed/sharding.py, moe_ep)
+
+#: phase 29: a gradient leaf on the card against the CPU port's, scaled;
+#: a leaf zero up to rounding (≤ TRAIN_ZERO_SHARE of the largest entry of
+#: the whole gradient: a key bias under softmax's shift invariance) must
+#: stay there on both
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_ZERO_SHARE = 1e-6
+#: phase 30: arch, batch, sequence, steps on one batch, the loop's steps,
+#: its checkpoint interval and the step its failure is injected at
+TRAIN_FULL = ("smollm_135m", 8, 2_048, 8)
+TRAIN_LOOP = (6, 2, 3)
+#: phase 30: the bf16 step's mean loss against its fp32 twin's, relative.
+#: A mean over B·S tokens, so rounding averages out (read on an H100:
+#: 1.7e-6); a loss taken over part of the tokens would be off by percents
+TRAIN_LOSS_TOL = 1e-3
+#: phase 30: two microbatches' gradients against one batch's, relative
+#: L2.  The same fp32-accumulated sums, rounded to bf16 apart (bf16's
+#: unit roundoff 2^-8 = 3.9e-3; read on an H100: 2.19e-3)
+TRAIN_MB_TOL = 1e-2
+#: phase 31: arch, layers kept, batch, sequence, steps
+TRAIN_MOE = ("dbrx_132b", 1, 1, 512, 3)
+#: phase 32: moe_ep at mp = 1 against moe_local, scaled; the sharded
+#: Adafactor step of reduced dbrx against the plain one, each leaf of the
+#: state scaled
+EP_TOL = 1e-6
+
+
+def _tree_diff(a, b) -> float:
+    """The largest |a − b| over two trees of tensors, matched by key."""
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    return max(tree_leaves(tree_map(
+        lambda x, y: float((x.float() - y.float()).abs().max()), a, b)))
+
+
+def _grad_errs(got, want) -> tuple[float, str]:
+    """The worst scaled error of ``got`` against ``want`` over the leaves
+    (TRAIN_ZERO_SHARE's rule for leaves zero up to rounding) and its key
+    path."""
+    from repro_torch.optim.optimizers import tree_leaves
+    top = max(float(t.abs().max()) for t in tree_leaves(want))
+    worst, where = 0.0, ""
+
+    def walk(g, w, path):
+        nonlocal worst, where
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{path}/{k}")
+            return
+        if isinstance(w, list):
+            for i, (x, y) in enumerate(zip(g, w)):
+                walk(x, y, f"{path}/{i}")
+            return
+        if w is None:
+            return
+        g, w = g.double().cpu(), w.double().cpu()
+        wmax = float(w.abs().max())
+        if wmax <= TRAIN_ZERO_SHARE * top:
+            err = 0.0 if float(g.abs().max()) <= TRAIN_ZERO_SHARE * top \
+                else float("inf")
+        else:
+            err = float((g - w).abs().max()) / wmax
+        if err > worst:
+            worst, where = err, path
+    walk(got, want, "")
+    return worst, where
+
+
+def phase_train_reduced(dev, seed: int) -> dict:
+    """Phase 29: every architecture's reduced config, fp32, on the card."""
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.optim.optimizers import OptConfig, tree_map
+    from repro_torch.train import steps
+    t_phase = time.perf_counter()
+    out = {}
+    shape = cb.ShapeConfig("train", 32, 2, "train")
+    for arch in cb.ARCH_IDS:
+        cfg = cb.get_reduced_config(arch)
+        opt = OptConfig(kind="adamw", lr=3e-3, warmup_steps=1,
+                        total_steps=20, weight_decay=0.0)
+        host = steps.init_train_state(cfg, opt, seed, device="cpu")
+        state = tree_map(lambda t: t.to(dev), host)
+        hbatch = make_lm_loader(cfg, shape, seed=seed, device="cpu")(0)
+        batch = {k: v.to(dev) for k, v in hbatch.items()}
+        _, _, g_cpu = steps.grads_of(cfg, host["params"], [hbatch])
+        _, _, g_dev = steps.grads_of(cfg, state["params"], [batch])
+        err, where = _grad_errs(g_dev, g_cpu)
+        step = steps.make_train_step(cfg, opt)
+        losses = []
+        for _ in range(5):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        finite = all(map(math.isfinite, losses)) and math.isfinite(
+            float(m["grad_norm"]))
+        ok = err <= TRAIN_GRAD_TOL and finite and losses[-1] < losses[0]
+        log(f"[train] {arch:20s} reduced fp32: gradients on the card vs the "
+            f"CPU port {err:.2e} (worst leaf {where or '-'}; tol "
+            f"{TRAIN_GRAD_TOL:.0e}); 5 adamw steps "
+            f"{' '.join(f'{x:.4f}' for x in losses)} "
+            f"{'ok' if ok else 'FAIL'}")
+        require(err <= TRAIN_GRAD_TOL, f"{arch}: gradients on the card "
+                f"disagree with the CPU port ({where})")
+        require(finite and losses[-1] < losses[0],
+                f"{arch}: five steps on one batch did not descend")
+        out[arch] = {"grad_err": err, "losses": losses}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase 29 took {out['phase_s']:.1f} s")
+    return out
+
+
+def _timed_steps(step, state, batch, n: int):
+    import torch
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])               # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    return state, losses, ms
+
+
+def phase_train_smollm(dev, seed: int, ckdir: str) -> dict:
+    """Phase 30: smollm-135m at full size, bf16, remat, AdamW."""
+    import gc
+    import shutil
+    import statistics
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.optim.optimizers import OptConfig, tree_map
+    from repro_torch.train import steps
+    from repro_torch.train.loop import LoopConfig, train
+    t_phase = time.perf_counter()
+    arch, B, S, n_steps = TRAIN_FULL
+    cfg = cb.get_config(arch)
+    cell = cb.SHAPES["train_4k"]
+    log(f"[train] {arch} full size: cut: train_4k's {cell.global_batch} x "
+        f"{cell.seq_len} -> {B} x {S} (phase 27's shape); {cfg.n_layers} "
+        f"layers, d = {cfg.d_model}, {cfg.param_dtype}, remat "
+        f"{cfg.remat} ({cfg.remat_policy})")
+    opt = OptConfig(kind="adamw", lr=1e-3, warmup_steps=1,
+                    total_steps=n_steps)
+    shape = cb.ShapeConfig("train", S, B, "train")
+    # earlier phases' cyclic garbage, freed mid-phase, would hide the peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    state0 = steps.init_train_state(cfg, opt, seed, device=dev)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated(dev) - base
+    batch = make_lm_loader(cfg, shape, seed=seed, device=dev)(0)
+    step = steps.make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev)
+    state, losses, ms = _timed_steps(step, state0, batch, n_steps)
+    peak = torch.cuda.max_memory_allocated(dev) - at_start
+    del state
+    ms_step = statistics.median(ms[1:])
+    out = {"state_gb": state_bytes / 1e9, "losses": losses, "step_ms": ms,
+           "ms_per_step": ms_step,
+           "tokens_per_s": B * S / (ms_step * 1e-3),
+           "peak_gb_above_state": peak / 1e9}
+    log(f"[train] {arch}: state {state_bytes / 1e9:.3f} GB (params "
+        f"{cfg.param_dtype}, AdamW moments fp32); {n_steps} steps on one "
+        f"batch, loss {' '.join(f'{x:.4f}' for x in losses)}; ms a step "
+        f"{' '.join(f'{x:.1f}' for x in ms)} (median of steps 2–"
+        f"{n_steps}: {ms_step:.1f} ms, {out['tokens_per_s']:.0f} tokens/s); "
+        f"peak {peak / 1e9:.3f} GB above the state")
+    require(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+            f"{arch}: {n_steps} steps on one batch did not descend")
+
+    # the bf16 forward's own distance from an fp32 twin; the loss and the
+    # gradient against the twin's; two microbatches against one
+    from repro_torch.optim.optimizers import tree_leaves
+    params = state0["params"]
+    params32 = tree_map(lambda t: t.float(), params)
+    with torch.no_grad():
+        m16 = steps.model_of(cfg, params)
+        twin = steps.model_of(fp32_cfg(cfg), params32)
+        few = {k: v[:2] for k, v in batch.items()}
+        e16 = scaled_err(m16(few)[0], twin(few)[0])[1]
+        del m16, twin
+    torch.cuda.empty_cache()
+
+    def rel_l2(got, want):
+        num = sum(float(((a.float() - b.float()) ** 2).sum())
+                  for a, b in zip(tree_leaves(got), tree_leaves(want)))
+        return math.sqrt(num / sum(float((b.float() ** 2).sum())
+                                   for b in tree_leaves(want)))
+
+    loss32, _, g32 = steps.grads_of(fp32_cfg(cfg), params32, [batch])
+    loss32 = float(loss32)
+    del params32
+    _, _, g1 = steps.grads_of(cfg, params, [batch])
+    e_g16 = rel_l2(g1, g32)
+    del g32
+    torch.cuda.empty_cache()
+    e_loss = abs(losses[0] - loss32) / abs(loss32)
+    _, _, g2 = steps.grads_of(cfg, params, [{k: v[:B // 2] for k, v in
+                                             batch.items()},
+                                            {k: v[B // 2:] for k, v in
+                                             batch.items()}])
+    e_mb = rel_l2(g2, g1)
+    tol_g16 = BF16_FACTOR * e16
+    _, _, g1b = steps.grads_of(cfg, params, [batch])
+    repeat_equal = _tree_diff(g1, g1b) == 0.0
+    del g1, g2, g1b
+    torch.cuda.empty_cache()
+    log(f"[train] {arch}: bf16 forward vs its fp32 twin {e16:.3e}; the bf16 "
+        f"step's loss {losses[0]:.6f} vs the twin's {loss32:.6f}: "
+        f"{e_loss:.3e} (tol {TRAIN_LOSS_TOL:.0e}) "
+        f"{'ok' if e_loss <= TRAIN_LOSS_TOL else 'FAIL'}; the bf16 "
+        f"gradient vs the twin's {e_g16:.3e} (tol {BF16_FACTOR:g} x "
+        f"{e16:.3e} = {tol_g16:.3e}) "
+        f"{'ok' if e_g16 <= tol_g16 else 'FAIL'}; two microbatches vs one, "
+        f"gradients {e_mb:.3e} (tol {TRAIN_MB_TOL:.0e}) "
+        f"{'ok' if e_mb <= TRAIN_MB_TOL else 'FAIL'}; one step's "
+        f"gradients computed twice "
+        f"{'bit-equal' if repeat_equal else 'DIFFER'}")
+    require(e_loss <= TRAIN_LOSS_TOL, f"{arch}: the bf16 loss is off its "
+            "fp32 twin's")
+    require(e_g16 <= tol_g16, f"{arch}: the bf16 gradient is beyond the "
+            "bf16 tolerance from its fp32 twin's")
+    require(e_mb <= TRAIN_MB_TOL, f"{arch}: two microbatches disagree with "
+            "one")
+    out.update(bf16_fwd_vs_fp32=e16, loss_vs_fp32=e_loss,
+               bf16_grad_vs_fp32=e_g16, microbatch_grad_err=e_mb,
+               repeat_bit_equal=repeat_equal)
+
+    # the loop: a failure injected, then bit-identical to the loop without
+    total, every, fail_at = TRAIN_LOOP
+    loader = make_lm_loader(cfg, shape, seed=seed, device=dev)
+    finals, hists = [], []
+    t0 = time.perf_counter()
+    for i, inject in enumerate((None, fail_at)):
+        d = os.path.join(ckdir, f"loop{i}")
+        shutil.rmtree(d, ignore_errors=True)
+        st = steps.init_train_state(cfg, opt, seed, device=dev)
+        # the loop absorbs the injected failure and raises on any other
+        st, hist = train(st, step, loader,
+                         LoopConfig(total_steps=total, ckpt_every=every,
+                                    ckpt_dir=d, log_every=100,
+                                    max_failures=0 if inject is None else 1),
+                         inject_failure_at=inject)
+        finals.append(st)
+        hists.append(hist)
+    loop_s = time.perf_counter() - t0
+    diff = _tree_diff(finals[0], finals[1])
+    plain = [h["step"] for h in hists[0]]
+    redo = [h["step"] for h in hists[1]]
+    resumed_at = fail_at // every * every
+    want_redo = list(range(1, fail_at + 1)) + list(range(resumed_at + 1,
+                                                         total + 1))
+    steps_ok = plain == list(range(1, total + 1)) and redo == want_redo
+    log(f"[train] {arch}: train() {total} steps, checkpoints every {every}, "
+        f"failure at step {fail_at}: steps run {plain} and {redo} (want "
+        f"{want_redo}) {'ok' if steps_ok else 'WRONG'}; final state vs the "
+        f"loop without the failure: max |diff| {diff:.3e} "
+        f"{'bit-identical' if diff == 0.0 else 'DIFFER'}; both loops "
+        f"{loop_s:.1f} s")
+    require(steps_ok, f"{arch}: the loops ran other steps than one injected "
+            "failure explains")
+    require(diff == 0.0, f"{arch}: the resumed loop is not bit-identical")
+    out.update(loop_bit_identical=True, loop_s=loop_s,
+               loop_steps=redo)
+    del finals, state0, params
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train] phase 30 took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_train_moe(dev, seed: int) -> dict:
+    """Phase 31: dbrx-132b at full width, depth cut, Adafactor."""
+    import gc
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.optim.optimizers import OptConfig, tree_leaves
+    from repro_torch.train import steps
+    t_phase = time.perf_counter()
+    arch, layers, B, S, n_steps = TRAIN_MOE
+    full = cb.get_config(arch)
+    cfg = full.replace(n_layers=layers)
+    log(f"[train] {arch}: cut: depth {layers} of {full.n_layers} layers at "
+        f"full width (d = {cfg.d_model}, {cfg.moe.n_experts} experts of "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}); batch {B} x {S}; "
+        f"{cfg.param_dtype}, Adafactor")
+    opt = OptConfig(kind="adafactor", lr=1e-3, warmup_steps=1,
+                    total_steps=n_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    state = steps.init_train_state(cfg, opt, seed, device=dev)
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated(dev) - base
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    # the factored second moments: rows and columns of every 2-D+ leaf
+    moe_p = state["params"]["dec"]["groups"]["p0"]["ffn"]["moe"]
+    moe_v = state["opt"]["v"]["dec"]["groups"]["p0"]["ffn"]["moe"]
+    shapes_ok = True
+    for name in ("wi_gate", "wi_up", "wo"):
+        p, v = moe_p[name].shape, moe_v[name]
+        shapes_ok &= (set(v) == {"vr", "vc"}
+                      and tuple(v["vr"].shape) == tuple(p[:-1])
+                      and tuple(v["vc"].shape) == tuple(p[:-2] + p[-1:]))
+    scale_v = state["opt"]["v"]["dec"]["groups"]["p0"]["norm1"]["scale"]
+    shapes_ok &= set(scale_v) == {"v"}       # one group: (1, D) not factored
+    opt_bytes = sum(t.numel() * 4 for t in tree_leaves(state["opt"]["v"]))
+    batch = make_lm_loader(cfg, cb.ShapeConfig("train", S, B, "train"),
+                           seed=seed, device=dev)(0)
+    step = steps.make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev)
+    state, losses, ms = _timed_steps(step, state, batch, n_steps)
+    peak = torch.cuda.max_memory_allocated(dev) - at_start
+    finite = all(map(math.isfinite, losses)) and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(state["params"]))
+    log(f"[train] {arch} 1 layer: {n_params} params, state "
+        f"{state_bytes / 1e9:.2f} GB (Adafactor's {opt_bytes / 1e6:.1f} MB); "
+        f"expert state shapes {moe_v['wi_gate']['vr'].shape} / "
+        f"{moe_v['wi_gate']['vc'].shape} for {moe_p['wi_gate'].shape} "
+        f"{'ok' if shapes_ok else 'WRONG'}; {n_steps} steps, loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}, ms "
+        f"{' '.join(f'{x:.0f}' for x in ms)}; peak {peak / 1e9:.2f} GB "
+        f"above the state; {'finite' if finite else 'NOT FINITE'}")
+    require(shapes_ok, f"{arch}: the factored state has the wrong shapes")
+    require(finite, f"{arch}: a step is not finite")
+    del state, batch
+    torch.cuda.empty_cache()
+    out = {"params": n_params, "state_gb": state_bytes / 1e9,
+           "losses": losses, "step_ms": ms, "peak_gb_above_state": peak / 1e9,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[train] phase 31 took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_train_mesh(dev, seed: int) -> dict:
+    """Phase 32: the sharded step and moe_ep on a one-rank NCCL mesh."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.models import moe
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.train import steps
+    t_phase = time.perf_counter()
+    cfg = cb.get_reduced_config("smollm_135m")
+    opt = OptConfig(kind="adamw", lr=1e-3, warmup_steps=1, total_steps=10)
+    state = steps.init_train_state(cfg, opt, seed, device=dev)
+    batch = make_lm_loader(cfg, cb.ShapeConfig("train", 32, 8, "train"),
+                           seed=seed, device=dev)(0)
+    ref, mref = steps.make_train_step(cfg, opt)(state, batch)
+    with nccl_group():
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        sharded = steps.shard_state(state, mesh)
+        dstep = steps.make_train_step(cfg, opt, rt=steps.make_runtime(mesh))
+        new, m = dstep(sharded, batch)
+        whole = steps.full_state(new)
+        diff = _tree_diff(whole, ref)
+        dcfg = cb.get_reduced_config("dbrx_132b")
+        dcfg = dcfg.replace(moe=dataclasses.replace(dcfg.moe,
+                                                    capacity_factor=4.0))
+        p = moe.init_moe(seed, dcfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((4, 16, dcfg.d_model), generator=gen, device=dev)
+        errs = {}
+        for name, xs, dropless in (("a2a", x, False),
+                                   ("psum", x[:1, :1], True)):
+            y_ep, _ = moe.moe_ep(p, xs, dcfg, mesh)
+            y_loc, _ = moe.moe_local(p, xs, dcfg, dropless=dropless)
+            errs[name] = scaled_err(y_ep, y_loc)[1]
+        # Adafactor on the shards (expert layers gathered on use) against
+        # the plain step, no token dropped
+        acfg = dcfg.replace(moe=dataclasses.replace(
+            dcfg.moe, capacity_factor=float(dcfg.moe.n_experts)))
+        aopt = OptConfig(kind="adafactor", lr=1e-3, warmup_steps=1,
+                         total_steps=10)
+        ast = steps.init_train_state(acfg, aopt, seed, device=dev)
+        abatch = make_lm_loader(acfg, cb.ShapeConfig("train", 32, 8, "train"),
+                                seed=seed, device=dev)(0)
+        aref, _ = steps.make_train_step(acfg, aopt)(ast, abatch)
+        anew, _ = steps.make_train_step(acfg, aopt,
+                                        rt=steps.make_runtime(mesh))(
+            steps.shard_state(ast, mesh), abatch)
+        ada_err, ada_where = _grad_errs(steps.full_state(anew), aref)
+    ok = diff == 0.0 and float(m["loss"]) == float(mref["loss"])
+    ok_ep = max(errs.values()) <= EP_TOL
+    ok_ada = ada_err <= EP_TOL
+    log(f"[train] one-rank NCCL mesh (data 1, model 1): the sharded step of "
+        f"reduced smollm vs the step without a mesh: max |diff| {diff:.3e}, "
+        f"loss {float(m['loss']):.6f} / {float(mref['loss']):.6f} "
+        f"{'bit-equal' if ok else 'DIFFER'}; moe_ep vs moe_local "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (tol "
+        f"{EP_TOL:.0e}) {'ok' if ok_ep else 'FAIL'}; reduced dbrx's "
+        f"Adafactor step on the shards vs the plain step {ada_err:.2e} "
+        f"(worst leaf {ada_where or '-'}; tol {EP_TOL:.0e}) "
+        f"{'ok' if ok_ada else 'FAIL'}")
+    require(ok, "the sharded step on one rank is not the plain step")
+    require(ok_ep, "moe_ep at mp = 1 disagrees with moe_local")
+    require(ok_ada, "Adafactor on the shards disagrees with the plain step")
+    out = {"sharded_vs_plain": diff, "moe_ep_err": errs,
+           "adafactor_sharded_err": ada_err,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"[train] phase 32 took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_train(dev, seed: int) -> dict:
+    """Phases 29–32 in order; checkpoints under build/train_ckpt/."""
+    out = {"reduced": phase_train_reduced(dev, seed),
+           "smollm": phase_train_smollm(
+               dev, seed, os.path.join(ROOT, "build", "train_ckpt")),
+           "moe": phase_train_moe(dev, seed),
+           "mesh": phase_train_mesh(dev, seed)}
+    out["phase_s"] = sum(v["phase_s"] for v in out.values())
+    log(f"[train] phases 29–32 took {out['phase_s']:.1f} s")
+    return out
+
+
 def direct_rel_error(A, W, H, rows: int = 32_768) -> float:
     """||A − WH||_F / ||A||_F without the trace trick, in row chunks (a
     check only: torch.matmul in fp32 whatever A's and the factors' dtype,
@@ -4194,6 +4651,7 @@ def main(argv=None) -> int:
     model_s = sum(summary[key]["phase_s"]
                   for key in ("models", "smollm", "full_width", "compress"))
     log(f"[compress] phases 26–28 took {model_s:.1f} s")
+    summary["train"] = phase_train(dev, args.seed)
 
     if args.sparse_dim != SPARSE_DIM:
         log(f"[data] cut: sparse m = n = {args.sparse_dim} of {SPARSE_DIM}")

@@ -84,7 +84,7 @@ class ModelConfig:
     # Numerics / memory
     param_dtype: str = "bfloat16"
     dtype: str = "bfloat16"           # activation dtype
-    remat: bool = True                # read; no effect until training lands
+    remat: bool = True                # layer groups recomputed in backward
     remat_policy: str = "full"        # full|dots
     attn_chunk: int = 1024            # blockwise-attention chunk (0 = dense)
     causal_skip: bool = False         # static above-diagonal chunk skipping

@@ -1,8 +1,18 @@
-"""Synthetic NMF data — counterpart of the NMF half of
-``repro/data/pipeline.py``: the dense low-rank matrix, the Erdős–Rényi
-matrix in dense and sparse storage, the streaming ingest generator, and
-the video-like and bag-of-words-like matrices.  The LM generators
-(``lm_batch``, ``make_lm_loader``) go with the LM-seed subsystem.
+"""Deterministic synthetic data — counterpart of
+``repro/data/pipeline.py``: the LM batches (``lm_batch``,
+``make_lm_loader``), the dense low-rank matrix, the Erdős–Rényi matrix in
+dense and sparse storage, the streaming ingest generator, and the
+video-like and bag-of-words-like matrices.
+
+An LM batch is a pure function of (seed, step): no iterator state to
+checkpoint, and a restart replays identical batches.  Tasks: "copy" (the
+second half of each sequence repeats the first: learnable, so training
+visibly descends), "markov" (an order-1 chain over a fixed transition
+table: a stationary cross-entropy floor) and uniform tokens (any other
+name).  Each batch draws from a ``torch.Generator`` seeded with
+``models.common.fold_in(seed, step)`` (splitmix64), on the batch's device;
+the Markov table comes from the fixed seed 7 alone, as the reference's
+from ``PRNGKey(7)``, and is the port's own table, not the reference's.
 
 torch's generators do not reproduce ``jax.random``'s streams, so the same
 seed gives a different matrix than the reference: parity is distributional,
@@ -22,7 +32,89 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.common import fold_in
 from repro_torch.util.device import make_generator, resolve_device
+
+# ------------------------------------------------------------------ LM data
+
+#: the seed of the Markov task's transition table (the reference's
+#: ``PRNGKey(7)``): the same table for every seed and step
+MARKOV_TABLE_SEED = 7
+
+
+def _lm_generator(seed: int, step: int, device) -> torch.Generator:
+    return make_generator(device, fold_in(int(seed), int(step)))
+
+
+def _markov_table(vocab: int, device) -> torch.Tensor:
+    gen = make_generator(device, MARKOV_TABLE_SEED)
+    return torch.randn((vocab, vocab), generator=gen, device=device) * 2.0
+
+
+def lm_batch(seed: int, step: int, *, batch: int, seq: int, vocab: int,
+             task: str = "copy", device=None) -> dict:
+    """{"tokens", "labels"}, each (batch, seq) int32 on ``device`` (cuda
+    unless the caller asks for the CPU): the next-token targets of one
+    (batch, seq + 1) draw, a pure function of (seed, step)."""
+    dev = resolve_device(device)
+    gen = _lm_generator(seed, step, dev)
+    if task == "copy":
+        half = seq // 2
+        first = torch.randint(0, vocab, (batch, half), generator=gen,
+                              device=dev)
+        toks = torch.cat([first, first], dim=1)
+        if toks.shape[1] < seq + 1:
+            pad = torch.randint(0, vocab, (batch, seq + 1 - toks.shape[1]),
+                                generator=_lm_generator(
+                                    fold_in(int(seed), int(step)), 1, dev),
+                                device=dev)
+            toks = torch.cat([toks, pad], dim=1)
+    elif task == "markov":
+        logits = _markov_table(vocab, dev)
+        cur = torch.randint(0, vocab, (batch,), generator=gen, device=dev)
+        cols = [cur]
+        for _ in range(seq):
+            # Gumbel-max: a categorical draw from each row's logits
+            u = torch.rand((batch, vocab), generator=gen, device=dev)
+            gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+            cur = torch.argmax(logits[cur] + gumbel, dim=-1)
+            cols.append(cur)
+        toks = torch.stack(cols, dim=1)
+    else:
+        toks = torch.randint(0, vocab, (batch, seq + 1), generator=gen,
+                             device=dev)
+    toks = toks.to(torch.int32)
+    return {"tokens": toks[:, :seq].contiguous(),
+            "labels": toks[:, 1:seq + 1].contiguous()}
+
+
+def make_lm_loader(cfg, shape, *, seed: int = 0, task: str = "copy",
+                   device=None):
+    """``batch_fn(step)``: the full input dict of an arch for ``shape``
+    (``global_batch`` × ``seq_len``), the modality stubs included
+    (``enc_frames`` / ``img_embeds``, 0.1 · normal in the activation
+    dtype, drawn from ``fold_in(seed + 1, step)``), on ``device``."""
+    dev = resolve_device(device)
+
+    def batch_fn(step):
+        step = int(step)
+        b = lm_batch(seed, step, batch=shape.global_batch,
+                     seq=shape.seq_len, vocab=cfg.vocab, task=task,
+                     device=dev)
+        gen = _lm_generator(seed + 1, step, dev)
+        if cfg.is_encdec:
+            b["enc_frames"] = (0.1 * torch.randn(
+                (shape.global_batch, shape.seq_len, cfg.d_model),
+                generator=gen, device=dev)).to(cfg.dtype_torch)
+        if cfg.frontend == "image_patches":
+            b["img_embeds"] = (0.1 * torch.randn(
+                (shape.global_batch, cfg.num_image_tokens, cfg.d_model),
+                generator=gen, device=dev)).to(cfg.dtype_torch)
+        return b
+    return batch_fn
+
+
+# ----------------------------------------------------------------- NMF data
 
 #: elements per chunk while building a matrix (a 256 MiB fp32 temporary)
 _CHUNK_ELEMS = 1 << 26

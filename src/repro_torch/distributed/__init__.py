@@ -1,2 +1,2 @@
 """Distributed helpers of the port: the compressed panel wire
-(``compression``)."""
+(``compression``) and the parameter sharding rules (``sharding``)."""

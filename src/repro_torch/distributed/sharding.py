@@ -1,0 +1,276 @@
+"""Sharding rules: parameter path → spec, and spec → DTensor placements.
+Counterpart of ``repro/distributed/sharding.py``.
+
+Scheme (MaxText/Megatron conventions, ZeRO-3 style):
+
+  * "fsdp"  — the data axes ("pod", "data"): shards the non-TP dimension of
+    every weight (parameters, grads, optimizer state all ~N/p per rank);
+    the train step all-gathers them for use and reduce-scatters the
+    gradients back — the paper's FAUN panel schedule (core/faun.py).
+  * "tp"    — the "model" axis: heads / ffn / vocab / expert dimension.
+  * replicated — norms, scalar gates, small biases.
+
+A spec is a tuple with one entry per tensor dim: a mesh axis name, a tuple
+of names (the dim split over each in turn, major first), or None.  Rules
+match the "/"-joined parameter path of the port's per-layer layout (the
+group index one more element: ``dec/groups/p0/3/attn/wq``); the first
+regex wins.  Per-layer leaves carry no scan dimension, so a spec is the
+reference's for the stacked leaf without its leading None.
+``to_placements`` turns a spec into DTensor placements on a ``DeviceMesh``
+with named dims.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Sequence
+
+import torch
+
+FSDP = "__fsdp__"
+TP = "__tp__"
+
+# (path regex, spec template over the *trailing* dims of the leaf)
+_RULES: list[tuple[str, tuple]] = [
+    (r"embed/tok$",            (TP, FSDP)),       # vocab × d_model
+    (r"embed/pos$",            (None, FSDP)),
+    (r"unembed$",              (FSDP, TP)),       # d_model × vocab
+    # attention
+    (r"(attn|xattn)/w[qkv]$",  (FSDP, TP)),
+    (r"(attn|xattn)/wo$",      (TP, FSDP)),
+    (r"(attn|xattn)/b[qkv]$",  (TP,)),
+    (r"(attn|xattn)/bo$",      (None,)),
+    # dense MLP / shared expert
+    (r"(mlp|shared)/wi(_gate|_up)?$", (FSDP, TP)),
+    (r"(mlp|shared)/wo$",      (TP, FSDP)),
+    (r"(mlp|shared)/bi$",      (TP,)),
+    (r"(mlp|shared)/bo$",      (None,)),
+    # MoE experts: E over tp (expert parallelism), D over fsdp
+    (r"moe/router$",           (FSDP, None)),
+    (r"moe/wi(_gate|_up)$",    (TP, FSDP, None)),
+    (r"moe/wo$",               (TP, None, FSDP)),
+    # Griffin / xLSTM
+    (r"(wy|wgate|wup)$",       (FSDP, TP)),
+    (r"(wout|wdown)$",         (TP, FSDP)),
+    (r"lru/w[ax]$",            (FSDP, TP)),
+    (r"lru/(lam|b[ax])$",      (TP,)),
+    (r"conv/w$",               (None, TP)),
+    (r"conv/b$",               (TP,)),
+    (r"cell/w[qkv]$",          (FSDP, TP)),
+    (r"cell/w[if]$",           (FSDP, None)),
+    (r"cell/(b[if]|ogate_scale)$", (None,)),
+    (r"cell/r[zifo]$",         (None,)),          # sLSTM recurrent: tiny
+    (r"ffn_(gate|up)$",        (FSDP, TP)),
+    (r"ffn_down$",             (TP, FSDP)),
+    (r"(w[zifo])$",            (FSDP, TP)),       # sLSTM input projections
+]
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """{axis name: size} of a ``DeviceMesh`` with named dims, or of any
+    object with a ``shape`` dict (the reference's meshes)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return {n: mesh.size(i) for i, n in enumerate(names)}
+    return dict(mesh.shape)
+
+
+def path_str(path) -> str:
+    """A key path (a "/"-joined string, or a sequence of keys and
+    indices) as the rules read it."""
+    if isinstance(path, str):
+        return path
+    return "/".join(str(k) for k in path)
+
+
+def _resolve(template: Sequence, fsdp_axes, tp_axis) -> list:
+    out = []
+    for t in template:
+        if t == FSDP:
+            out.append(fsdp_axes if len(fsdp_axes) > 1 else fsdp_axes[0])
+        elif t == TP:
+            out.append(tp_axis)
+        else:
+            out.append(None)
+    return out
+
+
+def _divisible(dim: int, axes, shape: dict) -> bool:
+    if axes is None:
+        return True
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    size = 1
+    for a in axes:
+        size *= shape[a]
+    return dim % size == 0
+
+
+def param_pspec(path, shape, mesh, *, fsdp_axes=("pod", "data"),
+                tp_axis="model") -> tuple:
+    """The spec of one per-layer parameter of ``shape`` at ``path``; falls
+    back dim by dim to replication where a dim does not divide over its
+    axes."""
+    mshape = mesh_shape(mesh)
+    shape = tuple(shape)
+    fsdp_axes = tuple(a for a in fsdp_axes if a in mshape)
+    ps = path_str(path)
+    for pat, template in _RULES:
+        if re.search(pat, ps):
+            spec = _resolve(template, fsdp_axes, tp_axis)
+            break
+    else:
+        spec = [None] * len(shape)
+    while len(spec) < len(shape):
+        spec.insert(0, None)
+    spec = spec[-len(shape):] if len(spec) > len(shape) else spec
+    if not shape:
+        spec = []
+    for i, axes in enumerate(spec):
+        if not _divisible(shape[i], axes, mshape):
+            spec[i] = None
+    return tuple(spec)
+
+
+def to_placements(spec: tuple, mesh) -> list:
+    """DTensor placements of ``spec`` on ``mesh`` (named dims): ``Shard(d)``
+    on each mesh dim named at tensor dim d, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    placements = []
+    for name in mesh.mesh_dim_names:
+        dim = None
+        for d, axes in enumerate(spec):
+            if axes is None:
+                continue
+            if name == axes or (isinstance(axes, tuple) and name in axes):
+                dim = d
+        placements.append(Shard(dim) if dim is not None else Replicate())
+    return placements
+
+
+# ----------------------------------------------------------- activations --
+
+def batch_pspec(mesh, ndim: int, *, fsdp_axes=("pod", "data"),
+                batch_dim_size: int | None = None) -> tuple:
+    """Batch-sharded activation spec; drops axes the batch can't cover
+    (e.g. global_batch=1 long-context cells stay replicated)."""
+    mshape = mesh_shape(mesh)
+    axes = tuple(a for a in fsdp_axes if a in mshape)
+    if batch_dim_size is not None:
+        keep = []
+        prod = 1
+        for a in axes:
+            if batch_dim_size % (prod * mshape[a]) == 0:
+                keep.append(a)
+                prod *= mshape[a]
+        axes = tuple(keep)
+    first = axes if len(axes) > 1 else (axes[0] if axes else None)
+    return (first,) + (None,) * (ndim - 1)
+
+
+def make_constraint_fn(mesh, *, fsdp_axes=("pod", "data"), tp_axis="model",
+                       seq_parallel: bool = False):
+    """The reference's activation constraints as specs: a function
+    ``(shape, kind) -> spec`` (None for a kind that is not constrained):
+    batch over the data axes, "act_btd" sequence-parallel over ``tp_axis``
+    when ``seq_parallel``, "act_btv" vocabulary over it, dims that do not
+    divide replicated.  The port's train step keeps activations
+    rank-local and applies none of them."""
+    mshape = mesh_shape(mesh)
+    axes = tuple(a for a in fsdp_axes if a in mshape)
+    bspec = axes if len(axes) > 1 else (axes[0] if axes else None)
+    specs = {
+        "act_btd": (bspec, tp_axis if seq_parallel else None, None),
+        "act_btv": (bspec, None, tp_axis),
+    }
+
+    def constraint_spec(shape, kind):
+        spec = specs.get(kind)
+        if spec is None:
+            return None
+        return tuple(ax if _divisible(dim, ax, mshape) else None
+                     for dim, ax in zip(shape, spec))
+
+    return constraint_spec
+
+
+def cache_shardings(caches, mesh, batch: int, *, fsdp_axes=("pod", "data"),
+                    tp_axis="model"):
+    """Decode-cache specs, one dict per layer as the caches are: batch over
+    fsdp where divisible; the KV length dimension of attention caches
+    (k, v, ek, ev) over tp (sequence-parallel KV)."""
+    mshape = mesh_shape(mesh)
+    axes = tuple(a for a in fsdp_axes if a in mshape)
+    baxes = axes if len(axes) > 1 else (axes[0] if axes else None)
+
+    def leaf_spec(path: str, leaf) -> tuple:
+        spec = [None] * leaf.ndim
+        if baxes is not None:
+            for i, d in enumerate(leaf.shape):
+                if d == batch and _divisible(d, baxes, mshape):
+                    spec[i] = baxes
+                    break
+        if re.search(r"/(k|v|ek|ev)$", path) and leaf.ndim >= 3:
+            ldim = leaf.ndim - 3          # (..., B, L, KH, hd)
+            if spec[ldim] is None and _divisible(leaf.shape[ldim], tp_axis,
+                                                 mshape):
+                spec[ldim] = tp_axis
+        return tuple(spec)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, f"{path}/{i}") for i, v in enumerate(tree)]
+        return leaf_spec(path, tree)
+
+    return [walk(c, str(layer)) for layer, c in enumerate(caches)]
+
+
+def tree_specs(tree, mesh, prefix=(), **kw):
+    """The spec of every leaf of a train-state tree in the reference's
+    stacked layout (``train.steps``; ``prefix`` the tree's own key path,
+    e.g. ``("opt", "m")``): ``param_pspec`` of the leaf's key path and
+    shape, as the reference's ``state_shardings`` computes it.  A stacked
+    ``groups/p{i}`` leaf gets a leading None for its group dim (no rule
+    reads the group index), and an optimizer leaf the spec its own path
+    gives (``m`` / ``v`` their parameter's; Adafactor's ``vr`` / ``vc`` /
+    ``v`` none)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_specs(v, mesh, prefix + (str(k),), **kw)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_specs(v, mesh, prefix + (str(i),), **kw)
+                for i, v in enumerate(tree)]
+    return param_pspec(prefix, tree.shape, mesh, **kw)
+
+
+def local_slices(shape, spec: tuple, mesh) -> tuple:
+    """The index (one slice per dim) of this rank's shard of a whole
+    tensor of ``shape`` under ``spec``."""
+    mshape = mesh_shape(mesh)
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    out = []
+    for d, axes in enumerate(spec):
+        if axes is None:
+            out.append(slice(None))
+            continue
+        axes = (axes,) if isinstance(axes, str) else axes
+        idx, n = 0, 1
+        for a in axes:
+            idx = idx * mshape[a] + coord[names.index(a)]
+            n *= mshape[a]
+        size = shape[d] // n
+        out.append(slice(idx * size, (idx + 1) * size))
+    return tuple(out)
+
+
+def local_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's shard of a whole tensor ``t`` under ``spec`` (a view;
+    no communication)."""
+    for d, sl in enumerate(local_slices(t.shape, spec, mesh)):
+        if sl != slice(None):
+            t = t.narrow(d, sl.start, sl.stop - sl.start)
+    return t

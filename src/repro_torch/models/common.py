@@ -49,13 +49,18 @@ class KeyGen:
 
 
 def normal(seed: int, shape, *, device) -> torch.Tensor:
-    """Standard normal fp32 draws of ``shape`` on ``device`` from ``seed``."""
+    """Standard normal fp32 draws of ``shape`` on ``device`` from ``seed``
+    (on the ``meta`` device: shape only)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device=device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                        device=device)
 
 
 def uniform(seed: int, shape, lo: float, hi: float, *, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device=device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     return torch.empty(tuple(shape), dtype=torch.float32,
                        device=device).uniform_(lo, hi, generator=gen)

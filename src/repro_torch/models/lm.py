@@ -65,9 +65,10 @@ class LM(nn.Module):
     reference's parameter key paths (``embed.tok``, ``dec.groups.p0.3.
     attn.wq`` for group 3 of ``dec/groups/p0/attn/wq``, ``dec.tail.0.…``,
     ``final_norm.scale``, ``unembed``).  ``params`` (the port's per-layer
-    tree of tensors, see ``init_params``) replaces the seeded init.
-    ``cfg.remat`` / ``remat_policy`` have no effect until training lands
-    (ROADMAP.md item 12b)."""
+    tree of tensors, see ``init_params``) replaces the seeded init; its
+    tensors become the parameters' storage (``train.steps`` passes views
+    of its stacked leaves).  A training forward honours ``cfg.remat``
+    (``transformer.Stack``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
                  params: Params | None = None):
@@ -129,20 +130,20 @@ class LM(nn.Module):
         w = self.embed.tok.T if self.cfg.tie_embeddings else self.unembed
         return (x @ w.to(x.dtype)).float()
 
-    def _encode(self, enc_inputs):
+    def _encode(self, enc_inputs, rt=tf.NULL_RT):
         """Encoder for enc-dec (audio) models: frames (B, S_enc, D)."""
         cfg = self.cfg
         x = enc_inputs.to(cfg.dtype_torch)
         if cfg.pos_kind in ("sinusoidal", "learned"):
             x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
                                          device=x.device)[None]
-        x, _ = self.enc(x, mode="train")
+        x, _ = self.enc(x, mode="train", rt=rt)
         return apply_norm(self.enc_norm, x, cfg.norm_kind)
 
-    def context(self, batch):
+    def context(self, batch, rt=tf.NULL_RT):
         """Cross-attention context from the modality stub, if any."""
         if self.cfg.is_encdec:
-            return self._encode(batch["enc_frames"])
+            return self._encode(batch["enc_frames"], rt)
         if self.cfg.frontend == "image_patches":
             return batch["img_embeds"].to(self.cfg.dtype_torch)
         return None
@@ -153,12 +154,12 @@ class LM(nn.Module):
         """Full-sequence forward.  batch: {tokens, [enc_frames|img_embeds]}.
         Returns (logits fp32 (B,S,V), caches, aux); ``caches`` (from
         ``init_caches``) are filled in place: the prefill mode."""
-        return self._forward(batch, self.context(batch), caches, rt)
+        return self._forward(batch, self.context(batch, rt), caches, rt)
 
     def _forward(self, batch, ctx, caches, rt):
         x = rt.shard(self.embed_tokens(batch["tokens"]), "act_btd")
         x, aux = self.dec(x, mode="prefill" if caches is not None
-                          else "train", caches=caches, ctx=ctx)
+                          else "train", caches=caches, ctx=ctx, rt=rt)
         x = apply_norm(self.final_norm, x, self.cfg.norm_kind)
         return rt.shard(self.logits(x), "act_btv"), caches, aux
 
@@ -184,7 +185,7 @@ class LM(nn.Module):
         """Run the prompt, building decode caches.  Returns (logits,
         caches)."""
         B = batch["tokens"].shape[0]
-        ctx = self.context(batch)
+        ctx = self.context(batch, rt)
         enc_len = ctx.shape[1] if ctx is not None else 0
         caches = self.init_caches(B, kv_len, enc_len)
         logits, caches, _ = self._forward(batch, ctx, caches, rt)
@@ -197,8 +198,8 @@ class LM(nn.Module):
         caches), the caches written in place."""
         x = self.embed.tok[tokens].to(self.cfg.dtype_torch)
         x = self._decode_pos_embed(x, pos)
-        x, _ = self.dec(x, mode="decode", caches=caches, pos=pos, ctx=ctx)
-        del rt
+        x, _ = self.dec(x, mode="decode", caches=caches, pos=pos, ctx=ctx,
+                        rt=rt)
         x = apply_norm(self.final_norm, x, self.cfg.norm_kind)
         return self.logits(x), caches
 

@@ -1,16 +1,36 @@
-"""Mixture-of-Experts FFN with capacity-based dispatch.  Counterpart of
-``repro/models/moe.py``'s ``local`` path: tokens routed to (E, C) slots via
-a sort-based rank computation, experts applied as one batched product.
-Flops are honest: E·C·d·ff with E·C = tokens·top_k·capacity_factor.
+"""Mixture-of-Experts FFN with capacity-based dispatch and expert
+parallelism.  Counterpart of ``repro/models/moe.py``.
+
+Two execution paths share one dispatch algorithm:
+
+* ``moe_local``: one device — tokens routed to (E, C) slots via a
+  sort-based rank computation, experts applied as one batched product.
+  Flops are honest: E·C·d·ff with E·C = tokens·top_k·capacity_factor.
+* ``moe_ep``: expert parallelism over the "model" dim of a
+  ``DeviceMesh``, the reference's ``shard_map`` body on each rank.  The
+  rank holds its own shard of the batch (split over the data dims),
+  replicated over "model"; when the tokens divide it (1) takes its
+  sequence shard over "model", (2) routes locally with per-shard
+  capacity, (3) all-to-alls the slots to their experts' ranks, (4) runs
+  its E/mp experts, (5) all-to-alls back and combines, (6) all-gathers
+  the token shards.  Otherwise (decode-sized inputs) each rank runs its
+  own experts on every token and the outputs are summed over "model".
+
+The collectives are differentiable, each with the transpose the
+reference's ``shard_map`` gives it: a replicated input enters the
+expert region through ``_Enter`` (identity; its gradient is summed over
+"model"), the output leaves through ``_GatherShards`` / ``_SumShards``
+(all-gather / all-reduce; the gradient of a replicated output is each
+rank's own slice / itself), and ``_AllToAll`` sends gradients back the
+way the slots came.  So every rank's gradients are the same across
+"model", and the data-parallel step averages them over the data dims;
+expert weights passed as the rank's own E/mp rows keep a gradient of
+those rows alone (no all-reduce over "model").
 
 Router: softmax top-k (``lax.top_k``'s tie order), Switch-style
 load-balance auxiliary loss + z-loss.  Overflowed tokens (beyond capacity)
 are dropped (their combine weight is 0), standard for capacity-based MoE
 at scale.
-
-The reference's expert-parallel path (``moe_ep``, under ``shard_map``) is
-reached only through a ``Runtime`` with a mesh, which only training builds;
-it goes with the training slice (ROADMAP.md item 12b).
 """
 
 from __future__ import annotations
@@ -18,6 +38,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.common import KeyGen, dense_init, normal, silu
 from repro_torch.util.order import top_k
@@ -142,10 +163,185 @@ def _shared_ffn(p, x):
     return (silu(g) * u) @ p["wo"].to(x.dtype)
 
 
-def moe_ep(*args, **kwargs):
-    """Expert parallelism over a mesh: goes with training (item 12b)."""
-    del args, kwargs
-    raise NotImplementedError(
-        "moe_ep (expert parallelism over a device mesh) goes with the "
-        "training slice, ROADMAP.md queue 1 item 12b; the port's MoE runs "
-        "moe_local on one device")
+# --------------------------------------------------------------------- EP --
+
+class _Enter(torch.autograd.Function):
+    """A tensor replicated over ``group`` entering per-rank work: the
+    identity forward, its gradient summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumShards(torch.autograd.Function):
+    """Per-rank partial results summed over ``group`` into a replicated
+    tensor (``psum``): the gradient of the replicated sum is each rank's
+    own."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherShards(torch.autograd.Function):
+    """Row shards gathered over ``group`` in rank order (``all_gather``,
+    tiled on dim 0): the gradient of the replicated whole is each rank's
+    own rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n = dist.get_world_size(group)
+        ctx.rank, ctx.rows = dist.get_rank(group), x.shape[0]
+        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        r0 = ctx.rank * ctx.rows
+        return g[r0:r0 + ctx.rows], None
+
+
+class _AllToAll(torch.autograd.Function):
+    """Equal chunks of dim 0 exchanged over ``group``: chunk j goes to rank
+    j, and chunk j of the result came from rank j.  The gradient goes back
+    the same way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+class _MeanAux(torch.autograd.Function):
+    """The router loss averaged over the data and model groups (the
+    reference's ``pmean``).  Every rank's loss carries the average; the
+    data-parallel step averages gradients over the data dims, so a rank
+    passes ``1/mp`` of its cotangent to its own term and the expert
+    region's entry sums those over "model"."""
+
+    @staticmethod
+    def forward(ctx, aux, groups, mp):
+        ctx.mp = mp
+        out = aux.detach().clone()
+        n = 1
+        for g in groups:
+            dist.all_reduce(out, group=g)
+            n *= dist.get_world_size(g)
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.mp, None, None
+
+
+def moe_ep(p, x, cfg, mesh, *, data_axes=("pod", "data"), model_axis="model"):
+    """Expert-parallel MoE (see the module docstring).  ``mesh`` is a
+    ``DeviceMesh`` with a ``model_axis`` dim; ``x`` (B, S, D) is this
+    rank's shard of the batch, the same on every rank of its "model"
+    group.  Each rank runs experts ``my·E/mp … (my+1)·E/mp``.  The expert
+    tensors are either whole (E rows, the same on every rank: the rank
+    takes its rows, and their gradient is summed over "model") or this
+    rank's own E/mp rows (as the train step passes them: their gradient
+    stays the rank's own).  Returns (y (B, S, D) replicated over "model",
+    aux)."""
+    group = mesh.get_group(model_axis)
+    mp = dist.get_world_size(group)
+    my = dist.get_rank(group)
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    if E % mp:
+        raise ValueError(f"{E} experts do not divide over {mp} ranks")
+    names = tuple(mesh.mesh_dim_names)
+    dgroups = [mesh.get_group(a) for a in data_axes if a in names]
+    e_loc = E // mp
+    B, S, D = x.shape
+    T = B * S
+    x_flat = _Enter.apply(x, group).reshape(T, D)
+    rw = _Enter.apply(p["router"], group)
+    lo = my * e_loc
+    rows = p["wi_gate"].shape[0]
+    if rows == E:
+        wg = _Enter.apply(p["wi_gate"], group)[lo:lo + e_loc]
+        wu = _Enter.apply(p["wi_up"], group)[lo:lo + e_loc]
+        wo = _Enter.apply(p["wo"], group)[lo:lo + e_loc]
+    elif rows == e_loc:
+        wg, wu, wo = p["wi_gate"], p["wi_up"], p["wo"]
+    else:
+        raise ValueError(f"expert tensors of {rows} rows: neither all {E} "
+                         f"experts nor this rank's {e_loc}")
+
+    if T % mp == 0 and T >= mp:
+        # sequence-shard the tokens over the model group
+        t = T // mp
+        xs = x_flat[my * t:(my + 1) * t]
+        capacity = max(int(t * K * cfg.moe.capacity_factor / E), 1)
+
+        def expert_fn(slots):                     # (E, C, D) on every rank
+            recv = _AllToAll.apply(slots.reshape(mp, e_loc, capacity, D),
+                                   group)
+            # recv (mp, E_loc, C, D): slots for my experts, peer-major
+            mine = recv.transpose(0, 1).reshape(e_loc, mp * capacity, D)
+            out = _expert_ffn(wg, wu, wo, mine)
+            out = out.reshape(e_loc, mp, capacity, D).transpose(0, 1)
+            back = _AllToAll.apply(out.contiguous(), group)
+            return back.reshape(E, capacity, D)
+
+        out, aux = _dispatch_combine({"router": rw}, xs, cfg, capacity,
+                                     expert_fn)
+        out = _GatherShards.apply(out, group)
+    else:
+        # tiny token counts (decode): every rank runs its own experts on
+        # every token; the outputs are summed over the model group
+        expert_idx, weights, aux, z = _route(rw, x_flat, cfg)
+        aux = aux + z
+        local = expert_idx - lo
+        onehot = (local[..., None] == torch.arange(
+            e_loc, device=x.device)).float()      # 0 outside my experts
+        w_loc = torch.einsum("tk,tke->te", weights, onehot)   # (T, E_loc)
+        h = torch.einsum("td,edf->tef", x_flat, wg.to(x_flat.dtype))
+        u = torch.einsum("td,edf->tef", x_flat, wu.to(x_flat.dtype))
+        o = torch.einsum("tef,efd->ted", silu(h) * u, wo.to(x_flat.dtype))
+        out = torch.einsum("ted,te->td", o.float(), w_loc)
+        out = _SumShards.apply(out.to(x_flat.dtype), group)
+
+    out = out.reshape(B, S, D)
+    shared = p.get("shared")
+    if shared is not None:
+        # the shared expert tensor-parallel over "model": F split, summed
+        F = shared["wi_gate"].shape[1]
+        if F % mp:
+            raise ValueError(f"the shared expert's {F} columns do not "
+                             f"divide over {mp} ranks")
+        f0, fl = my * (F // mp), F // mp
+        sg = _Enter.apply(shared["wi_gate"], group)[:, f0:f0 + fl]
+        su = _Enter.apply(shared["wi_up"], group)[:, f0:f0 + fl]
+        so = _Enter.apply(shared["wo"], group)[f0:f0 + fl]
+        x_in = x_flat.reshape(B, S, D)
+        y = (silu(x_in @ sg.to(x.dtype)) * (x_in @ su.to(x.dtype))) \
+            @ so.to(x.dtype)
+        out = out + _SumShards.apply(y, group)
+    aux = _MeanAux.apply(aux, dgroups + [group], mp)
+    return out, aux

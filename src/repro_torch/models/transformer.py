@@ -19,8 +19,14 @@ either the module or a plain dict.  The reference stacks each pattern
 position's parameters over groups and runs the stack as one ``lax.scan``;
 here the stack is a loop over the layer modules, and layer ℓ is group
 g = ℓ // period at position i = ℓ % period (``dec.groups.p{i}.{g}``), then
-the tail (``dec.tail.{t}``).  ``cfg.remat`` / ``remat_policy`` are read
-and have no effect until training lands (ROADMAP.md item 12b).
+the tail (``dec.tail.{t}``).  Under ``cfg.remat`` a training forward
+runs each layer group (one pass over the pattern) under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+``jax.checkpoint`` on the reference's scan body: its activations are
+recomputed in the backward pass.  ``remat_policy="dots"`` keeps the matrix
+products' outputs (selective activation checkpointing, the reference's
+``dots_saveable``); the tail layers run without remat, as the reference's
+unrolled tail does.
 
 Every block supports three modes sharing parameters:
   train/prefill: full-sequence; prefill fills the decode caches;
@@ -90,9 +96,14 @@ def _init_ffn(seed, cfg, *, device):
     return {"mlp": init_mlp(seed, cfg, device=device)}
 
 
-def _apply_ffn(p, x, cfg, mode="train"):
-    """(y, aux): aux is the MoE router loss, or 0.0 without MoE."""
+def _apply_ffn(p, x, cfg, mode="train", rt=None):
+    """(y, aux): aux is the MoE router loss, or 0.0 without MoE.  A
+    runtime over a mesh with an expert axis runs expert parallelism."""
     if "moe" in p:
+        if rt is not None and rt.mesh is not None and rt.ep_axis is not None:
+            return moe_lib.moe_ep(p["moe"], x, cfg, rt.mesh,
+                                  data_axes=rt.data_axes,
+                                  model_axis=rt.ep_axis)
         return moe_lib.moe_local(p["moe"], x, cfg,
                                  dropless=(mode == "decode"))
     return apply_mlp(p["mlp"], x, cfg), 0.0
@@ -101,24 +112,34 @@ def _apply_ffn(p, x, cfg, mode="train"):
 # ----------------------------------------------------------- runtime context
 
 class Runtime:
-    """Mesh context for in-model parallel decisions.  Only the mesh-less
-    single-device runtime exists here: expert parallelism and sharding
-    constraints over a mesh go with training (ROADMAP.md item 12b)."""
+    """Mesh context for in-model parallel decisions (expert parallelism,
+    parameters gathered on use).  ``mesh`` is a ``DeviceMesh`` with named
+    dims (None: one device).  The model runs on each rank's own shard of
+    the batch (``train.steps``): ``data_axes`` are the mesh dims the batch
+    is split over, and a mesh with an ``ep_axis`` dim runs the MoE layers
+    expert-parallel over it (``moe.moe_ep``)."""
 
     def __init__(self, mesh=None, data_axes=("pod", "data"), ep_axis="model",
-                 constraint_fn=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a Runtime over a device mesh (expert parallelism, sharding "
-                "constraints) goes with the training slice, ROADMAP.md "
-                "queue 1 item 12b")
-        del data_axes, ep_axis
-        self.constraint_fn = constraint_fn
+                 param_fn=None):
+        names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+        self.mesh = mesh
+        self.data_axes = tuple(a for a in data_axes if a in names)
+        self.ep_axis = ep_axis if ep_axis in names else None
+        self.param_fn = param_fn
 
     def shard(self, x, kind: str):
-        if self.constraint_fn is None:
-            return x
-        return self.constraint_fn(x, kind)
+        """The reference's activation constraint: the identity, as every
+        activation here is rank-local (no sharding over "model")."""
+        del kind
+        return x
+
+    def use(self, block):
+        """The parameters a layer computes with: the block itself, or what
+        ``param_fn`` makes of it at the moment of use (the sharded train
+        step gathers the layer's shards there)."""
+        if self.param_fn is None:
+            return block
+        return self.param_fn(block)
 
 
 NULL_RT = Runtime()
@@ -228,7 +249,8 @@ def _cross_attention(p, h, cfg, *, ctx, cache, mode):
     return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"].to(h.dtype)
 
 
-def apply_attn_block(p, x, cfg, *, kind, mode, cache, pos, ctx):
+def apply_attn_block(p, x, cfg, *, kind, mode, cache, pos, ctx,
+                     rt=None):
     causal = cfg.family != "audio_encoder" and kind != "enc_attn"
     window = cfg.window if kind == "local_attn" else 0
 
@@ -244,7 +266,7 @@ def apply_attn_block(p, x, cfg, *, kind, mode, cache, pos, ctx):
                                  mode=mode)
 
     h = apply_norm(p["norm2"], x, cfg.norm_kind)
-    y, aux = _apply_ffn(p["ffn"], h, cfg, mode)
+    y, aux = _apply_ffn(p["ffn"], h, cfg, mode, rt)
     return x + y, aux
 
 
@@ -265,14 +287,14 @@ def init_xattn_block(seed, cfg, *, device):
     }
 
 
-def apply_xattn_block(p, x, cfg, *, mode, cache, ctx):
+def apply_xattn_block(p, x, cfg, *, mode, cache, ctx, rt=None):
     """Llama-3.2-vision style gated cross-attention layer."""
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
     xc = cache.get("cross") if cache is not None else None
     out = _cross_attention(p["xattn"], h, cfg, ctx=ctx, cache=xc, mode=mode)
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
     h = apply_norm(p["norm2"], x, cfg.norm_kind)
-    y, aux = _apply_ffn(p["ffn"], h, cfg, mode)
+    y, aux = _apply_ffn(p["ffn"], h, cfg, mode, rt)
     return x + torch.tanh(p["gate_ffn"]).to(x.dtype) * y, aux
 
 
@@ -297,7 +319,7 @@ def init_rglru_block(seed, cfg, *, device):
     }
 
 
-def apply_rglru_block(p, x, cfg, *, mode, cache):
+def apply_rglru_block(p, x, cfg, *, mode, cache, rt=None):
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
     y = h @ p["wy"].to(h.dtype)
     gate = gelu(h @ p["wgate"].to(h.dtype))
@@ -311,7 +333,7 @@ def apply_rglru_block(p, x, cfg, *, mode, cache):
         y, new_h = rec_lib.rglru_scan(p["lru"], yc, c=cfg.rglru_c)
     x = x + (y * gate) @ p["wout"].to(x.dtype)
     h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
-    z, aux = _apply_ffn(p["ffn"], h2, cfg, mode)
+    z, aux = _apply_ffn(p["ffn"], h2, cfg, mode, rt)
     if cache is not None:
         cache["h"].copy_(new_h)
         cache["conv"].copy_(new_conv)
@@ -409,45 +431,58 @@ def apply_slstm_block(p, x, cfg, *, mode, cache):
 
 class Block(ParamTree):
     """One layer: the reference's parameter dict of its kind as a
-    ``ParamTree``; ``forward(x, *, mode, cache, pos, ctx)`` returns
+    ``ParamTree``; ``forward(x, *, mode, cache, pos, ctx, rt)`` returns
     (x, aux) and writes ``cache`` (this layer's dict, or None) in place."""
 
     def __init__(self, cfg, kind: str, tree):
         super().__init__(tree)
         self.cfg, self.kind = cfg, kind
 
+    def params(self, rt):
+        """This layer's parameters as ``rt`` has them used."""
+        return self if rt is None else rt.use(self)
+
 
 class AttnBlock(Block):
     """``attn``, ``local_attn``, ``attn_cross`` and ``enc_attn``."""
 
-    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
-        return apply_attn_block(self, x, self.cfg, kind=self.kind, mode=mode,
-                                cache=cache, pos=pos, ctx=ctx)
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None,
+                rt=None):
+        return apply_attn_block(self.params(rt), x, self.cfg, kind=self.kind,
+                                mode=mode, cache=cache, pos=pos, ctx=ctx,
+                                rt=rt)
 
 
 class XAttnBlock(Block):
-    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None,
+                rt=None):
         del pos
-        return apply_xattn_block(self, x, self.cfg, mode=mode, cache=cache,
-                                 ctx=ctx)
+        return apply_xattn_block(self.params(rt), x, self.cfg, mode=mode,
+                                 cache=cache, ctx=ctx, rt=rt)
 
 
 class RGLRUBlock(Block):
-    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None,
+                rt=None):
         del pos, ctx
-        return apply_rglru_block(self, x, self.cfg, mode=mode, cache=cache)
+        return apply_rglru_block(self.params(rt), x, self.cfg, mode=mode,
+                                 cache=cache, rt=rt)
 
 
 class MLSTMBlock(Block):
-    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None,
+                rt=None):
         del pos, ctx
-        return apply_mlstm_block(self, x, self.cfg, mode=mode, cache=cache)
+        return apply_mlstm_block(self.params(rt), x, self.cfg, mode=mode,
+                                 cache=cache)
 
 
 class SLSTMBlock(Block):
-    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None):
+    def forward(self, x, *, mode="train", cache=None, pos=0, ctx=None,
+                rt=None):
         del pos, ctx
-        return apply_slstm_block(self, x, self.cfg, mode=mode, cache=cache)
+        return apply_slstm_block(self.params(rt), x, self.cfg, mode=mode,
+                                 cache=cache)
 
 
 BLOCKS = {"attn": AttnBlock, "local_attn": AttnBlock,
@@ -556,6 +591,7 @@ class Stack(nn.Module):
 
     def __init__(self, cfg, pattern, n_layers: int, tree):
         super().__init__()
+        self.cfg = cfg
         period, n_groups, tail = layer_kinds(pattern, n_layers)
         self.groups = None
         if n_groups > 0:
@@ -580,13 +616,65 @@ class Stack(nn.Module):
                       for k, ml in self.groups.items()}
         return {"groups": groups, "tail": [b.tree() for b in self.tail]}
 
-    def forward(self, x, *, mode="train", caches=None, pos=0, ctx=None):
+    def forward(self, x, *, mode="train", caches=None, pos=0, ctx=None,
+                rt=None):
         """Returns (x, aux_sum); ``caches`` (one dict per layer) are
-        written in place."""
+        written in place.  A training forward with gradients runs each
+        layer group under remat when ``cfg.remat`` is set."""
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer, blk in enumerate(self.layers()):
-            c = caches[layer] if caches is not None else None
-            x, aux = blk(x, mode=mode, cache=c, pos=pos, ctx=ctx)
-            if torch.is_tensor(aux):
-                aux_total = aux_total + aux
+        layers = self.layers()
+        remat = (self.cfg.remat and mode == "train" and caches is None
+                 and torch.is_grad_enabled())
+        n_grouped = self._period * self._n_groups
+        start = 0
+        while start < len(layers):
+            span = self._period if start < n_grouped else 1
+            blocks = layers[start:start + span]
+            if remat and start < n_grouped:
+                x, aux_total = _checkpoint(blocks, x, aux_total, ctx, rt,
+                                           policy=self.cfg.remat_policy)
+            else:
+                x, aux_total = _run_blocks(
+                    blocks, x, aux_total, ctx, rt, mode=mode,
+                    caches=None if caches is None
+                    else caches[start:start + span], pos=pos)
+            start += span
         return x, aux_total
+
+
+def _run_blocks(blocks, x, aux_total, ctx, rt, *, mode="train", caches=None,
+                pos=0):
+    """Layers in order: (x, ``aux_total`` plus their aux, fp32)."""
+    for i, blk in enumerate(blocks):
+        c = caches[i] if caches is not None else None
+        x, aux = blk(x, mode=mode, cache=c, pos=pos, ctx=ctx, rt=rt)
+        if torch.is_tensor(aux):
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+#: aten products whose outputs ``remat_policy="dots"`` keeps
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    del ctx, args, kwargs
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint(blocks, x, aux_total, ctx, rt, *, policy: str):
+    """``_run_blocks`` under non-reentrant activation checkpointing;
+    "dots" keeps the products' outputs."""
+    import functools
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif policy != "full":
+        raise ValueError(f"unknown remat_policy {policy!r}")
+    return ckpt.checkpoint(_run_blocks, blocks, x, aux_total, ctx, rt,
+                           use_reentrant=False, **kw)

@@ -1,0 +1,588 @@
+"""Train/serve step factories.  Counterpart of ``repro/train/steps.py``.
+
+``make_train_step`` returns a (state, batch) -> (state, metrics) function:
+forward + backward (each layer group under remat when ``cfg.remat``),
+global-norm clip, AdamW / Adafactor / sgd.  It does not write the state
+it is given: it returns a new one.
+
+The train state is ``{"params", "opt", "step"}`` in the reference's
+layout: ``params`` the reference's nested dict with each stack's
+``groups/p{i}`` leaves stacked over the layer groups (``util.convert.
+stack_params``), ``opt`` mirroring it (``optim.optimizers``), ``step`` an
+int32 scalar.  So the optimizer sees the reference's leaf shapes, and
+``checkpoint.save`` / ``restore`` write and read the reference's key
+paths.  The step runs an ``LM`` whose per-layer parameters are views of
+the stacked leaves, takes each layer's gradient and stacks them again.
+
+Under a mesh (a ``Runtime`` over a ``DeviceMesh`` with named dims, see
+``make_runtime``) the state is sharded ZeRO-3 style: every parameter and
+optimizer leaf is a DTensor with the rule's placements
+(``distributed.sharding``; ``shard_state``), so a rank holds about 1/p of
+each sharded leaf.  A step runs the local model on the rank's shard of
+the batch (split over the data dims, replicated over "model").  Each
+layer gathers its parameter shards where it runs (``_GatherOnUse``;
+inside a remat group the recompute gathers them again, so no gathered
+layer outlives its group) and its backward reduce-scatters their
+gradients, averaged over the data dims, to the rule's placements; the
+embeddings, final norms and frontends are gathered once a step.  MoE
+layers run expert-parallel over "model": their expert weights are
+gathered over the data dims only, so a rank holds and differentiates its
+own E/mp experts, and their gradients need no exchange over "model".
+AdamW and sgd update each rank's shard (the global norm summed over the
+shards); Adafactor too, its row and column statistics summed over the
+shards (``_adafactor_sharded``).  Activations are not sharded over
+"model": ``Runtime.shard`` is the identity on rank-local tensors, and
+``seq_parallel`` is refused.
+"""
+
+from __future__ import annotations
+
+import logging
+import re
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shard_rules
+from repro_torch.models import lm as lm_lib
+from repro_torch.models.lm import LM
+from repro_torch.models.transformer import NULL_RT, Runtime
+from repro_torch.optim.optimizers import (OptConfig, _decay, _factored,
+                                          apply_updates,
+                                          clip_by_global_norm,
+                                          init_opt_state, schedule,
+                                          tree_leaves, tree_map)
+from repro_torch.util.convert import stack_params, unstack_params
+
+# DTensor warns on every gather over two mesh dims of one tensor dim
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+
+
+def make_runtime(mesh, *, seq_parallel: bool = False) -> Runtime:
+    """The model's runtime over ``mesh`` (None: one device).  Activations
+    stay rank-local, so sequence parallelism is not available."""
+    if seq_parallel:
+        raise NotImplementedError(
+            "seq_parallel: activations are not sharded over \"model\" "
+            "(the activation-sharding gap, ROADMAP.md queue 1 item 12c)")
+    if mesh is None:
+        return NULL_RT
+    return Runtime(mesh=mesh)
+
+
+def init_train_state(cfg: ModelConfig, opt_cfg: OptConfig, seed: int = 0, *,
+                     device=None) -> dict:
+    """The seeded init of ``LM(cfg, seed=)`` in the reference's stacked
+    layout, its optimizer state and step 0, on ``device`` (cuda unless the
+    caller asks for the CPU)."""
+    params = stack_params(LM(cfg, device=device, seed=seed).tree())
+    dev = tree_leaves(params)[0].device
+    return {"params": params,
+            "opt": init_opt_state(opt_cfg.kind, params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def train_state_specs(cfg: ModelConfig, opt_cfg: OptConfig) -> dict:
+    """The train state's tensors on the ``meta`` device (shapes and
+    dtypes, nothing allocated)."""
+    params = stack_params(lm_lib.init_params(cfg, 0,
+                                             device=torch.device("meta")))
+    return {"params": params, "opt": init_opt_state(opt_cfg.kind, params),
+            "step": torch.zeros((), dtype=torch.int32, device="meta")}
+
+
+def state_specs(state_spec, mesh) -> dict:
+    """Spec tuples of every state leaf: params by rule; optimizer leaves by
+    their own key paths (moments inherit their param's spec, Adafactor's
+    statistics match no rule); scalars replicated."""
+    return {"params": shard_rules.tree_specs(state_spec["params"], mesh,
+                                             ("params",)),
+            "opt": shard_rules.tree_specs(state_spec["opt"], mesh, ("opt",)),
+            "step": ()}
+
+
+def state_shardings(state_spec, mesh) -> dict:
+    """DTensor placements of every state leaf on ``mesh``."""
+    return _zip_specs(
+        lambda _t, spec, _path: shard_rules.to_placements(spec, mesh),
+        state_spec, state_specs(state_spec, mesh))
+
+
+def batch_shardings(batch_spec, mesh) -> dict:
+    """DTensor placements of every batch leaf: dim 0 over the data axes
+    it divides."""
+    return {k: shard_rules.to_placements(
+        shard_rules.batch_pspec(mesh, v.ndim, batch_dim_size=v.shape[0]),
+        mesh) for k, v in batch_spec.items()}
+
+
+# ------------------------------------------------------ sharded state --
+
+def shard_state(state, mesh) -> dict:
+    """Each parameter and optimizer leaf of a whole ``state`` (the same on
+    every rank) as a DTensor holding this rank's shard (no
+    communication); scalars stay plain tensors."""
+    return _reshard(state, state_specs(state, mesh), mesh)
+
+
+def _zip_specs(fn, tree, specs, path=()):
+    """``fn(leaf, spec, key path)`` over a tree and its spec tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, tree[k], specs[k], path + (k,))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [_zip_specs(fn, v, sp, path + (i,))
+                for i, (v, sp) in enumerate(zip(tree, specs))]
+    return fn(tree, specs, path)
+
+
+def full_state(state) -> dict:
+    """The whole state on every rank (a DTensor leaf all-gathered; a
+    collective on a sharded state), e.g. for a checkpoint."""
+    return tree_map(_full, state)
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        with torch.no_grad():
+            return t.full_tensor()
+    return t
+
+
+# ------------------------------------------------------------ the step --
+
+def model_of(cfg: ModelConfig, params) -> LM:
+    """An ``LM`` over a stacked parameter tree: its per-layer parameters
+    are views of the tree's tensors (no copy)."""
+    return LM(cfg, params=unstack_params(params))
+
+
+def _grad_slots(model: LM):
+    """(the model's parameters, each one's key path in the stacked tree and
+    its group index, None where the leaf is not stacked)."""
+    params, slots = [], []
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] in ("enc", "dec") and parts[1] == "groups":
+            path, g = (parts[0], "groups", parts[2]) + tuple(parts[4:]), \
+                int(parts[3])
+        elif parts[0] in ("enc", "dec") and parts[1] == "tail":
+            path, g = (parts[0], "tail", int(parts[2])) + tuple(parts[3:]), \
+                None
+        else:
+            path, g = tuple(parts), None
+        params.append(p)
+        slots.append((path, g))
+    return params, slots
+
+
+def _restack(template, slots, grads):
+    """The gradients in the stacked tree's layout (``template``'s)."""
+    groups: dict = {}
+    out = tree_map(lambda _t: None, template)
+    for (path, g), grad in zip(slots, grads):
+        if g is None:
+            _set(out, path, grad)
+        else:
+            groups.setdefault(path, {})[g] = grad
+    for path, per_group in groups.items():
+        _set(out, path, torch.stack([per_group[g]
+                                     for g in range(len(per_group))]))
+    return out
+
+
+def _set(tree, path, value):
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = value
+
+
+def _split(batch, n: int) -> list:
+    """``batch`` cut into ``n`` equal parts along dim 0."""
+    B = next(iter(batch.values())).shape[0]
+    if B % n:
+        raise ValueError(f"a batch of {B} does not split into {n} "
+                         f"microbatches")
+    size = B // n
+    return [{k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            for i in range(n)]
+
+
+def grads_of(cfg, params, batches, *, rt=NULL_RT, runtime_for=None):
+    """(loss, metrics of the last microbatch, gradients in the stacked
+    layout) of the mean loss over ``batches`` (a list of batches: the
+    microbatches); with more than one, the gradients are accumulated in
+    fp32 as g/n, as the reference's scan does.  ``runtime_for(leaves,
+    slots)``, where given, makes the runtime from the model's parameters
+    and their slots (``_grad_slots``)."""
+    model = model_of(cfg, params)
+    leaves, slots = _grad_slots(model)
+    if runtime_for is not None:
+        rt = runtime_for(leaves, slots)
+    n = len(batches)
+    loss_acc, acc, metrics = None, None, None
+    for b in batches:
+        loss, metrics = model.loss_fn(b, rt=rt)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        if n == 1:
+            return loss.detach(), _detach(metrics), \
+                _restack(params, slots, grads)
+        grads = [g.float() / n for g in grads]
+        acc = grads if acc is None else [a + g for a, g in zip(acc, grads)]
+        part = loss.detach() / n
+        loss_acc = part if loss_acc is None else loss_acc + part
+    return loss_acc, _detach(metrics), _restack(params, slots, acc)
+
+
+def _detach(metrics: dict) -> dict:
+    return {k: v.detach() if torch.is_tensor(v) else torch.as_tensor(v)
+            for k, v in metrics.items()}
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, *, rt=NULL_RT,
+                    microbatches: int = 1):
+    """fwd+bwd+update.  ``microbatches`` > 1 enables gradient accumulation:
+    the global batch is split along dim 0 and run microbatch by
+    microbatch, so live activation memory scales with the microbatch.
+    The loss is the mean over microbatches; ``nll`` and ``aux`` are the
+    last microbatch's.  Metrics: ``loss``, ``nll``, ``aux``, ``grad_norm``
+    (0-d tensors)."""
+    if rt.mesh is not None:
+        return _make_sharded_step(cfg, opt_cfg, rt, microbatches)
+
+    def train_step(state, batch):
+        params = state["params"]
+        loss, metrics, grads = grads_of(
+            cfg, params, _split(batch, microbatches) if microbatches > 1
+            else [batch], rt=rt)
+        with torch.no_grad():
+            new_params, new_opt, gnorm = apply_updates(
+                opt_cfg, grads, state["opt"], params)
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss, "nll": metrics["nll"],
+                           "aux": metrics["aux"], "grad_norm": gnorm}
+
+    return train_step
+
+
+def _data_info(mesh, data_axes):
+    """(the data dims' groups, their rank count)."""
+    names = list(mesh.mesh_dim_names)
+    groups = [mesh.get_group(a) for a in data_axes if a in names]
+    dp = 1
+    for g in groups:
+        dp *= dist.get_world_size(g)
+    return groups, dp
+
+
+def _local_rows(batch, mesh):
+    """This rank's shard of every batch leaf along dim 0."""
+    return {k: shard_rules.local_slice(
+        v, shard_rules.batch_pspec(mesh, v.ndim, batch_dim_size=v.shape[0]),
+        mesh) for k, v in batch.items()}
+
+
+def _sum_over(t: torch.Tensor, groups) -> torch.Tensor:
+    t = t.clone()
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t
+
+
+def _sharded_norm(grads, specs, mesh) -> torch.Tensor:
+    """The global norm of sharded gradients: each leaf's local sum of
+    squares summed over the mesh dims that shard it (a replicated copy is
+    counted once; one all-reduce per set of dims), then the leaves added
+    in the tree's order, as ``optimizers.global_norm`` adds them."""
+    names = list(mesh.mesh_dim_names)
+    parts, keys = [], []
+
+    def add(g, spec, _path):
+        dims = set()
+        for axes in spec:
+            if axes is not None:
+                dims.update((axes,) if isinstance(axes, str) else axes)
+        keys.append(tuple(sorted(dims, key=names.index)))
+        parts.append(torch.sum(g.float() ** 2))
+    _zip_specs(add, grads, specs)
+    totals = list(parts)
+    for key in sorted(set(keys)):             # the same order on every rank
+        idx = [i for i, k in enumerate(keys) if k == key]
+        if not key:
+            continue
+        summed = _sum_over(torch.stack([parts[i] for i in idx]),
+                           [mesh.get_group(a) for a in key])
+        for j, i in enumerate(idx):
+            totals[i] = summed[j]
+    return torch.sqrt(sum(totals))
+
+
+_EXPERT_LEAF = re.compile(r"moe/(wi_gate|wi_up|wo)$")
+
+
+def _use_of(spec, path: str, mesh, ep_axis) -> list:
+    """The placements a parameter of ``spec`` at ``path`` is computed with:
+    replicated, except the MoE expert weights under expert parallelism,
+    which keep their shard over ``ep_axis`` (a rank runs only its own
+    experts, ``moe.moe_ep``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    ep_dim = (spec.index(ep_axis) if ep_axis is not None and ep_axis in spec
+              and _EXPERT_LEAF.search(path) else None)
+    return [Shard(ep_dim) if name == ep_axis and ep_dim is not None
+            else Replicate() for name in mesh.mesh_dim_names]
+
+
+def _in_stack(path) -> bool:
+    """A leaf of a stack's layers (``enc``/``dec`` ``groups`` or
+    ``tail``): gathered on use."""
+    return len(path) > 1 and path[0] in ("enc", "dec") \
+        and path[1] in ("groups", "tail")
+
+
+class _GatherOnUse(torch.autograd.Function):
+    """A layer's parameter shard gathered to the placements it is computed
+    with; backward, its gradient (one data shard's) averaged over the data
+    dims and reduce-scattered to the shard.  Inside a remat region the
+    gathered tensor is not kept: the recompute gathers it again."""
+
+    @staticmethod
+    def forward(ctx, shard, mesh, rule, use, src, dp):
+        from torch.distributed.tensor import DTensor
+        ctx.mesh, ctx.rule, ctx.src, ctx.dp = mesh, rule, src, dp
+        return DTensor.from_local(shard, mesh, rule, run_check=False) \
+            .redistribute(mesh, use).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        out = DTensor.from_local(g / ctx.dp, ctx.mesh, ctx.src,
+                                 run_check=False) \
+            .redistribute(ctx.mesh, ctx.rule).to_local()
+        return out, None, None, None, None, None
+
+
+def _make_sharded_step(cfg, opt_cfg, rt, microbatches):
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = rt.mesh
+    dgroups, dp = _data_info(mesh, rt.data_axes)
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def src_of(use):
+        # a gradient of one data shard: partial over the data dims
+        return [Partial() if name in rt.data_axes else pl
+                for name, pl in zip(mesh.mesh_dim_names, use)]
+
+    def for_use(t, spec, path):
+        # a stack's layers gather on use; the rest (embeddings, final
+        # norms, frontends) now
+        if not isinstance(t, DTensor) or _in_stack(path):
+            return local(t)
+        with torch.no_grad():
+            return t.redistribute(mesh, _use_of(
+                spec, "/".join(map(str, path)), mesh, rt.ep_axis)) \
+                .to_local()
+
+    def reduce_scatter(g, spec, path):
+        if _in_stack(path):
+            return g                      # reduced by _GatherOnUse
+        use = _use_of(spec, "/".join(map(str, path)), mesh, rt.ep_axis)
+        return DTensor.from_local(g / dp, mesh, src_of(use),
+                                  run_check=False) \
+            .redistribute(mesh, shard_rules.to_placements(spec, mesh)) \
+            .to_local()
+
+    def gathering_runtime(leaves, slots, pspecs):
+        """A runtime whose layers gather their shards on use."""
+        info = {}
+        for p, (path, g) in zip(leaves, slots):
+            if not _in_stack(path):
+                continue
+            spec = pspecs
+            for k in path:
+                spec = spec[k]
+            if g is not None:
+                spec = spec[1:]           # the group dim: never sharded
+            use = _use_of(spec, "/".join(map(str, path)), mesh, rt.ep_axis)
+            info[id(p)] = (mesh, shard_rules.to_placements(spec, mesh), use,
+                           src_of(use), dp)
+
+        def gathered(block):
+            out = {n: _GatherOnUse.apply(p, *info[id(p)]) if id(p) in info
+                   else p for n, p in block._parameters.items()}
+            for n, m in block._modules.items():
+                out[n] = ([gathered(c) for c in m]
+                          if isinstance(m, torch.nn.ModuleList)
+                          else gathered(m))
+            return out
+
+        return Runtime(mesh=mesh, data_axes=rt.data_axes,
+                       ep_axis=rt.ep_axis, param_fn=gathered)
+
+    def train_step(state, batch):
+        specs = state_specs(state, mesh)
+        params = _zip_specs(for_use, state["params"], specs["params"])
+        batches = (_split(batch, microbatches) if microbatches > 1
+                   else [batch])
+        loss, metrics, grads = grads_of(
+            cfg, params, [_local_rows(b, mesh) for b in batches],
+            runtime_for=lambda leaves, slots: gathering_runtime(
+                leaves, slots, specs["params"]))
+        del params
+        with torch.no_grad():
+            grads = _zip_specs(reduce_scatter, grads, specs["params"])
+            loss = _sum_over(loss, dgroups) / dp
+            metrics = {k: _sum_over(v.float(), dgroups) / dp
+                       for k, v in metrics.items()}
+            gnorm = _sharded_norm(grads, specs["params"], mesh)
+            p_loc = tree_map(local, state["params"])
+            o_loc = tree_map(local, state["opt"])
+            if opt_cfg.kind == "adafactor":
+                new_p, new_opt = _adafactor_sharded(
+                    opt_cfg, grads, o_loc, p_loc, specs["params"], mesh,
+                    norm=gnorm)
+            else:
+                new_p, new_opt, _ = apply_updates(opt_cfg, grads, o_loc,
+                                                  p_loc, norm=gnorm)
+            new_p = _wrap(new_p, specs["params"], mesh)
+            new_opt = _wrap(new_opt, specs["opt"], mesh)
+        new_state = {"params": new_p, "opt": new_opt,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss, "nll": metrics["nll"],
+                           "aux": metrics["aux"], "grad_norm": gnorm}
+
+    return train_step
+
+
+def _adafactor_sharded(cfg, grads, state, params, pspecs, mesh, *, norm):
+    """Adafactor on each rank's shards: ``optimizers.adafactor_update``'s
+    rule on the whole leaves, computed piecewise.  A factored leaf's row
+    and column statistics (and an unfactored leaf's second moment) are
+    summed over the ranks holding its shards, so they stay whole and the
+    same on every rank, as their specs (replicated) say; the update's RMS
+    is taken over the whole leaf.  Returns (new params, new state), both
+    rank-local."""
+    grads, _ = clip_by_global_norm(grads, cfg.clip_norm, norm=norm)
+    c = state["count"] + 1
+    lr = schedule(cfg, c)
+    beta2 = 1.0 - c.to(torch.float32) ** -0.8       # Shazeer-Stern schedule
+    out = tree_map(lambda p, g, v, spec: _adafactor_shard(
+        cfg, g, v, p, spec, mesh, beta2, lr), params, grads, state["v"],
+        pspecs)
+    return (tree_map(lambda _p, t: t[0], params, out),
+            {"v": tree_map(lambda _p, t: t[1], params, out), "count": c})
+
+
+def _adafactor_shard(cfg, g, v, p, spec, mesh, beta2, lr):
+    """One leaf of ``_adafactor_sharded``: (new shard, new state dict)."""
+    sizes = shard_rules.mesh_shape(mesh)
+    names = list(mesh.mesh_dim_names)
+    full, axes = list(p.shape), set()
+    for d, ax in enumerate(spec):
+        for a in (() if ax is None else (ax,) if isinstance(ax, str)
+                  else ax):
+            full[d] *= sizes[a]
+            axes.add(a)
+    groups = [mesh.get_group(a) for a in names if a in axes]
+    idx = shard_rules.local_slices(full, spec, mesh)
+
+    def summed(part, shape, index):
+        # a statistic of this shard, placed in the whole and summed over
+        # the leaf's shards
+        t = torch.zeros(shape, dtype=torch.float32, device=part.device)
+        t[index] = part
+        for grp in groups:
+            dist.all_reduce(t, group=grp)
+        return t
+
+    g32 = g.float()
+    g2 = g32 * g32 + cfg.adafactor_eps
+    if _factored(full):
+        rows = summed(g2.sum(-1), full[:-1], idx[:-1]) / full[-1]
+        cols = summed(g2.sum(-2), full[:-2] + full[-1:],
+                      idx[:-2] + idx[-1:]) / full[-2]
+        del g2
+        vr = beta2 * v["vr"] + (1 - beta2) * rows
+        vc = beta2 * v["vc"] + (1 - beta2) * cols
+        denom = (vr / torch.mean(vr, dim=-1, keepdim=True))[idx[:-1]][
+            ..., None] * vc[idx[:-2] + idx[-1:]][..., None, :]
+        step = g32 * denom.add_(cfg.adafactor_eps).rsqrt_()
+        del denom
+        nv = {"vr": vr, "vc": vc}
+    else:
+        nv = {"v": beta2 * v["v"] + (1 - beta2) * summed(g2, full, idx)}
+        del g2
+        step = g32 * torch.rsqrt(nv["v"][idx] + cfg.adafactor_eps)
+    del g32
+    # update clipping (RMS <= 1) over the whole leaf
+    sq = torch.sum(step * step)
+    for grp in groups:
+        dist.all_reduce(sq, group=grp)
+    n = 1
+    for f in full:
+        n *= f
+    rms = torch.sqrt(sq / n + 1e-30)
+    step.div_(torch.clamp(rms, min=1.0))
+    step = _decay(step, p, cfg)
+    return (p.float() - lr * step).to(p.dtype), nv
+
+
+def _wrap(tree, specs, mesh):
+    """Local shards as DTensors with their spec's placements."""
+    from torch.distributed.tensor import DTensor
+    return _zip_specs(
+        lambda t, spec, _path: t if t.ndim == 0 else DTensor.from_local(
+            t, mesh, shard_rules.to_placements(spec, mesh), run_check=False),
+        tree, specs)
+
+
+def _reshard(tree, specs, mesh):
+    """Whole tensors (the same on every rank) as DTensors of this rank's
+    shard."""
+    return _wrap(_zip_specs(
+        lambda t, spec, _path: t if t.ndim == 0 else
+        shard_rules.local_slice(t, spec, mesh).contiguous(), tree, specs),
+        specs, mesh)
+
+
+# ------------------------------------------------------- serving steps --
+
+def _model(cfg, params) -> LM:
+    return params if isinstance(params, LM) else model_of(cfg, params)
+
+
+def make_prefill_step(cfg: ModelConfig, kv_len: int, *, rt=NULL_RT):
+    """(params, batch) -> (last-position logits, caches); ``params`` an
+    ``LM`` or a stacked parameter tree."""
+    def prefill_step(params, batch):
+        logits, caches = _model(cfg, params).prefill(batch, kv_len, rt=rt)
+        # return only last-position logits (what serving samples from)
+        return logits[:, -1, :], caches
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *, rt=NULL_RT):
+    """One greedy decode step for a running batch: (params, caches, tokens,
+    pos) -> (next_tokens (B, 1) int32, caches written in place)."""
+    def serve_step(params, caches, tokens, pos):
+        logits, caches = _model(cfg, params).decode_step(caches, tokens,
+                                                         int(pos), rt=rt)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return nxt[:, None], caches
+    return serve_step
+
+
+def jitted_train_step(cfg, opt_cfg, mesh, *, seq_parallel=False):
+    """There is no jit to wrap: (the train step over ``mesh``, the state's
+    placements on it)."""
+    rt = make_runtime(mesh, seq_parallel=seq_parallel)
+    step = make_train_step(cfg, opt_cfg, rt=rt)
+    return step, state_shardings(train_state_specs(cfg, opt_cfg), mesh)

@@ -99,7 +99,7 @@ def _stack_trees(trees: list):
 def _leading_dim(tree) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
-    return np.asarray(tree).shape[0]
+    return tree.shape[0]
 
 
 def lm_params_from_numpy(cfg, tree, *, device=None):
@@ -165,3 +165,46 @@ def lm_caches_to_numpy(cfg, caches) -> dict:
                                          for g in range(n_groups)])
                   for i in range(period)}
     return {"groups": groups, "tail": layers[n_groups * period:]}
+
+
+def stack_params(tree) -> dict:
+    """The port's per-layer parameter tree (``LM.tree()``) in the
+    reference's layout, as tensors: each stack's ``groups["p{i}"]`` layers
+    stacked on a new leading group dim (a copy)."""
+    out = {}
+    for key, sub in tree.items():
+        if key not in _STACKS:
+            out[key] = sub
+            continue
+        groups = sub["groups"]
+        if groups is not None:
+            groups = {pk: _stack_tensors(layers)
+                      for pk, layers in groups.items()}
+        out[key] = {"groups": groups, "tail": list(sub["tail"])}
+    return out
+
+
+def _stack_tensors(trees: list):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_tensors([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def unstack_params(tree) -> dict:
+    """The reference's stacked layout (tensors) as the port's per-layer
+    tree: group g of ``groups/p{i}`` becomes the views ``leaf[g]``, which
+    share the stacked tensors' storage."""
+    out = {}
+    for key, sub in tree.items():
+        if key not in _STACKS:
+            out[key] = sub
+            continue
+        groups = sub["groups"]
+        if groups is not None:
+            n = _leading_dim(groups)
+            groups = {pk: [_map_tree(g_tree, lambda a, g=g: a[g])
+                           for g in range(n)]
+                      for pk, g_tree in groups.items()}
+        out[key] = {"groups": groups, "tail": list(sub["tail"])}
+    return out

@@ -78,15 +78,23 @@ def spawn(fn, nprocs: int, *args, backend: str | None = None,
                  nprocs=nprocs, join=True)
 
 
-def init_from_env() -> torch.device:
+def init_from_env(device: str | None = None) -> torch.device:
     """Join the process group ``torchrun`` describes (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT`` in the
-    environment): NCCL on the rank's card where CUDA is available, else
-    gloo on the CPU.  Returns the rank's device; the caller destroys the
-    group (``torch.distributed.destroy_process_group``) when done."""
-    cuda = torch.cuda.is_available()
-    dev = _rank_device("cuda" if cuda else "cpu",
-                       int(os.environ["LOCAL_RANK"]))
+    environment).  ``device`` "cuda" (or "cuda:N") joins over NCCL on the
+    rank's card and raises without one; "cpu" joins over gloo; None takes
+    NCCL where CUDA is available, else gloo on the CPU.  Returns the
+    rank's device; the caller destroys the group
+    (``torch.distributed.destroy_process_group``) when done."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    cuda = torch.device(device).type == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"init_from_env was asked for {device} but "
+            "torch.cuda.is_available() is false; pass device='cpu' for a "
+            "gloo rank on the CPU")
+    dev = _rank_device(device, int(os.environ["LOCAL_RANK"]))
     dist.init_process_group("nccl" if cuda else "gloo", init_method="env://")
     return dev
 

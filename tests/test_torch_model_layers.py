@@ -367,8 +367,26 @@ def test_moe_local_matches_jax(arch, cf, dropless):
 
 
 def test_moe_ep_and_a_mesh_runtime_name_item_12b():
-    from repro_torch.models.transformer import Runtime
-    with pytest.raises(NotImplementedError, match="12b"):
-        moe.moe_ep(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="12b"):
-        Runtime(mesh=object())
+    """Item 12b landed both: a ``Runtime`` over a mesh with a "model" dim
+    runs the MoE layers through ``moe_ep``, which on one rank agrees with
+    ``moe_local`` (tests/test_torch_train_dist.py and
+    tests/test_torch_moe_ep.py hold it on four)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models.transformer import Runtime, _apply_ffn
+    from repro_torch.util import dist as rdist
+    cfg = cb.get_reduced_config("dbrx_132b")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    p = moe.init_moe(3, cfg, device="cpu")
+    x = torch.randn((2, 8, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    with rdist.one_rank_group(torch.device("cpu")):
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rt = Runtime(mesh=mesh)
+        assert rt.ep_axis == "model" and rt.data_axes == ("data",)
+        y_ep, aux_ep = _apply_ffn({"moe": p}, x, cfg, rt=rt)
+        y_dir, _ = moe.moe_ep(p, x, cfg, mesh)
+    y_loc, aux_loc = moe.moe_local(p, x, cfg)
+    assert torch.equal(y_ep, y_dir)
+    assert scaled(y_ep, y_loc) < 1e-6
+    assert abs(float(aux_ep) - float(aux_loc)) <= 1e-6 * abs(float(aux_loc))
