@@ -268,6 +268,22 @@ Phases, each of which raises on failure:
                bit-equal to the step without a mesh, ``moe_ep`` at
                mp = 1 against ``moe_local``, and reduced dbrx's sharded
                Adafactor step against the plain one (``EP_TOL``).
+ 33. count     (NMF part after 24, on the fp32 A) mu and hals counted on
+               fake tensors of Video's shape (``lower_step``): the
+               record's kernel calls equal a live iteration's LAUNCHES and
+               its roofline bound on the H100 stays within
+               ``BOUND_OVER_MEASURED`` of the measured ms per iteration;
+               faun 1×1's record on a one-rank NCCL group equals the live
+               iteration's wire log; (after 32) smollm-135m's prefill and
+               train step counted beside phases 27 and 30's ms;
+ 34. dryrun    ``python -m repro_torch.launch.dryrun --nmf --no-save`` and
+               the smollm-135m × train_4k × single cell, each a process
+               of its own: every record ok, each NMF cell's wire within
+               ``DRYRUN_WIRE_TOL`` of the cost model's, seconds and the
+               HBM fit against this card's memory;
+ 35. pipeline  ``distributed.pipeline`` on four gloo ranks sharing the
+               card, ``PIPE`` stages × microbatches in fp32: output and
+               gradient within ``PIPE_TOL`` of the sequential stack.
 
 Last of all (the profiler doubles the host cost of every later launch,
 tools/probe_profiler_overhead.py), one smollm-135m decode step of phase
@@ -4509,6 +4525,372 @@ def phase_train(dev, seed: int) -> dict:
     return out
 
 
+#: phase 33: a count's roofline bound may exceed the measured time by this
+#: share at most (more is an impossible reading: the count is wrong)
+BOUND_OVER_MEASURED = 1.05
+#: phase 33's live iterations a rule (after one to warm up)
+COUNT_ITERS = 3
+#: phase 35: stages × microbatches of (rows, width), fp32, TF32 off
+PIPE = (4, 8, 4, 16)
+PIPE_TOL = 1e-5
+#: phase 34: per-rank wire bytes of an NMF cell against the cost model's
+#: words × 4 B (plus the error byproduct's Gram and scalar), relative
+DRYRUN_WIRE_TOL = 1e-6
+
+
+def _wire_sig(entries) -> list:
+    return [(c.op, str(c.dtype), tuple(c.shape), c.group_size)
+            for c in entries]
+
+
+def phase_count_nmf(A, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 33 (NMF): each of mu and hals counted on fake tensors of
+    Video's shape (``NMFSolver.lower_step``, backend "cuda") against one
+    live iteration on the A phase 8 holds: the record's kernel calls equal
+    the LAUNCHES of a live iteration, and its roofline bound on the H100
+    (``roofline.hw``) stays within ``BOUND_OVER_MEASURED`` of the measured
+    ms per iteration.  Then faun 1×1 on a one-rank NCCL group: the
+    record's collectives equal ``record_wire``'s log of a live iteration
+    (op, dtype, shape, group size, in order)."""
+    import torch
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.core.faun import make_faun_grid
+    from repro_torch.kernels import ops
+    from repro_torch.roofline.hw import H100
+    from repro_torch.util.wire import record_wire
+    t_phase = time.perf_counter()
+    m, n = A.shape
+    launches = {name: 0 for name in ops.LAUNCHES}
+    out = {"shape": [m, n], "card": card}
+    for algo in ("mu", "hals"):
+        solver = NMFSolver(K, algo=algo, backend="cuda",
+                           max_iters=COUNT_ITERS)
+        t0 = time.perf_counter()
+        rec = solver.lower_step(m, n)
+        count_s = time.perf_counter() - t0
+        rs = solver.prepare_state(A, seed=seed)
+        solver.run_segment(rs, 1)
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        solver.run_segment(rs, COUNT_ITERS)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / COUNT_ITERS
+        delta = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        add_launches(launches, delta)
+        live = {k: v / COUNT_ITERS for k, v in delta.items() if v}
+        counted = dict(rec.kernel_calls())
+        roof = rec.roofline(H100)
+        bound = roof["step_lower_bound_s"] * 1e3
+        share = bound / ms
+        log(f"[count] {algo} serial {m} x {n}: counted in {count_s:.2f} s, "
+            f"kernel calls {counted} (live a iteration {live}); "
+            f"{rec.dot_flops:.4e} FLOPs, {rec.bytes / 1e9:.2f} GB; bound "
+            f"{bound:.3f} ms ({roof['dominant']}) against {ms:.3f} ms "
+            f"measured: {100 * share:.1f} % (card {card})")
+        require(counted == live, f"{algo}: the record's kernel calls "
+                                 f"{counted} are not a live iteration's "
+                                 f"{live}")
+        require(share <= BOUND_OVER_MEASURED,
+                f"{algo}: the counted bound {bound:.3f} ms exceeds the "
+                f"measured {ms:.3f} ms by more than "
+                f"{100 * (BOUND_OVER_MEASURED - 1):.0f} %: the count is "
+                f"wrong")
+        out[algo] = {"kernel_calls": counted, "flops": rec.dot_flops,
+                     "bytes": rec.bytes, "bound_ms": bound,
+                     "bound_by": roof["dominant"], "ms_per_iter": ms,
+                     "share": share, "count_s": count_s}
+        del rs
+        torch.cuda.empty_cache()
+    with nccl_group():
+        grid = make_faun_grid(1, 1)
+        for algo in ("mu", "hals"):
+            solver = NMFSolver(K, algo=algo, schedule="faun", grid=grid,
+                               backend="cuda")
+            rec = solver.lower_step(m, n)
+            rs = solver.prepare_state(A, seed=seed)
+            solver.run_segment(rs, 1)
+            torch.cuda.synchronize()
+            before = dict(ops.LAUNCHES)
+            with record_wire() as wire:
+                solver.run_segment(rs, 1)
+            torch.cuda.synchronize()
+            add_launches(launches, {k: ops.LAUNCHES[k] - before[k]
+                                    for k in ops.LAUNCHES})
+            got, want = _wire_sig(rec.collectives), _wire_sig(wire)
+            log(f"[count] {algo} faun 1x1 (one-rank NCCL): the record's "
+                f"{len(got)} collectives "
+                f"{'equal' if got == want else 'DIFFER FROM'} the live "
+                f"iteration's {len(want)}")
+            require(got == want, f"faun {algo}: the record's collectives "
+                                 f"{got} differ from the live {want}")
+            out[f"faun_{algo}_collectives"] = len(got)
+            del rs
+            torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[count] phase 33 (NMF) took {out['phase_s']:.1f} s")
+    return launches, out
+
+
+def _timed_ms(fn, reps: int) -> float:
+    """Least ms of ``reps`` calls (CUDA events), after one warm-up."""
+    import torch
+    fn()
+    best = math.inf
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def phase_count_models(dev, seed: int, card: str, prefill_ms=None,
+                       train_ms=None) -> dict:
+    """Phase 33 (models): phase 27's smollm-135m prefill (8 × 2,048, bf16)
+    and phase 30's train step (8 × 2,048, bf16, remat, AdamW) counted on
+    fake tensors, each split into FLOPs by rate, bytes and the largest
+    ops, its bound printed beside the measured ms (phases 27 and 30's, or
+    measured here when not given).  The eager ops' small operands sit in
+    the 50 MB L2, so no share is required of these."""
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.roofline import counts
+    from repro_torch.roofline.hw import H100
+    from repro_torch.train import steps
+    t_phase = time.perf_counter()
+    arch, B, P, gen_steps = SMOLLM
+    cfg = cb.get_config(arch)
+    opt = OptConfig(kind="adamw", lr=1e-3, warmup_steps=1, total_steps=8)
+    tokens = torch.zeros((B, P), dtype=torch.int64, device=dev)
+    if prefill_ms is None or train_ms is None:
+        model = LM(cfg, device=dev, seed=seed)
+        prefill_ms = prefill_ms or _timed_ms(
+            lambda: model.prefill({"tokens": tokens}, kv_len=P + gen_steps),
+            3)
+        del model
+        state = steps.init_train_state(cfg, opt, seed, device=dev)
+        step = steps.make_train_step(cfg, opt)
+        batch = {"tokens": tokens.int(), "labels": tokens.int()}
+        train_ms = train_ms or _timed_ms(lambda: step(state, batch), 3)
+        del state, step, batch
+        torch.cuda.empty_cache()
+    out = {"card": card}
+    with counts.stand_in_card(), counts.fake_mode():
+        model = LM(cfg, device=dev, seed=seed)
+        fake_tokens = torch.zeros((B, P), dtype=torch.int64, device=dev)
+        with counts.record_step() as pre:
+            model.prefill({"tokens": fake_tokens}, kv_len=P + gen_steps)
+        del model
+        state = steps.init_train_state(cfg, opt, seed, device=dev)
+        batch = {"tokens": fake_tokens.int(), "labels": fake_tokens.int()}
+        with counts.record_step() as tr:
+            steps.make_train_step(cfg, opt)(state, batch)
+    for name, rec, ms in (("prefill", pre, prefill_ms),
+                          ("train", tr, train_ms)):
+        roof = rec.roofline(H100)
+        bound = roof["step_lower_bound_s"] * 1e3
+        top = sorted(rec.ops.items(), key=lambda kv: -kv[1])[:6]
+        by_rate = {k: f"{v:.3e}" for k, v in rec.flops_by_rate.items()}
+        log(f"[count] smollm-135m {name} {B} x {P}: {rec.dot_flops:.4e} "
+            f"FLOPs {by_rate}, "
+            f"{rec.bytes / 1e9:.2f} GB, {sum(rec.ops.values())} aten ops "
+            f"(most: {top}); bound {bound:.2f} ms (compute "
+            f"{roof['compute_s'] * 1e3:.2f}, memory "
+            f"{roof['memory_s'] * 1e3:.2f}) against {ms:.2f} ms measured: "
+            f"{100 * bound / ms:.1f} % (card {card})")
+        out[name] = {"flops_by_rate": rec.flops_by_rate, "bytes": rec.bytes,
+                     "aten_ops": sum(rec.ops.values()),
+                     "compute_ms": roof["compute_s"] * 1e3,
+                     "memory_ms": roof["memory_s"] * 1e3, "bound_ms": bound,
+                     "measured_ms": ms, "share": bound / ms}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[count] phase 33 (models) took {out['phase_s']:.1f} s")
+    return out
+
+
+_DRYRUN_OK = "OK   "
+
+
+def _dryrun_records(args: list) -> tuple[list, float]:
+    """``python -m repro_torch.launch.dryrun <args> --no-save`` in a process
+    of its own (the dry run owns its process's default group): the
+    ``key=value`` fields of each record line, and the seconds it took."""
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          *args, "--no-save"], env=env, capture_output=True,
+                         text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        if line.startswith(("OK", "FAIL", "SKIP")):
+            log(f"[dryrun] {line}")
+    require(run.returncode == 0, f"dry run {args} exited "
+                                 f"{run.returncode}: {run.stderr[-2000:]}")
+    recs = []
+    for line in run.stdout.splitlines():
+        if line.startswith(("FAIL", "SKIP")):
+            recs.append({"status": line.split()[0].lower(), "line": line})
+        elif line.startswith(_DRYRUN_OK):
+            fields = dict(tok.split("=", 1) for tok in line.split()
+                          if "=" in tok)
+            recs.append({"status": "ok", "line": line, **fields})
+    return recs, secs
+
+
+def phase_dryrun(card: str) -> dict:
+    """Phase 34: the dry run on the card's host, each as a process of its
+    own: the five NMF cells, then smollm-135m × train_4k on the single
+    16×16 mesh.  Every record ok; each NMF cell's wire bytes per rank
+    within ``DRYRUN_WIRE_TOL`` of the cost model's; seconds and the HBM
+    fit against this card's memory printed (counted, not measured)."""
+    import torch
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"card": card, "card_memory": total}
+    nmf, out["nmf_s"] = _dryrun_records(["--nmf"])
+    require(len(nmf) == 5 and all(r["status"] == "ok" for r in nmf),
+            f"the NMF dry run: {[r['line'] for r in nmf]}")
+    cells = []
+    for r in nmf:
+        wire, model = float(r["wire_bytes"]), float(r["costmodel_bytes"])
+        peak = float(r["peak_bytes"])
+        rel = abs(wire - model) / model
+        log(f"[dryrun] {' '.join(r['line'].split()[1:5])}: wire "
+            f"{wire:.1f} B per rank, cost model {model:.1f} B (rel "
+            f"{rel:.2e}); peak {peak / 1e9:.2f} GB counted, HBM fit "
+            f"{'YES' if peak <= total else 'NO'} against {total / 1e9:.1f} "
+            f"GB")
+        require(rel <= DRYRUN_WIRE_TOL, f"NMF cell {r['line']}: wire bytes "
+                                        f"{wire} vs cost model {model}")
+        cells.append({"line": r["line"], "wire": wire, "model": model,
+                      "peak": peak, "fits": peak <= total})
+    out["nmf"] = cells
+    lm, out["smollm_s"] = _dryrun_records(
+        ["--arch", "smollm-135m", "--shape", "train_4k", "--mesh", "single"])
+    require(len(lm) == 1 and lm[0]["status"] == "ok",
+            f"smollm-135m × train_4k: {[r['line'] for r in lm]}")
+    peak = float(lm[0]["peak_bytes"])
+    log(f"[dryrun] smollm-135m × train_4k [single]: {out['smollm_s']:.1f} s; "
+        f"peak {peak / 1e9:.2f} GB counted, HBM fit "
+        f"{'YES' if peak <= total else 'NO'} against {total / 1e9:.1f} GB "
+        f"(card {card})")
+    out["smollm"] = {"line": lm[0]["line"], "peak": peak,
+                     "fits": peak <= total}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase 34 took {out['phase_s']:.1f} s "
+        f"(NMF {out['nmf_s']:.1f} s, smollm {out['smollm_s']:.1f} s)")
+    return out
+
+
+def _pipe_stage(p, x):
+    import torch
+    return torch.tanh(x @ p["w"])
+
+
+def pipeline_rank(out: str) -> None:
+    """Phase 35's rank: its stage of the GPipe pipeline on the card (gloo
+    carries the activations and gradients between the four ranks), the
+    gradient of mean(y²) for its slice, and the sequential stack run on
+    the card on the same rank."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distributed.pipeline import pipeline_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, NM, MB, D = PIPE
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(11)
+    W = torch.randn((S, D, D), generator=gen) / D ** 0.5
+    x = torch.randn((NM, MB, D), generator=gen).to(dev)
+    mesh = init_device_mesh("cpu", (S,), mesh_dim_names=("pp",))
+    r = dist.get_rank()
+    w = W[r:r + 1].to(dev).requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        y = pipeline_apply(_pipe_stage, {"w": w}, x, mesh, "pp")
+        (y ** 2).mean().backward()
+        torch.cuda.synchronize()
+        err = None
+    except Exception as e:  # noqa: BLE001 — reported by the parent
+        err = f"{type(e).__name__}: {e}"
+    secs = time.perf_counter() - t0
+    Wf = W.to(dev).requires_grad_(True)
+    h = x
+    for s in range(S):
+        h = _pipe_stage({"w": Wf[s]}, h)
+    (h ** 2).mean().backward()
+    res = {"err": err, "s": secs}
+    if err is None:
+        res.update({"y": (y - h).abs().max().item(),
+                    "g": (w.grad[0] - Wf.grad[r]).abs().max().item(),
+                    "g_max": w.grad.abs().max().item()})
+    torch.save(res, os.path.join(out, f"pipe_{r}.pt"))
+
+
+def phase_pipeline(dev, card: str) -> dict:
+    """Phase 35: ``distributed.pipeline.pipeline_apply`` on four gloo ranks
+    sharing the card (spawned as phase 15g spawns), 4 stages × 8
+    microbatches of (4, 16) in fp32 with TF32 off: output and gradient
+    within ``PIPE_TOL`` of the sequential stack on the card.  The hops are
+    gloo all-to-alls of CUDA tensors: if gloo refuses them the phase fails
+    and says so (nothing is copied to the host)."""
+    import tempfile
+    import torch
+    from repro_torch.distributed.pipeline import bubble_fraction
+    from repro_torch.util import dist as rdist
+    t_phase = time.perf_counter()
+    S, NM, MB, D = PIPE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pipe_") as tmp:
+        rdist.spawn(pipeline_rank, S, tmp, backend="gloo",
+                    device=f"cuda:{dev.index or 0}")
+        ranks = [torch.load(os.path.join(tmp, f"pipe_{r}.pt"))
+                 for r in range(S)]
+    errs = [r["err"] for r in ranks if r["err"]]
+    require(not errs, f"the pipeline on CUDA tensors over gloo failed "
+                      f"(gloo's all-to-all on CUDA tensors): {errs[:1]}")
+    y_err = max(r["y"] for r in ranks)
+    g_err = max(r["g"] for r in ranks)
+    ticks = NM + S - 1
+    log(f"[pipeline] {S} stages x {NM} microbatches of ({MB}, {D}) fp32 on "
+        f"four gloo ranks of the card: {ticks} ticks, bubble "
+        f"{bubble_fraction(S, NM):.3f}; output {y_err:.2e}, gradient "
+        f"{g_err:.2e} from the sequential stack (tol {PIPE_TOL:.0e}); "
+        f"{max(r['s'] for r in ranks):.2f} s forward + backward (card "
+        f"{card})")
+    require(y_err <= PIPE_TOL and g_err <= PIPE_TOL,
+            f"the pipeline disagrees with the sequential stack: output "
+            f"{y_err:.2e}, gradient {g_err:.2e}")
+    require(all(r["g_max"] > 0 for r in ranks), "a stage got no gradient")
+    out = {"ticks": ticks, "bubble": bubble_fraction(S, NM), "y_err": y_err,
+           "g_err": g_err, "phase_s": time.perf_counter() - t_phase}
+    log(f"[pipeline] phase 35 took {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_dryrun_phases(dev, seed: int, card: str, prefill_ms=None,
+                        train_ms=None) -> dict:
+    """Phases 33 (models), 34 and 35 in order."""
+    out = {"count_models": phase_count_models(dev, seed, card, prefill_ms,
+                                              train_ms),
+           "dryrun": phase_dryrun(card),
+           "pipeline": phase_pipeline(dev, card)}
+    out["phase_s"] = sum(v["phase_s"] for v in out.values())
+    return out
+
+
 def direct_rel_error(A, W, H, rows: int = 32_768) -> float:
     """||A − WH||_F / ||A||_F without the trace trick, in row chunks (a
     check only: torch.matmul in fp32 whatever A's and the factors' dtype,
@@ -4626,6 +5008,8 @@ def main(argv=None) -> int:
     log(f"[gspmd] phases 17 and 18 on Video took {added_s:.1f} s")
     counts, summary["elastic"] = phase_elastic(A, args.seed, card)
     add_launches(launches, counts)
+    counts, summary["count"] = phase_count_nmf(A, args.seed, card)
+    add_launches(launches, counts)
     del A
     torch.cuda.empty_cache()
     summary["grid"] = phase_grid(dev, args.seed, (("mu", 3), ("hals", 3)),
@@ -4652,6 +5036,11 @@ def main(argv=None) -> int:
                   for key in ("models", "smollm", "full_width", "compress"))
     log(f"[compress] phases 26–28 took {model_s:.1f} s")
     summary["train"] = phase_train(dev, args.seed)
+    summary["dryrun"] = phase_dryrun_phases(
+        dev, args.seed, card, min(summary["smollm"]["prefill_ms"]),
+        summary["train"]["smollm"]["ms_per_step"])
+    log(f"[dryrun] phases 33–35 took "
+        f"{summary['count']['phase_s'] + summary['dryrun']['phase_s']:.1f} s")
 
     if args.sparse_dim != SPARSE_DIM:
         log(f"[data] cut: sparse m = n = {args.sparse_dim} of {SPARSE_DIM}")

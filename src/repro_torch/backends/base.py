@@ -115,6 +115,13 @@ class LocalOps:
         return self._require_dense(A[i * mb:(i + 1) * mb,
                                      j * nb:(j + 1) * nb], device)
 
+    def abstract_A(self, m: int, n: int, dtype, nnz: int | None, gr: int,
+                   gc: int, device) -> torch.Tensor:
+        """A stand-in for ``blockify``'s output on a gr × gc grid, holding
+        no data (call it under a ``FakeTensorMode``: ``lower_step``)."""
+        del nnz
+        return torch.empty((m // gr, n // gc), dtype=dtype, device=device)
+
     def pre_blockify(self, A):
         """One conversion before one or more ``blockify`` calls (the naive
         schedule blockifies twice).  Default: A as it is."""

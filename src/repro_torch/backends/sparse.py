@@ -14,7 +14,8 @@ The SpMM lowering is chosen by ``spmm_impl``:
     "sorted"   kernels/ops.spmm_sorted — the row-sorted CUDA kernel;
                ``prepare`` sorts A (``BlockCOO.sort_rows``, on the device)
                unless it already carries the layout at this ``align``
-    "auto"     (default) on CUDA tensors "sorted" when the BlockCOO carries
+    "auto"     (default) on CUDA tensors (and fake ones on ``meta``, which
+               stand for the card) "sorted" when the BlockCOO carries
                the orientation the product needs, else "cuda"; on CPU
                tensors "scatter".  "auto" never sorts on its own.
 
@@ -48,7 +49,7 @@ class SparseOps(LocalOps):
         orientation it consumes ("rows" for mm, "cols" for mm_t)."""
         if self.spmm_impl != "auto":
             return self.spmm_impl
-        if A.device.type != "cuda":
+        if A.device.type == "cpu":
             return "scatter"
         sorted_ok = A.has_sorted_rows if need == "rows" else A.has_sorted_cols
         return "sorted" if sorted_ok else "cuda"
@@ -108,6 +109,29 @@ class SparseOps(LocalOps):
             return A
         return blocksparse.blockify(A, 1, 1)
 
+    def abstract_A(self, m: int, n: int, dtype, nnz: int | None, gr: int,
+                   gc: int, device) -> blocksparse.BlockCOO:
+        """A stand-in for ``blockify``'s output on a gr × gc grid (a 1 × 1
+        BlockCOO of the block's shape holding nnz/(gr·gc) triplets, 1 % of
+        the matrix when ``nnz`` is None, as the reference takes it), with
+        no data (under a ``FakeTensorMode``: ``lower_step``).  With
+        spmm_impl="sorted" it carries the sorted layout in both
+        orientations, its packed length U·align standing in for the
+        data-dependent one (the reference's stand-in)."""
+        nnz = int(nnz) if nnz else max(m * n // 100, 1)
+        return _abstract_blockcoo((m // gr, n // gc), -(-nnz // (gr * gc)),
+                                  nnz, dtype, device,
+                                  self.align if self.spmm_impl == "sorted"
+                                  else 0)
+
+    def abstract_global_A(self, m: int, n: int, dtype, nnz: int | None,
+                          p: int, device) -> blocksparse.BlockCOO:
+        """A stand-in for one rank's share of the gspmd layout: the global
+        shape, nnz/p of the padded triplets, unsorted."""
+        nnz = int(nnz) if nnz else max(m * n // 100, 1)
+        return _abstract_blockcoo((m, n), -(-nnz // p), nnz, dtype, device,
+                                  0)
+
     def norm_sq(self, A) -> torch.Tensor:
         return blocksparse.sq_norm(_require_blockcoo(A, "norm_sq"))
 
@@ -157,3 +181,26 @@ def _require_blockcoo(A, what: str) -> blocksparse.BlockCOO:
         raise ValueError(f"sparse {what} needs a BlockCOO (prepare() "
                          f"blockifies A), got {type(A).__name__}")
     return A
+
+
+def _abstract_blockcoo(shape, nnz_blk: int, nnz: int, dtype, device,
+                       align: int) -> blocksparse.BlockCOO:
+    mb, nb = shape
+    nnz_blk = max(nnz_blk, 1)
+
+    def e(size, dt=torch.int32):
+        return torch.empty((1, 1, size), dtype=dt, device=device)
+
+    extra = {}
+    if align:
+        U = -(-nnz_blk // align)
+        nnz_blk = U * align
+        extra = dict(row_offsets=e(mb + 1), row_tiles=e(U), row_valid=e(U),
+                     t_vals=e(nnz_blk, dtype), t_rows=e(nnz_blk),
+                     t_cols=e(nnz_blk), col_offsets=e(nb + 1),
+                     col_tiles=e(U), col_valid=e(U), align=align,
+                     row_first=e(-(-mb // blocksparse.ROW_TILE) + 1),
+                     col_first=e(-(-nb // blocksparse.ROW_TILE) + 1))
+    return blocksparse.BlockCOO(vals=e(nnz_blk, dtype), rows=e(nnz_blk),
+                                cols=e(nnz_blk), shape=(mb, nb),
+                                block_shape=(mb, nb), nnz=nnz, **extra)

@@ -121,6 +121,14 @@ def solve_bpp(G: torch.Tensor, R: torch.Tensor, *,
     dtype = torch.promote_types(G.dtype, R.dtype)
     G = G.to(dtype)
     R = R.to(dtype)
+    from repro_torch.roofline import counts
+    if counts.is_fake(R):
+        # The pivoting loop reads the data (its active set), so it cannot
+        # run on fake tensors (``lower_step``, the dry run): the solve's
+        # FLOPs come from the cost model at one pivot round per row
+        # (``rules.BPPRule.luc_flops``), recorded as modelled.
+        counts.record_modelled("bpp_solve", r * (k ** 3 / 3.0 + 2.0 * k * k))
+        return torch.empty((r, k), dtype=dtype, device=R.device)
     chunk_rows = max(1, _CHUNK_ELEMS // (k * k))
     X = torch.empty((r, k), dtype=dtype, device=R.device)
     for r0 in range(0, r, chunk_rows):

@@ -142,6 +142,21 @@ class _SerialSchedule:
     def collect(self, W, Ht):
         return W, Ht.T.contiguous()
 
+    # -- abstract arguments (lower_step) --------------------------------------
+
+    def _abstract_factors(self, rows_w: int, rows_h: int, dtype):
+        dev, k = self.s.device, self.s.k
+        return (torch.empty((rows_w, k), dtype=dtype, device=dev),
+                torch.empty((rows_h, k), dtype=dtype, device=dev),
+                torch.empty((), dtype=torch.float32, device=dev))
+
+    def abstract_args(self, m, n, dtype, nnz):
+        """``step``'s (A, W, Hᵀ, ‖A‖²) as this rank holds them for a global
+        m × n problem (``nnz`` triplets for a sparse backend), as tensors
+        without data: call it under a ``FakeTensorMode``."""
+        A = self.s.ops.abstract_A(m, n, dtype, nnz, 1, 1, self.s.device)
+        return (A,) + self._abstract_factors(m, n, dtype)
+
     # -- the error-feedback residuals in the reference's stacked layout ------
 
     #: whether the schedule runs on torch.distributed ranks, and the
@@ -239,6 +254,14 @@ class _FaunSchedule(_SerialSchedule):
                               panel_dtype=self.s.panel_dtype,
                               compress=self.s.compress)
 
+    def abstract_args(self, m, n, dtype, nnz):
+        g, ops = self.grid, self.s.ops
+        _check_tiles((m, n), g.p)
+        A = ops.abstract_A(m, n, dtype, nnz, g.pr, g.pc, self.s.device)
+        if self.s.panel_dtype is not None:
+            A = ops.cast_block(A, self.s.panel_dtype)
+        return (A,) + self._abstract_factors(m // g.p, n // g.p, dtype)
+
     def init_residuals(self, m, n):
         from repro_torch.core.faun import init_faun_residuals
         return init_faun_residuals(self.grid, m, n, self.s.k,
@@ -303,6 +326,13 @@ class _NaiveSchedule(_SerialSchedule):
         return naive_iteration(A[0], A[1], W, Ht, normA_sq, state,
                                group=self.group, rule=self.s.rule,
                                ops=self.s.ops, compress=self.s.compress)
+
+    def abstract_args(self, m, n, dtype, nnz):
+        ops, p, dev = self.s.ops, self.p, self.s.device
+        _check_tiles((m, n), p)
+        A = (ops.abstract_A(m, n, dtype, nnz, p, 1, dev),
+             ops.abstract_A(m, n, dtype, nnz, 1, p, dev))
+        return (A,) + self._abstract_factors(m // p, n // p, dtype)
 
     def init_residuals(self, m, n):
         from repro_torch.core.naive import init_naive_residuals
@@ -633,15 +663,35 @@ class NMFSolver:
         return NMFResult(W=W, H=H, rel_errors=rels, algo=self.algo,
                          iters=rs.step, extras=extras)
 
-    # -- AOT lowering and the cost model -------------------------------------
+    # -- one step counted, and the cost model -------------------------------
 
     def lower_step(self, m: int, n: int, *, dtype=torch.float32,
                    nnz: int | None = None):
-        """The reference lowers one iteration to XLA HLO for its roofline
-        and dry-run tools; eager PyTorch has no such program (see
-        ``core.faun.lower_step``)."""
-        from repro_torch.core.faun import lower_step
-        return lower_step(m, n, dtype=dtype, nnz=nnz)
+        """One iteration of this solver on a global m × n problem (``nnz``
+        nonzeros for a sparse backend), run once on fake tensors of this
+        rank's blocks and counted: a ``roofline.counts.StepRecord`` of its
+        aten ops, matmul FLOPs, bytes, kernel calls and collectives — the
+        counterpart of the reference's AOT-lowered HLO.  Nothing is
+        allocated on the card and nothing is communicated: the
+        collectives are recorded and answered with fake results, so a
+        rank may call it alone on any process group.
+
+        BPP's pivoting solve reads its data (``core/bpp.py``) and cannot
+        run on fake tensors: its record counts everything around the solve
+        and adds the solve's FLOPs from the cost model at one pivot round
+        (``record.modelled``).  The accelerated rules run their whole
+        inner budget (the stall test has nothing to read)."""
+        from repro_torch.roofline.counts import (fake_mode, record_step,
+                                                 tensor_bytes)
+        self.rule = self._base_rule.prepare_global(m, n, self.k)
+        with fake_mode():
+            A, W, Ht, normA_sq = self._schedule.abstract_args(m, n, dtype,
+                                                              nnz)
+            state = self._schedule.init_carry(m, n, dtype)
+            with record_step() as rec:
+                self._schedule.step(A, W, Ht, normA_sq, state)
+            rec.arg_bytes = tensor_bytes((A, W, Ht, state))
+        return rec
 
     def predict_cost(self, m: int, n: int, *, nnz: float = 0.0,
                      bpp_iters: float = 1.0):

@@ -43,9 +43,9 @@ Gram all-reduces, the two gathers, the two reduce-scatters) through
 carries its own six residuals (``init_faun_residuals``).  The error's two
 all-reduces stay exact.
 
-``lower_step`` has nothing to lower in eager PyTorch: it goes with the
-profiler-based counterpart of ``repro/roofline/hlo.py`` (ROADMAP.md queue
-1, item 12) and raises until then.
+``lower_step`` runs one iteration on fake tensors of this rank's blocks
+and counts it (``roofline/counts.py``, the counterpart of
+``repro/roofline/hlo.py``): nothing is allocated and nothing is sent.
 """
 
 from __future__ import annotations
@@ -316,12 +316,19 @@ def fit(A, k: int, *, grid: FaunGrid, algo="bpp", iters: int = 30,
     return solver.fit(A, seed=seed, H0=H0, W0=W0)
 
 
-def lower_step(*args, **kwargs):
-    """The reference AOT-lowers one iteration to XLA HLO for its roofline
-    and dry-run tools; eager PyTorch has no such program.  Its counterpart
-    (collective bytes counted through the profiler) is ROADMAP.md queue 1,
-    item 12."""
-    del args, kwargs
-    raise NotImplementedError(
-        "lower_step has no counterpart in eager PyTorch yet: it goes with "
-        "the profiler-based roofline (ROADMAP.md queue 1, item 12)")
+def lower_step(grid: FaunGrid, m: int, n: int, k: int, *, algo="bpp",
+               dtype=torch.float32, panel_dtype=None,
+               panel_compression: str | None = None, backend="dense",
+               nnz: int | None = None, device=None):
+    """One FAUN iteration on ``grid`` for a global m × n problem, counted
+    on fake tensors of this rank's blocks (``NMFSolver.lower_step``): a
+    ``roofline.counts.StepRecord``.  ``device=None`` stands in for the
+    card, which need not be there."""
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.roofline.counts import stand_in_card
+    with stand_in_card():
+        solver = NMFSolver(k, algo=_rules.get_rule(algo), schedule="faun",
+                           backend=backend, grid=grid, device=device,
+                           panel_dtype=panel_dtype,
+                           panel_compression=panel_compression)
+        return solver.lower_step(m, n, dtype=dtype, nnz=nnz)

@@ -236,7 +236,7 @@ class GspmdSchedule(_SerialSchedule):
         self.mesh = None
         self.ops = self.gops
         if self.gops.partitionable:
-            self.mesh = grid_mesh(grid, solver.device.type)
+            self.mesh = grid_mesh(grid, _mesh_device_type(solver.device))
             self.ops = GlobalViewOps(self.gops, self.mesh)
 
     # -- layout ---------------------------------------------------------------
@@ -284,6 +284,32 @@ class GspmdSchedule(_SerialSchedule):
     def place_factors(self, W0, H0):
         return self._rows(W0), self._rows(H0.T)
 
+    def abstract_args(self, m, n, dtype, nnz):
+        if self.mesh is None:                         # cuda, one rank
+            return super().abstract_args(m, n, dtype, nnz)
+        from torch.distributed.tensor import Shard
+        g, ops, dev, k = self.grid, self.gops, self.s.device, self.s.k
+
+        def rows(r):
+            if r % g.p:
+                raise ValueError(f"{r} rows do not split over the {g.p} "
+                                 f"ranks of the mesh")
+            return self._dtensor(torch.empty((r // g.p, k), dtype=dtype,
+                                             device=dev),
+                                 _row_placements(self.mesh), (r, k))
+
+        if hasattr(ops, "pad_global"):                # sparse: nnz-sharded
+            A = ops.abstract_global_A(m, n, dtype, nnz, g.p, dev)
+        else:
+            if m % g.pr or n % g.pc:
+                raise ValueError(f"A of shape {(m, n)} does not tile the "
+                                 f"{g.pr}×{g.pc} mesh")
+            A = self._dtensor(ops.abstract_A(m, n, dtype, nnz, g.pr, g.pc,
+                                             dev), [Shard(0), Shard(1)],
+                              (m, n))
+        return (A, rows(m), rows(n),
+                torch.empty((), dtype=torch.float32, device=dev))
+
     def init_residuals(self, m, n):
         return self.place_residuals(
             init_gspmd_residuals(m, n, self.s.k, device=self.s.device))
@@ -320,6 +346,12 @@ class GspmdSchedule(_SerialSchedule):
 
     def collect(self, W, Ht):
         return _whole(W), _whole(Ht).T.contiguous()
+
+
+def _mesh_device_type(device) -> str:
+    """The mesh's device type: the device's own, ``cuda`` for the ``meta``
+    device that stands for the card in a count (``lower_step``)."""
+    return "cuda" if device.type == "meta" else device.type
 
 
 def _whole(x):
@@ -361,8 +393,16 @@ def fit(A, k: int, *, grid, algo="bpp", iters: int = 30,
     return solver.fit(A, seed=seed, H0=H0, W0=W0)
 
 
-def lower_step(*args, **kwargs):
-    """No counterpart in eager PyTorch yet (``core.faun.lower_step``)."""
-    from repro_torch.core.faun import lower_step as _lower
-    return _lower(*args, **kwargs)
-
+def lower_step(grid, m: int, n: int, k: int, *, algo="mu",
+               dtype=torch.float32, backend="dense", nnz: int | None = None,
+               device=None):
+    """One global-view iteration on ``grid``'s mesh for a global m × n
+    problem, counted on fake tensors of this rank's blocks
+    (``NMFSolver.lower_step``); DTensor's collectives are recorded as the
+    local ops and functional collectives it runs on this rank."""
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.roofline.counts import stand_in_card
+    with stand_in_card():
+        solver = NMFSolver(k, algo=_rules.get_rule(algo), schedule="gspmd",
+                           grid=grid, backend=backend, device=device)
+        return solver.lower_step(m, n, dtype=dtype, nnz=nnz)

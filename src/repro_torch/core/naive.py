@@ -104,7 +104,15 @@ def fit(A, k: int, *, group=None, algo="bpp", iters: int = 30,
     return solver.fit(A, seed=seed, H0=H0, W0=W0)
 
 
-def lower_step(*args, **kwargs):
-    """No counterpart in eager PyTorch yet (``core.faun.lower_step``)."""
-    from repro_torch.core.faun import lower_step as _lower
-    return _lower(*args, **kwargs)
+def lower_step(group, m: int, n: int, k: int, *, algo="bpp",
+               dtype=torch.float32, backend="dense", nnz: int | None = None,
+               device=None):
+    """One Naive iteration on ``group`` (None: the default process group)
+    for a global m × n problem, counted on fake tensors of this rank's
+    blocks (``NMFSolver.lower_step``)."""
+    from repro_torch.core.engine import NMFSolver
+    from repro_torch.roofline.counts import stand_in_card
+    with stand_in_card():
+        solver = NMFSolver(k, algo=_rules.get_rule(algo), schedule="naive",
+                           backend=backend, group=group, device=device)
+        return solver.lower_step(m, n, dtype=dtype, nnz=nnz)

@@ -347,6 +347,16 @@ class BPPRule(UpdateRule):
         return super().cache_key() + (self.max_iter,)
 
 
+def _not_stalled(d: torch.Tensor, threshold: torch.Tensor) -> bool:
+    """The accelerated rules' stall test, read back to the host.  On fake
+    tensors (``lower_step``, the dry run) there is nothing to read: the
+    loop runs its whole budget, the worst case ``luc_flops`` prices."""
+    from repro_torch.roofline.counts import is_fake
+    if is_fake(d):
+        return True
+    return bool(d > threshold)
+
+
 class _AcceleratedRule(UpdateRule):
     """Gillis & Glineur acceleration (arXiv:1107.5194), shared machinery.
 
@@ -434,7 +444,7 @@ class _AcceleratedRule(UpdateRule):
         # while_loop).  delta = 0 takes the fixed loop above, with no sync.
         # On a grid d and d0 come through norm_psum (all-reduced), so every
         # rank runs the same number of sweeps.
-        while sweeps < budget and bool(d > delta * d0):
+        while sweeps < budget and _not_stalled(d, delta * d0):
             Xn = sweep(X)
             d = change(Xn, X)
             X, sweeps = Xn, sweeps + 1

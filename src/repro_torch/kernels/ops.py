@@ -15,7 +15,14 @@ Each wrapper
   * on a CUDA tensor, allocates the output (and the slab or bucket scratch)
     with ``torch.empty``, launches the kernel on the current stream, raises if
     the launch returned a CUDA error, and adds one to ``LAUNCHES[name]``.
-    There is no fallback: a CUDA tensor gets the kernel or an exception.
+    There is no fallback: a CUDA tensor gets the kernel or an exception;
+  * on a fake CUDA tensor or a ``meta`` one (no data: the dry run and
+    ``lower_step``), returns an empty output of the kernel's shape and dtype
+    and records the call on the open ``roofline.counts`` record, with the
+    FLOPs and bytes its bound is computed from (PERF.md §6) and the rate
+    its plan runs at.  Nothing is launched and nothing is counted in
+    ``LAUNCHES``.  A fake CPU tensor runs the plain version, as a real one
+    does.
 
 Unlike the reference, nothing is padded: the kernels mask ragged edges
 themselves, so A (56 GB at the paper's Video shape) is never copied.  The
@@ -38,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.roofline.counts import is_fake as _fake, record_kernel
 
 #: launches of each kernel on CUDA tensors since the last reset
 #: (``hals_sweep_wide``: hals_sweep's row-per-warp kernel, for the k that
@@ -48,6 +56,9 @@ LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0, "ts_matmul_mixed": 0,
             "mu_update": 0, "hals_sweep": 0, "hals_sweep_wide": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the H100 SXM's SM count, for planning a call on fake tensors (no card
+#: to ask)
+H100_SM_COUNT = 132
 _MAX_SLABS = 65535                         # gridDim.z limit
 
 #: the kernels' fixed sizes, as their ``<name>_tiles`` entry points report
@@ -121,7 +132,8 @@ def reset_launches() -> None:
 
 
 def _check(name: str, *tensors: torch.Tensor, mixed: bool = False) -> bool:
-    """Validate operands; True when they lie on a CUDA device.  ``mixed``:
+    """Validate operands; True when they lie on a CUDA device (or on
+    ``meta``: see ``_fake``).  ``mixed``:
     each operand's dtype is fp32 or bf16 on its own (the dense products);
     otherwise all share one."""
     if not all(isinstance(t, torch.Tensor) and t.layout == torch.strided
@@ -141,9 +153,23 @@ def _check(name: str, *tensors: torch.Tensor, mixed: bool = False) -> bool:
         if t.dtype not in _DTYPE_CODES:
             raise TypeError(f"{name}: dtype must be float32 or bfloat16, got "
                             f"{t.dtype}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: tensors must be on cpu or cuda, got {dev}")
-    return dev.type == "cuda"
+    return dev.type != "cpu"
+
+
+def _product_rate(dtype: torch.dtype) -> str:
+    """The rate class of the tensor-core kernels (gram, the products) on
+    operands of ``dtype``: bf16 on bf16 MMAs, fp32 as 3xTF32."""
+    return "bfloat16" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def _recorded(name: str, shape: tuple, dtype: torch.dtype, device,
+              flops: float, nbytes: float, rate: str) -> torch.Tensor:
+    """The output of a kernel call on fake tensors: recorded on the open
+    ``roofline.counts`` record, launched nowhere."""
+    record_kernel(name, flops, nbytes, rate, shape)
+    return torch.empty(shape, dtype=dtype, device=device)
 
 
 def plan_slabs(depth: int, tiles: int, sm_count: int, *, step: int,
@@ -367,6 +393,12 @@ def gram(X: torch.Tensor) -> torch.Tensor:
     """XᵀX (fp32, (k, k)) for X (r, k)."""
     if not _check("gram", X):
         return ref.gram(X)
+    if _fake(X):
+        # XᵀX is symmetric: k(k+1)/2 distinct entries of r multiply-adds
+        r, k = X.shape
+        return _recorded("gram", (k, k), torch.float32, X.device,
+                         1.0 * r * k * (k + 1), r * k * X.element_size()
+                         + k * k * 4, _product_rate(X.dtype))
     return _gram_launcher(X)()
 
 
@@ -376,7 +408,7 @@ def gram_parts(X: torch.Tensor):
     counted in no ``LAUNCHES``; each returns the output G, which holds XᵀX
     once both have run.  The reduction launches nothing when the plan has a
     single slab (the slab kernel then writes G itself)."""
-    if not _check("gram", X):
+    if not _check("gram", X) or _fake(X):
         raise ValueError("gram_parts: X must lie on a CUDA device")
     launch = _gram_launcher(X)
     return (lambda: launch(1, False)), (lambda: launch(2, False))
@@ -409,6 +441,11 @@ def ts_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     B = _product_b(A, B)
     m, n = A.shape
     k = B.shape[1]
+    if _fake(A):
+        return _recorded(_product_name("ts_matmul", A, B), (m, k),
+                         torch.float32, A.device, 2.0 * m * n * k,
+                         m * n * A.element_size() + n * k * B.element_size()
+                         + m * k * 4, _product_rate(B.dtype))
     tiles("ts_matmul")
     slab, slabs = plan_ts_matmul(m, n, k, _sm_count(A.device))
     a16 = copy_width(A.data_ptr(), n * A.element_size()) == 16
@@ -435,6 +472,11 @@ def ts_matmul_t(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     B = _product_b(A, B)
     m, n = A.shape
     k = B.shape[1]
+    if _fake(A):
+        return _recorded(_product_name("ts_matmul_t", A, B), (n, k),
+                         torch.float32, A.device, 2.0 * m * n * k,
+                         m * n * A.element_size() + m * k * B.element_size()
+                         + n * k * 4, _product_rate(B.dtype))
     tiles("ts_matmul")
     slab, slabs = plan_ts_matmul_t(m, n, k, _sm_count(A.device))
     a16 = copy_width(A.data_ptr(), n * A.element_size()) == 16
@@ -494,6 +536,11 @@ def spmm(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
         return ref.spmm(vals, rows, cols, B, m_out)
     n, k = B.shape
     nnz, size = vals.numel(), B.element_size()
+    if _fake(B):
+        # the triplets once, the dense operand once, the output once
+        return _recorded("spmm", (m_out, k), torch.float32, B.device,
+                         2.0 * nnz * k, nnz * (size + 8) + n * k * size
+                         + m_out * k * 4, "float32")
     if plan is None:
         plan = plan_spmm(nnz, m_out, k, size, _sm_count(B.device),
                          row_major=row_major)
@@ -587,6 +634,11 @@ def spmm_sorted(vals: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
         return ref.spmm_sorted(vals, rows, cols, tiles, valid, B, m_out,
                                align=align)
     n, k = B.shape
+    if _fake(B):
+        slots, size = vals.numel(), B.element_size()
+        return _recorded("spmm_sorted", (m_out, k), torch.float32, B.device,
+                         2.0 * slots * k, slots * (size + 8) + n * k * size
+                         + m_out * k * 4, "float32")
     if first is None:
         if not rows_in_order(rows, cols, tiles, valid, m_out, n,
                              align=align):
@@ -812,16 +864,27 @@ def _check_luc(name: str, X: torch.Tensor, G: torch.Tensor,
     if R.dtype not in (torch.float32, X.dtype):
         raise TypeError(f"{name}: R must be float32 or X's dtype {X.dtype}, "
                         f"got {R.dtype}")
-    if X.device.type not in ("cpu", "cuda"):
+    if X.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: tensors must be on cpu or cuda, got "
                          f"{X.device}")
-    return X.device.type == "cuda"
+    return X.device.type != "cpu"
 
 
 def _luc(name: str, op: int, X: torch.Tensor, G: torch.Tensor,
          R: torch.Tensor, eps: float,
          plan: MuPlan | HalsPlan | None = None) -> torch.Tensor:
     r, k = X.shape
+    if _fake(X):
+        # X and R read once, G once, the result written once; X·G's
+        # multiply-adds.  The plan (on the H100's SM count) names the
+        # kernel: a k no tile of hals_sweep fits runs the row-per-warp one.
+        sx, sr = X.element_size(), R.element_size()
+        if op == 1 and plan is None:
+            plan = plan_hals_sweep(r, k, sx, H100_SM_COUNT, r_itemsize=sr)
+        if op == 1 and plan.rows == 0:
+            name = "hals_sweep_wide"
+        return _recorded(name, (r, k), X.dtype, X.device, 2.0 * r * k * k,
+                         r * k * (2 * sx + sr) + k * k * 4, "float32")
     tiles("luc")
     out = torch.empty_like(X)
     sms = _sm_count(X.device)

@@ -15,9 +15,9 @@ import torch.distributed as dist
 
 def _device_type() -> str:
     """The device the group's backend works on: NCCL → cuda, gloo →
-    cpu."""
+    cpu; the dry run's ``fake`` world stands for cards (cuda)."""
     backend = dist.get_backend()
-    if backend == "nccl":
+    if backend in ("nccl", "fake"):
         return "cuda"
     if backend == "gloo":
         return "cpu"

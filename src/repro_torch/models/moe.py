@@ -84,7 +84,7 @@ def _route(router_w, x_flat, cfg):
     weights, expert_idx = top_k(probs, K)
     weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True), 1e-9)
     # Switch load-balance loss: E * sum_e f_e * p_e
-    f = torch.bincount(expert_idx.reshape(-1), minlength=E).float()
+    f = _expert_counts(expert_idx.reshape(-1), E).float()
     f = f / max(expert_idx.numel(), 1)
     pbar = probs.mean(0)
     aux = E * torch.sum(f * pbar) * cfg.moe.router_aux_weight
@@ -93,12 +93,21 @@ def _route(router_w, x_flat, cfg):
     return expert_idx, weights, aux, z
 
 
+def _expert_counts(expert_flat: torch.Tensor, E: int) -> torch.Tensor:
+    """Assignments per expert, (E,) int64: ``bincount(minlength=E)`` for
+    indices below E, with a shape that does not depend on the data (so
+    the dry run's fake tensors run it)."""
+    counts = torch.zeros(E, dtype=torch.int64, device=expert_flat.device)
+    return counts.scatter_add_(0, expert_flat.long(),
+                               torch.ones_like(expert_flat, dtype=torch.int64))
+
+
 def _positions_in_expert(expert_flat: torch.Tensor, E: int) -> torch.Tensor:
     """Rank of each assignment within its expert, computed via one stable
     argsort (no N×E one-hot materialisation)."""
     N = expert_flat.shape[0]
     order = torch.argsort(expert_flat, stable=True)
-    counts = torch.bincount(expert_flat, minlength=E)
+    counts = _expert_counts(expert_flat, E)
     offsets = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(N, device=expert_flat.device) \
         - offsets[expert_flat[order]]

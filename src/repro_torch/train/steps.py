@@ -66,7 +66,7 @@ def make_runtime(mesh, *, seq_parallel: bool = False) -> Runtime:
     if seq_parallel:
         raise NotImplementedError(
             "seq_parallel: activations are not sharded over \"model\" "
-            "(the activation-sharding gap, ROADMAP.md queue 1 item 12c)")
+            "(the activation-sharding gap, ROADMAP.md queue 1 item 12d)")
     if mesh is None:
         return NULL_RT
     return Runtime(mesh=mesh)
@@ -368,74 +368,83 @@ class _GatherOnUse(torch.autograd.Function):
         return out, None, None, None, None, None
 
 
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _src_of(use, rt):
+    # a gradient of one data shard: partial over the data dims
+    from torch.distributed.tensor import Partial
+    return [Partial() if name in rt.data_axes else pl
+            for name, pl in zip(rt.mesh.mesh_dim_names, use)]
+
+
+def _for_use(t, spec, path, rt):
+    """A parameter leaf as the step computes with it: a stack's layers
+    gather on use (their shard, as it is); the rest (embeddings, final
+    norms, frontends) gathered now."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor) or _in_stack(path):
+        return _local(t)
+    with torch.no_grad():
+        return t.redistribute(rt.mesh, _use_of(
+            spec, "/".join(map(str, path)), rt.mesh, rt.ep_axis)).to_local()
+
+
+def _gathering_runtime(rt, leaves, slots, pspecs, dp):
+    """A runtime whose layers gather their shards on use."""
+    mesh = rt.mesh
+    info = {}
+    for p, (path, g) in zip(leaves, slots):
+        if not _in_stack(path):
+            continue
+        spec = pspecs
+        for k in path:
+            spec = spec[k]
+        if g is not None:
+            spec = spec[1:]           # the group dim: never sharded
+        use = _use_of(spec, "/".join(map(str, path)), mesh, rt.ep_axis)
+        info[id(p)] = (mesh, shard_rules.to_placements(spec, mesh), use,
+                       _src_of(use, rt), dp)
+
+    def gathered(block):
+        out = {n: _GatherOnUse.apply(p, *info[id(p)]) if id(p) in info
+               else p for n, p in block._parameters.items()}
+        for n, m in block._modules.items():
+            out[n] = ([gathered(c) for c in m]
+                      if isinstance(m, torch.nn.ModuleList)
+                      else gathered(m))
+        return out
+
+    return Runtime(mesh=mesh, data_axes=rt.data_axes,
+                   ep_axis=rt.ep_axis, param_fn=gathered)
+
+
 def _make_sharded_step(cfg, opt_cfg, rt, microbatches):
-    from torch.distributed.tensor import DTensor, Partial
+    from torch.distributed.tensor import DTensor
     mesh = rt.mesh
     dgroups, dp = _data_info(mesh, rt.data_axes)
-
-    def local(t):
-        return t.to_local() if isinstance(t, DTensor) else t
-
-    def src_of(use):
-        # a gradient of one data shard: partial over the data dims
-        return [Partial() if name in rt.data_axes else pl
-                for name, pl in zip(mesh.mesh_dim_names, use)]
-
-    def for_use(t, spec, path):
-        # a stack's layers gather on use; the rest (embeddings, final
-        # norms, frontends) now
-        if not isinstance(t, DTensor) or _in_stack(path):
-            return local(t)
-        with torch.no_grad():
-            return t.redistribute(mesh, _use_of(
-                spec, "/".join(map(str, path)), mesh, rt.ep_axis)) \
-                .to_local()
 
     def reduce_scatter(g, spec, path):
         if _in_stack(path):
             return g                      # reduced by _GatherOnUse
         use = _use_of(spec, "/".join(map(str, path)), mesh, rt.ep_axis)
-        return DTensor.from_local(g / dp, mesh, src_of(use),
+        return DTensor.from_local(g / dp, mesh, _src_of(use, rt),
                                   run_check=False) \
             .redistribute(mesh, shard_rules.to_placements(spec, mesh)) \
             .to_local()
 
-    def gathering_runtime(leaves, slots, pspecs):
-        """A runtime whose layers gather their shards on use."""
-        info = {}
-        for p, (path, g) in zip(leaves, slots):
-            if not _in_stack(path):
-                continue
-            spec = pspecs
-            for k in path:
-                spec = spec[k]
-            if g is not None:
-                spec = spec[1:]           # the group dim: never sharded
-            use = _use_of(spec, "/".join(map(str, path)), mesh, rt.ep_axis)
-            info[id(p)] = (mesh, shard_rules.to_placements(spec, mesh), use,
-                           src_of(use), dp)
-
-        def gathered(block):
-            out = {n: _GatherOnUse.apply(p, *info[id(p)]) if id(p) in info
-                   else p for n, p in block._parameters.items()}
-            for n, m in block._modules.items():
-                out[n] = ([gathered(c) for c in m]
-                          if isinstance(m, torch.nn.ModuleList)
-                          else gathered(m))
-            return out
-
-        return Runtime(mesh=mesh, data_axes=rt.data_axes,
-                       ep_axis=rt.ep_axis, param_fn=gathered)
-
     def train_step(state, batch):
         specs = state_specs(state, mesh)
-        params = _zip_specs(for_use, state["params"], specs["params"])
+        params = _zip_specs(lambda t, spec, path: _for_use(t, spec, path, rt),
+                            state["params"], specs["params"])
         batches = (_split(batch, microbatches) if microbatches > 1
                    else [batch])
         loss, metrics, grads = grads_of(
             cfg, params, [_local_rows(b, mesh) for b in batches],
-            runtime_for=lambda leaves, slots: gathering_runtime(
-                leaves, slots, specs["params"]))
+            runtime_for=lambda leaves, slots: _gathering_runtime(
+                rt, leaves, slots, specs["params"], dp))
         del params
         with torch.no_grad():
             grads = _zip_specs(reduce_scatter, grads, specs["params"])
@@ -443,8 +452,8 @@ def _make_sharded_step(cfg, opt_cfg, rt, microbatches):
             metrics = {k: _sum_over(v.float(), dgroups) / dp
                        for k, v in metrics.items()}
             gnorm = _sharded_norm(grads, specs["params"], mesh)
-            p_loc = tree_map(local, state["params"])
-            o_loc = tree_map(local, state["opt"])
+            p_loc = tree_map(_local, state["params"])
+            o_loc = tree_map(_local, state["opt"])
             if opt_cfg.kind == "adafactor":
                 new_p, new_opt = _adafactor_sharded(
                     opt_cfg, grads, o_loc, p_loc, specs["params"], mesh,
@@ -559,11 +568,59 @@ def _model(cfg, params) -> LM:
     return params if isinstance(params, LM) else model_of(cfg, params)
 
 
+def _serving(cfg, params, rt):
+    """(the model, its runtime) for a serving step.  On a mesh ``params``
+    is a stacked tree of DTensor shards (``shard_params``): the model runs
+    on this rank's batch rows, its embeddings, final norms and frontends
+    gathered at the call, each layer's parameters where the layer runs,
+    as the sharded train step gathers them."""
+    if rt.mesh is None:
+        return _model(cfg, params), rt
+    mesh = rt.mesh
+    specs = shard_rules.tree_specs(params, mesh, ("params",))
+    model = model_of(cfg, _zip_specs(
+        lambda t, spec, path: _for_use(t, spec, path, rt), params, specs))
+    leaves, slots = _grad_slots(model)
+    _, dp = _data_info(mesh, rt.data_axes)
+    return model, _gathering_runtime(rt, leaves, slots, specs, dp)
+
+
+def shard_params(params, mesh) -> dict:
+    """A whole stacked parameter tree (the same on every rank) as DTensors
+    of this rank's shards, by the train state's rules (no
+    communication)."""
+    return _reshard(params, shard_rules.tree_specs(params, mesh,
+                                                   ("params",)), mesh)
+
+
+def local_caches(caches, mesh, batch: int) -> list:
+    """This rank's part of whole decode caches (the same on every rank):
+    ``cache_shardings``' split of the batch over the data dims.  Its split
+    of the KV length over "model" is not taken: activations, the caches
+    among them, are not sharded over "model" (ROADMAP.md item 12d)."""
+    specs = shard_rules.cache_shardings(caches, mesh, batch)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, sp) for v, sp in zip(tree, spec)]
+        data_only = tuple(None if ax == "model" else ax for ax in spec)
+        return shard_rules.local_slice(tree, data_only, mesh).contiguous()
+
+    return walk(caches, specs)
+
+
 def make_prefill_step(cfg: ModelConfig, kv_len: int, *, rt=NULL_RT):
     """(params, batch) -> (last-position logits, caches); ``params`` an
-    ``LM`` or a stacked parameter tree."""
+    ``LM`` or a stacked parameter tree, on a mesh (``rt``) its DTensor
+    shards (``shard_params``) and ``batch`` the whole batch, of which the
+    step runs this rank's rows."""
     def prefill_step(params, batch):
-        logits, caches = _model(cfg, params).prefill(batch, kv_len, rt=rt)
+        model, run = _serving(cfg, params, rt)
+        if rt.mesh is not None:
+            batch = _local_rows(batch, rt.mesh)
+        logits, caches = model.prefill(batch, kv_len, rt=run)
         # return only last-position logits (what serving samples from)
         return logits[:, -1, :], caches
     return prefill_step
@@ -571,10 +628,15 @@ def make_prefill_step(cfg: ModelConfig, kv_len: int, *, rt=NULL_RT):
 
 def make_serve_step(cfg: ModelConfig, *, rt=NULL_RT):
     """One greedy decode step for a running batch: (params, caches, tokens,
-    pos) -> (next_tokens (B, 1) int32, caches written in place)."""
+    pos) -> (next_tokens (B, 1) int32, caches written in place).  On a mesh
+    (``rt``) ``params`` are DTensor shards (``shard_params``), ``caches``
+    this rank's (``local_caches``) and ``tokens`` the whole batch's."""
     def serve_step(params, caches, tokens, pos):
-        logits, caches = _model(cfg, params).decode_step(caches, tokens,
-                                                         int(pos), rt=rt)
+        model, run = _serving(cfg, params, rt)
+        if rt.mesh is not None:
+            tokens = _local_rows({"t": tokens}, rt.mesh)["t"]
+        logits, caches = model.decode_step(caches, tokens, int(pos),
+                                           rt=run)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return nxt[:, None], caches
     return serve_step

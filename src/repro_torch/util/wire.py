@@ -15,16 +15,23 @@ hand-written schedules call (``all_reduce``, ``all_gather_into_tensor``,
 collectives DTensor issues when it redistributes (``_c10d_functional``
 ops, seen through a dispatch mode).
 
+``record_wire(communicate=False)`` records the same entries and sends
+nothing: each collective returns at once and leaves its output as it was
+(``roofline.counts`` answers a step run on fake tensors this way).  The
+log keeps each entry's group as its global ranks in ``log.ranks``.
+
 Bytes received count an optimal collective on g ranks (paper §2.3, as
 ``core.costmodel.Machine.collective_words``): an all-gather (g−1)/g of its
 output, a reduce-scatter and an all-to-all (g−1)/g of their input, an
-all-reduce 2(g−1)/g of its tensor, a broadcast its tensor once.
+all-reduce 2(g−1)/g of its tensor, a broadcast its tensor once.  An
+all-to-all given its split sizes counts the output rows it receives from
+the other ranks (the pipeline's hop: its whole tensor).
 """
 
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.distributed as dist
@@ -40,7 +47,16 @@ class Collective:
 
 
 class WireLog(list):
-    """The collectives recorded, in issue order."""
+    """The collectives recorded, in issue order; ``ranks[i]`` is entry i's
+    group as global ranks."""
+
+    def __init__(self):
+        super().__init__()
+        self.ranks: list[tuple] = []
+
+    def add(self, entry: Collective, group) -> None:
+        self.append(entry)
+        self.ranks.append(_ranks(group))
 
     def received_bytes(self) -> float:
         return sum(c.received for c in self)
@@ -68,32 +84,52 @@ def _group_size(group) -> int:
     return dist.get_world_size(group)
 
 
-def _c10d_wrappers(log: WireLog) -> dict:
+def _ranks(group) -> tuple:
+    if group is None:
+        return tuple(range(dist.get_world_size()))
+    return tuple(dist.get_process_group_ranks(group))
+
+
+def _c10d_wrappers(log: WireLog, communicate: bool = True) -> dict:
+    def issue(name, args, kw):
+        if communicate:
+            return saved[name](*args, **kw)
+        return None
+
     def all_reduce(tensor, *args, group=None, **kw):
-        log.append(_entry("all_reduce", tensor, _group_size(group)))
-        return saved["all_reduce"](tensor, *args, group=group, **kw)
+        log.add(_entry("all_reduce", tensor, _group_size(group)), group)
+        return issue("all_reduce", (tensor, *args), dict(kw, group=group))
 
     def all_gather_into_tensor(out, inp, *args, group=None, **kw):
-        log.append(_entry("all_gather", inp, _group_size(group)))
-        return saved["all_gather_into_tensor"](out, inp, *args, group=group,
-                                               **kw)
+        log.add(_entry("all_gather", inp, _group_size(group)), group)
+        return issue("all_gather_into_tensor", (out, inp, *args),
+                     dict(kw, group=group))
 
     def all_gather(out_list, tensor, *args, group=None, **kw):
-        log.append(_entry("all_gather", tensor, _group_size(group)))
-        return saved["all_gather"](out_list, tensor, *args, group=group, **kw)
+        log.add(_entry("all_gather", tensor, _group_size(group)), group)
+        return issue("all_gather", (out_list, tensor, *args),
+                     dict(kw, group=group))
 
     def all_to_all_single(out, inp, *args, group=None, **kw):
-        log.append(_entry("all_to_all", inp, _group_size(group)))
-        return saved["all_to_all_single"](out, inp, *args, group=group, **kw)
+        entry = _entry("all_to_all", inp, _group_size(group))
+        splits = args[0] if args else kw.get("output_split_sizes")
+        if splits is not None:
+            me = dist.get_rank(group)
+            rows = sum(s for j, s in enumerate(splits) if j != me)
+            row = _nbytes(out) // out.shape[0] if out.shape[0] else 0
+            entry = replace(entry, received=float(rows * row))
+        log.add(entry, group)
+        return issue("all_to_all_single", (out, inp, *args),
+                     dict(kw, group=group))
 
     def reduce_scatter_tensor(out, inp, *args, group=None, **kw):
-        log.append(_entry("reduce_scatter", inp, _group_size(group)))
-        return saved["reduce_scatter_tensor"](out, inp, *args, group=group,
-                                              **kw)
+        log.add(_entry("reduce_scatter", inp, _group_size(group)), group)
+        return issue("reduce_scatter_tensor", (out, inp, *args),
+                     dict(kw, group=group))
 
     def broadcast(tensor, *args, group=None, **kw):
-        log.append(_entry("broadcast", tensor, _group_size(group)))
-        return saved["broadcast"](tensor, *args, group=group, **kw)
+        log.add(_entry("broadcast", tensor, _group_size(group)), group)
+        return issue("broadcast", (tensor, *args), dict(kw, group=group))
 
     wrappers = dict(all_reduce=all_reduce,
                     all_gather_into_tensor=all_gather_into_tensor,
@@ -129,19 +165,20 @@ def _functional_mode(log: WireLog):
                 name = packet.__name__
                 if name in ops:
                     group = _resolve_process_group(args[-1])
-                    log.append(_entry(ops[name], args[0],
-                                      dist.get_world_size(group)))
+                    log.add(_entry(ops[name], args[0],
+                                   dist.get_world_size(group)), group)
             return func(*args, **(kwargs or {}))
 
     return Mode()
 
 
 @contextlib.contextmanager
-def record_wire():
+def record_wire(communicate: bool = True):
     """Record this rank's collectives while the context is open (module
-    docstring); yields the ``WireLog``."""
+    docstring); yields the ``WireLog``.  ``communicate=False``: record the
+    torch.distributed calls without sending anything."""
     log = WireLog()
-    wrappers, saved = _c10d_wrappers(log)
+    wrappers, saved = _c10d_wrappers(log, communicate)
     for name, fn in wrappers.items():
         setattr(dist, name, fn)
     try:

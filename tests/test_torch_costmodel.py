@@ -265,11 +265,21 @@ def test_algorithms_module():
 
 
 def test_lower_step_is_refused_and_names_its_item():
+    """lower_step is ported (item 12c): the solver's counts one step
+    (``roofline.counts.StepRecord``), and the schedules' module functions
+    take the reference's arguments, the layout first."""
+    import inspect
     from repro_torch.core import faun, gspmd, naive
-    for fn in (faun.lower_step, naive.lower_step, gspmd.lower_step,
-               NMFSolver(4, device="cpu").lower_step):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(32, 24)
+    from repro_torch.roofline.counts import StepRecord
+    rec = NMFSolver(4, device="cpu").lower_step(32, 24)
+    assert isinstance(rec, StepRecord) and "aten::mm" in rec.as_text()
+    for fn, layout, algo in ((faun.lower_step, "grid", "bpp"),
+                             (naive.lower_step, "group", "bpp"),
+                             (gspmd.lower_step, "grid", "mu")):
+        params = inspect.signature(fn).parameters
+        assert list(params)[:4] == [layout, "m", "n", "k"]
+        assert params["algo"].default == algo
+        assert params["backend"].default == "dense"
 
 
 # ---------------------------------------------------------------------------

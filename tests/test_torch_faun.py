@@ -278,10 +278,11 @@ def test_distributed_schedules_refuse_to_run_without_a_process_group(
 
 def test_unported_wire_options_are_refused():
     """Compression, gspmd and the profiler are ported; what is still
-    refused names the item that ports it (lower_step: item 12), and the
-    wire options that do not apply are refused as in the reference."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        NMFSolver(K, device="cpu").lower_step(M, N)
+    refused names the item that ports it, and the wire options that do
+    not apply are refused as in the reference.  lower_step is ported
+    (item 12c): it counts one step."""
+    assert "aten::mm" in NMFSolver(K, device="cpu").lower_step(
+        M, N).as_text()
     assert "phase_times" in NMFSolver(K, device="cpu", max_iters=1).fit(
         _problem()[0], profile=True).extras
     with pytest.raises(RuntimeError, match="no process group"):
