@@ -30,7 +30,9 @@ group:
   weights (``aunmf.fit``, bpp) through the dense kernels;
 * training (``repro_torch.train``): every reduced architecture, then
   smollm-135m at full size and dbrx-132b at full width (one layer), and
-  the sharded step and ``moe_ep`` on a one-rank NCCL mesh.
+  the sharded step and ``moe_ep`` on a one-rank NCCL mesh;
+* tensor and sequence parallelism over "model" on four ranks sharing the
+  card: smollm-135m's train step and serving, qwen2-72b's serving.
 
 Phases, each of which raises on failure:
 
@@ -284,6 +286,16 @@ Phases, each of which raises on failure:
  35. pipeline  ``distributed.pipeline`` on four gloo ranks sharing the
                card, ``PIPE`` stages × microbatches in fp32: output and
                gradient within ``PIPE_TOL`` of the sequential stack.
+ 36. tp        tensor and sequence parallelism over "model" on four gloo
+               ranks sharing the card, against the unsharded run on the
+               card (``BF16_FACTOR`` × its own distance from an fp32
+               twin): smollm-135m at full size (8 × 2,048, bf16) on
+               (1, 3), where its heads, KV heads, FFN and vocabulary all
+               divide, its train step's gradient and loss, prefill and 8
+               decode steps on caches split over the KV length; its train
+               step on (1, 4) with seq_parallel; qwen2-72b at full width,
+               2 of 80 layers, prefill 2 × 2,048 and 8 decode steps on
+               (1, 4), its bytes a rank against the card's memory.
 
 Last of all (the profiler doubles the host cost of every later launch,
 tools/probe_profiler_overhead.py), one smollm-135m decode step of phase
@@ -4880,6 +4892,462 @@ def phase_pipeline(dev, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# Phase 36: tensor and sequence parallelism over "model"
+
+#: phase 36: smollm-135m at full size, (batch, sequence, decode steps): the
+#: train step and prefill plus decode on a (1, 3) mesh, where its 9 heads,
+#: 3 KV heads, 1,536 FFN columns and 49,152-token vocabulary all divide;
+#: the train step again on (1, 4) with seq_parallel
+TP_SMOLLM = (8, 2_048, 8)
+#: phase 36: qwen2-72b at full width, (layers kept, batch, prompt, decode
+#: steps) on (1, 4)
+TP_QWEN = (2, 2, 2_048, 8)
+TP_RANKS = 4
+
+
+def _kv_len(prompt: int, steps: int, *tps) -> int:
+    """The smallest cache length that holds the prompt and the steps and
+    divides over every "model" size in ``tps`` (the KV split needs it)."""
+    n = math.lcm(*tps)
+    return -(-(prompt + steps) // n) * n
+
+
+def _rel_l2(got, want) -> float:
+    from repro_torch.optim.optimizers import tree_leaves
+    num = sum(float(((a.float() - b.float()) ** 2).sum())
+              for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    return math.sqrt(num / sum(float((b.float() ** 2).sum())
+                               for b in tree_leaves(want)))
+
+
+def _leaf_paths(tree, path: str = "") -> list:
+    """The "a/b/c" path of each leaf of ``tree``, in ``tree_leaves``'
+    order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [q for k in sorted(tree)
+                for q in _leaf_paths(tree[k], f"{path}/{k}".lstrip("/"))]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree)
+                for q in _leaf_paths(v, f"{path}/{i}".lstrip("/"))]
+    return [] if tree is None else [path]
+
+
+def _leaf_rel_l2(got, want) -> list:
+    """Each leaf's ‖got − want‖ / ‖want‖, in ``tree_leaves``' order."""
+    from repro_torch.optim.optimizers import tree_leaves
+    out = []
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        num = float((a.float() - b.float()).norm())
+        den = float(b.float().norm())
+        out.append(num / den if den > 0 else (0.0 if num == 0 else math.inf))
+    return out
+
+
+def _worst_leaf(dist, twin) -> tuple:
+    """(index, ratio) of the leaf whose distance in ``dist`` stands
+    farthest above its fp32 twin's in ``twin``."""
+    ratios = [d / t if t > 0 else (0.0 if d == 0 else math.inf)
+              for d, t in zip(dist, twin)]
+    i = max(range(len(ratios)), key=ratios.__getitem__)
+    return i, ratios[i]
+
+
+def _tp_cfgs():
+    from repro_torch.configs import base as cb
+    layers = TP_QWEN[0]
+    return (cb.get_config("smollm_135m"),
+            cb.get_config("qwen2_72b").replace(n_layers=layers))
+
+
+def _tp_params(cfg, seed: int, dev):
+    """The port's seeded init of ``cfg`` in the train state's stacked
+    layout, on ``dev``."""
+    from repro_torch.models.lm import LM
+    from repro_torch.util.convert import stack_params
+    return stack_params(LM(cfg, device=dev, seed=seed).tree())
+
+
+def _greedy_ref(cfg, params, prompt, kv_len: int, steps: int, fed=None):
+    """Prefill and ``steps`` greedy decode steps through the serving steps
+    (``make_prefill_step``, ``make_decode_step``) on one card: (the fed
+    tokens (B, steps), each step's logits (steps + 1, B, V), prefill ms,
+    decode ms a step).  ``fed`` forces the tokens (an fp32
+    twin's run on the bf16 run's tokens)."""
+    import torch
+    from repro_torch.train import steps as st
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, caches = st.make_prefill_step(cfg, kv_len)(params,
+                                                     {"tokens": prompt})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    decode = st.make_decode_step(cfg)
+    cur = last.argmax(-1).to(torch.int32)[:, None] if fed is None \
+        else fed[:, :1]
+    toks, outs = [], [last.float()]
+    for i in range(steps):
+        toks.append(cur)
+        lg, caches = decode(params, caches, cur, prompt.shape[1] + i)
+        outs.append(lg.float())
+        cur = (lg.argmax(-1).to(torch.int32)[:, None] if fed is None
+               else fed[:, i + 1:i + 2])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del caches
+    return (torch.cat(toks, 1), torch.stack(outs), (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3 / steps)
+
+
+def tp_rank(out: str, seed: int, device: str) -> None:
+    """Phase 36's rank (four share the card over gloo): the sharded runs,
+    each held by rank 0 against the unsharded references in ``out``."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.optim.optimizers import OptConfig
+    from repro_torch.roofline.counts import tensor_bytes
+    from repro_torch.train import steps as st
+    r = dist.get_rank()
+    dev = torch.device(device)
+    ref = torch.load(os.path.join(out, "ref.pt"), map_location=dev)
+    res = {"err": None}
+    smollm, qwen = _tp_cfgs()
+    B, S, n_dec = TP_SMOLLM
+    opt = OptConfig(kind="adamw", lr=1e-3, warmup_steps=1, total_steps=10)
+    batch = make_lm_loader(smollm, cb.ShapeConfig("train", S, B, "train"),
+                           seed=seed, device=dev)(0)
+
+    def timed(fn, group, n=2):
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            dist.barrier(group=group)
+            t0 = time.perf_counter()
+            val = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return val, ms
+
+    def grads_check(tag, mesh, rt, state, n):
+        # the train step's gradient, as its ``sharded_grads`` returns it
+        kept, sharded_grads = [], st.sharded_grads
+
+        def keep(*a, **k):
+            out = sharded_grads(*a, **k)
+            kept[:] = [out[2]]
+            return out
+        st.sharded_grads = keep
+        try:
+            (_, m), ms = timed(lambda: st.make_train_step(
+                smollm, opt, rt=rt)(state, batch), mesh.get_group("model"),
+                n)
+        finally:
+            st.sharded_grads = sharded_grads
+        whole = st.full_state(st.wrap_shards(kept.pop(), state["params"],
+                                             mesh))
+        if r == 0:
+            res[tag] = {"step_ms": ms, "loss": float(m["loss"]),
+                        "grad_vs_ref": _rel_l2(whole, ref["smollm_g16"]),
+                        "grad_leaf_vs_ref": _leaf_rel_l2(whole,
+                                                         ref["smollm_g16"])}
+        del whole
+        torch.cuda.empty_cache()
+
+    try:
+        whole = _tp_params(smollm, seed, dev)
+        state = {"params": whole, "step": torch.zeros(
+            (), dtype=torch.int32, device=dev)}
+        from repro_torch.optim.optimizers import init_opt_state
+        state["opt"] = init_opt_state("adamw", whole)
+        mesh3 = DeviceMesh(dev.type, [list(range(3))],
+                           mesh_dim_names=("data", "model"))
+        mesh4 = DeviceMesh(dev.type, [list(range(TP_RANKS))],
+                           mesh_dim_names=("data", "model"))
+        if mesh3.get_coordinate() is not None:
+            rt3 = st.make_runtime(mesh3)
+            grads_check("smollm_13", mesh3, rt3, st.shard_state(state, mesh3),
+                        1)
+            params = st.shard_params(whole, mesh3)
+            prompt = ref["smollm_prompt"]
+            kv = _kv_len(S, n_dec, 3, TP_RANKS)
+            dist.barrier(group=mesh3.get_group("model"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, caches = st.make_prefill_step(smollm, kv, rt=rt3)(
+                params, {"tokens": prompt})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            decode = st.make_decode_step(smollm, rt=rt3)
+            fed, outs = ref["smollm_fed"], [last.float()]
+            for i in range(n_dec):
+                lg, caches = decode(params, caches, fed[:, i:i + 1], S + i)
+                outs.append(lg.float())
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            cache_len = {c["k"].shape[1] for layer in caches
+                         for c in layer.values()}
+            del caches
+            if r == 0:
+                got = torch.stack(outs)
+                # the greedy tokens: the sharded run's choice at each of
+                # the n_dec fed positions against the unsharded run's; a
+                # flip is a near-tie when the unsharded logits' margin
+                # between the two tokens is within 2 × BF16_FACTOR × the
+                # fp32 twin's distance on that row (the logits rule, row
+                # by row)
+                want = fed.T.long()                           # (n_dec, B)
+                ref_l = ref["smollm_logits"][:n_dec]
+                pick = got[:n_dec].argmax(-1)
+                flip = pick != want
+                margin = (ref_l.gather(-1, want[..., None])
+                          - ref_l.gather(-1, pick[..., None]))[..., 0]
+                tie = (margin / ref["smollm_twin_row"][:n_dec])[flip]
+                res["smollm_13_serve"] = {
+                    "prefill_ms": (t1 - t0) * 1e3,
+                    "decode_ms": (t2 - t1) * 1e3 / n_dec,
+                    "err": scaled_err(got, ref["smollm_logits"])[1],
+                    "agree": int((~flip).sum()), "of": flip.numel(),
+                    "worst_tie": float(tie.max()) if tie.numel() else 0.0,
+                    "cache_len": sorted(cache_len), "kv_len": kv}
+            del params
+        dist.barrier(group=mesh4.get_group("model"))
+        torch.cuda.empty_cache()
+        grads_check("smollm_14_sp", mesh4,
+                    st.make_runtime(mesh4, seq_parallel=True),
+                    st.shard_state(state, mesh4), 1)
+        del state, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["smollm_left_bytes"] = torch.cuda.memory_allocated(dev)
+
+        # qwen2-72b at full width, depth cut, on (1, 4): two ranks at a
+        # time make the whole seeded weights (8.5 GB, and twice the
+        # embedding table in fp32 on the way) and keep their shards
+        _, Bq, Pq, nq = TP_QWEN
+        group4 = mesh4.get_group("model")
+        for i in range(0, TP_RANKS, 2):
+            if i <= r < i + 2:
+                whole = _tp_params(qwen, seed, dev)
+                params = st.shard_params(whole, mesh4)
+                del whole
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier(group=group4)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        rt4 = st.make_runtime(mesh4)
+        kv = _kv_len(Pq, nq, TP_RANKS)
+        prompt, fed = ref["qwen_prompt"], ref["qwen_fed"]
+        dist.barrier(group=group4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, caches = st.make_prefill_step(qwen, kv, rt=rt4)(
+            params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode = st.make_decode_step(qwen, rt=rt4)
+        outs = [last.float()]
+        for i in range(nq):
+            lg, caches = decode(params, caches, fed[:, i:i + 1], Pq + i)
+            outs.append(lg.float())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res["qwen"] = {
+            "prefill_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3 / nq,
+            "param_bytes": tensor_bytes(params),
+            "cache_bytes": tensor_bytes(caches),
+            "cache_len": sorted({c["k"].shape[1] for layer in caches
+                                 for c in layer.values()}),
+            "kv_len": kv, "base_bytes": base,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        if r == 0:
+            res["qwen"]["err"] = scaled_err(torch.stack(outs),
+                                            ref["qwen_logits"])[1]
+        del caches, params
+    except Exception as e:  # noqa: BLE001 — reported by the parent
+        import traceback
+        res["err"] = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
+    torch.save(res, os.path.join(out, f"tp_{r}.pt"))
+
+
+def phase_tp(dev, seed: int, card: str) -> dict:
+    """Phase 36: the model tensor-parallel over "model" (and sequence
+    parallel) on four gloo ranks sharing the card, as phase 35 spawns
+    them, against the unsharded run on the card: smollm-135m at full size
+    (bf16, remat) on (1, 3), its train step's gradient and its prefill
+    plus ``TP_SMOLLM`` decode steps (the KV length split over "model"),
+    its train step on (1, 4) with seq_parallel; qwen2-72b at full width,
+    depth cut to ``TP_QWEN``'s layers, prefill and decode on (1, 4).  Each
+    within ``BF16_FACTOR`` × the unsharded bf16 run's own distance from
+    its fp32 twin (phases 27 and 30's rule; the gradient leaf by leaf,
+    each against the same leaf's twin distance; a greedy token that flips
+    only at a near-tie of that rule, row by row), each loss within
+    ``TRAIN_LOSS_TOL``; the ms of each step beside the card."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train import steps as st
+    from repro_torch.util import dist as rdist
+    t_phase = time.perf_counter()
+    smollm, qwen = _tp_cfgs()
+    B, S, n_dec = TP_SMOLLM
+    _, Bq, Pq, nq = TP_QWEN
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, out = {}, {"card": card}
+    # the unsharded references on the card, and the fp32 twins' distance
+    params = _tp_params(smollm, seed, dev)
+    batch = make_lm_loader(smollm, cb.ShapeConfig("train", S, B, "train"),
+                           seed=seed, device=dev)(0)
+    loss16, _, g16 = st.grads_of(smollm, params, [batch])
+    from repro_torch.optim.optimizers import OptConfig, init_opt_state
+    opt = OptConfig(kind="adamw", lr=1e-3, warmup_steps=1, total_steps=10)
+    state = {"params": params, "opt": init_opt_state("adamw", params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st.make_train_step(smollm, opt)(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    del state
+    p32 = tree_map(lambda t: t.float(), params)
+    loss32, _, g32 = st.grads_of(fp32_cfg(smollm), p32, [batch])
+    e_g = _rel_l2(g16, g32)
+    e_g_leaf, leaf_names = _leaf_rel_l2(g16, g32), _leaf_paths(g16)
+    del g32
+    ref["smollm_g16"] = g16
+    gen = torch.Generator(device=dev).manual_seed(seed + 36)
+    prompt = torch.randint(0, smollm.vocab, (B, S), generator=gen,
+                           device=dev)
+    kv = _kv_len(S, n_dec, 3, TP_RANKS)
+    fed, lg16, pre_ms, dec_ms = _greedy_ref(smollm, params, prompt, kv,
+                                            n_dec)
+    _, lg32, _, _ = _greedy_ref(fp32_cfg(smollm), p32, prompt, kv, n_dec,
+                                fed=fed)
+    e_s = scaled_err(lg16, lg32)[1]
+    ref.update(smollm_prompt=prompt, smollm_fed=fed, smollm_logits=lg16,
+               smollm_twin_row=(lg16 - lg32).abs().amax(-1))
+    out["smollm_ref"] = {"loss": float(loss16), "loss32": float(loss32),
+                         "step_ms": step_ms,
+                         "grad_vs_fp32": e_g, "serve_vs_fp32": e_s,
+                         "grad_leaf_vs_fp32": e_g_leaf,
+                         "prefill_ms": pre_ms, "decode_ms": dec_ms}
+    del params, p32, lg32
+    torch.cuda.empty_cache()
+    qparams = _tp_params(qwen, seed, dev)
+    qprompt = torch.randint(0, qwen.vocab, (Bq, Pq), generator=gen,
+                            device=dev)
+    qkv = _kv_len(Pq, nq, TP_RANKS)
+    qfed, q16, qpre, qdec = _greedy_ref(qwen, qparams, qprompt, qkv, nq)
+    q32p = tree_map(lambda t: t.float(), qparams)
+    del qparams
+    torch.cuda.empty_cache()
+    _, q32, _, _ = _greedy_ref(fp32_cfg(qwen), q32p, qprompt, qkv, nq,
+                               fed=qfed)
+    e_q = scaled_err(q16, q32)[1]
+    del q32p, q32
+    ref.update(qwen_prompt=qprompt, qwen_fed=qfed, qwen_logits=q16)
+    out["qwen_ref"] = {"serve_vs_fp32": e_q, "prefill_ms": qpre,
+                       "decode_ms": qdec}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        torch.save(ref, os.path.join(tmp, "ref.pt"))
+        del ref, g16, lg16, q16, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_spawn = time.perf_counter()
+        where = f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu"
+        rdist.spawn(tp_rank, TP_RANKS, tmp, seed, where, backend="gloo",
+                    device=where)
+        out["ranks_s"] = time.perf_counter() - t_spawn
+        ranks = [torch.load(os.path.join(tmp, f"tp_{r}.pt"))
+                 for r in range(TP_RANKS)]
+    errs = [x["err"] for x in ranks if x["err"]]
+    require(not errs, f"phase 36 failed on a rank: {errs[0][-3000:]}"
+            if errs else "")
+    r0 = ranks[0]
+    sref, qref = out["smollm_ref"], out["qwen_ref"]
+    tol_g, tol_s, tol_q = (BF16_FACTOR * sref["grad_vs_fp32"],
+                           BF16_FACTOR * sref["serve_vs_fp32"],
+                           BF16_FACTOR * qref["serve_vs_fp32"])
+    for tag, mesh in (("smollm_13", "(1, 3)"),
+                      ("smollm_14_sp", "(1, 4) seq_parallel")):
+        x = r0[tag]
+        e_loss = abs(x["loss"] - sref["loss"]) / abs(sref["loss"])
+        i, ratio = _worst_leaf(x["grad_leaf_vs_ref"],
+                               sref["grad_leaf_vs_fp32"])
+        x["worst_leaf"] = {"leaf": leaf_names[i], "ratio": ratio,
+                           "dist": x["grad_leaf_vs_ref"][i],
+                           "twin": sref["grad_leaf_vs_fp32"][i]}
+        ok = (x["grad_vs_ref"] <= tol_g and ratio <= BF16_FACTOR
+              and e_loss <= TRAIN_LOSS_TOL)
+        log(f"[tp] smollm-135m full size {B} x {S} bf16 on {mesh}: train "
+            f"step {' / '.join(f'{v:.1f}' for v in x['step_ms'])} ms "
+            f"({B * S / (x['step_ms'][-1] * 1e-3):.0f} tokens/s; unsharded "
+            f"on the card {sref['step_ms']:.1f} ms); gradient vs the "
+            f"unsharded bf16 one {x['grad_vs_ref']:.3e} (tol "
+            f"{BF16_FACTOR:g} x its fp32 twin's {sref['grad_vs_fp32']:.3e}"
+            f" = {tol_g:.3e}); worst leaf {leaf_names[i]} "
+            f"{x['worst_leaf']['dist']:.3e}, {ratio:.2f} x its twin's "
+            f"{x['worst_leaf']['twin']:.3e} (tol {BF16_FACTOR:g} x); loss "
+            f"{x['loss']:.6f} vs "
+            f"{sref['loss']:.6f} ({e_loss:.2e}, tol {TRAIN_LOSS_TOL:.0e}) "
+            f"{'ok' if ok else 'FAIL'}; card {card}")
+        require(ok, f"phase 36: smollm-135m's sharded step on {mesh} is off "
+                    f"the unsharded one")
+        out[tag] = x
+    x = r0["smollm_13_serve"]
+    ok = (x["err"] <= tol_s and x["cache_len"] == [x["kv_len"] // 3]
+          and x["worst_tie"] <= 2 * BF16_FACTOR)
+    log(f"[tp] smollm-135m on (1, 3): prefill {B} x {S} "
+        f"{x['prefill_ms']:.1f} ms (unsharded {sref['prefill_ms']:.1f}), "
+        f"decode {x['decode_ms']:.2f} ms a step (unsharded "
+        f"{sref['decode_ms']:.2f}); each rank's caches {x['cache_len']} of "
+        f"{x['kv_len']} positions; logits vs the unsharded run "
+        f"{x['err']:.3e} (tol {BF16_FACTOR:g} x {sref['serve_vs_fp32']:.3e}"
+        f" = {tol_s:.3e}); greedy tokens agree {x['agree']} / {x['of']}, "
+        f"each flip's unsharded margin {x['worst_tie']:.2f} x the twin's "
+        f"row distance or less (tol {2 * BF16_FACTOR:g} x) "
+        f"{'ok' if ok else 'FAIL'}; card {card}")
+    require(ok, "phase 36: smollm-135m's sharded serving is off the "
+                "unsharded one")
+    out["smollm_13_serve"] = x
+    q = [x["qwen"] for x in ranks]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    peak = max(x["peak_bytes"] for x in q)
+    ok = (r0["qwen"]["err"] <= tol_q
+          and all(x["cache_len"] == [x["kv_len"] // TP_RANKS] for x in q))
+    log(f"[tp] qwen2-72b full width, {qwen.n_layers} of 80 layers, on "
+        f"(1, 4): prefill {Bq} x {Pq} {q[0]['prefill_ms']:.1f} ms "
+        f"(unsharded {qref['prefill_ms']:.1f}), decode "
+        f"{q[0]['decode_ms']:.2f} ms a step (unsharded "
+        f"{qref['decode_ms']:.2f}); logits vs the unsharded run "
+        f"{r0['qwen']['err']:.3e} (tol {BF16_FACTOR:g} x "
+        f"{qref['serve_vs_fp32']:.3e} = {tol_q:.3e}) "
+        f"{'ok' if ok else 'FAIL'}; a rank holds "
+        f"{q[0]['param_bytes'] / 1e9:.3f} GB of parameters and "
+        f"{q[0]['cache_bytes'] / 1e9:.4f} GB of caches ({q[0]['cache_len']} "
+        f"of {q[0]['kv_len']} positions), peak {peak / 1e9:.2f} GB; four "
+        f"ranks {sum(x['peak_bytes'] for x in q) / 1e9:.2f} GB against "
+        f"the card's {total / 1e9:.1f} GB (each rank left "
+        f"{max(x['smollm_left_bytes'] for x in ranks) / 1e9:.2f} GB or less "
+        f"of smollm's stage); card {card}")
+    require(ok, "phase 36: qwen2-72b's sharded serving is off the unsharded "
+                "one")
+    out["qwen"] = {**r0["qwen"], "ranks": q}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp] phase 36 took {out['phase_s']:.1f} s (the ranks "
+        f"{out['ranks_s']:.1f} s)")
+    return out
+
+
+
 def phase_dryrun_phases(dev, seed: int, card: str, prefill_ms=None,
                         train_ms=None) -> dict:
     """Phases 33 (models), 34 and 35 in order."""
@@ -5041,6 +5509,7 @@ def main(argv=None) -> int:
         summary["train"]["smollm"]["ms_per_step"])
     log(f"[dryrun] phases 33–35 took "
         f"{summary['count']['phase_s'] + summary['dryrun']['phase_s']:.1f} s")
+    summary["tp"] = phase_tp(dev, args.seed, card)
 
     if args.sparse_dim != SPARSE_DIM:
         log(f"[data] cut: sparse m = n = {args.sparse_dim} of {SPARSE_DIM}")

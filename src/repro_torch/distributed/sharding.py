@@ -17,7 +17,9 @@ group index one more element: ``dec/groups/p0/3/attn/wq``); the first
 regex wins.  Per-layer leaves carry no scan dimension, so a spec is the
 reference's for the stacked leaf without its leading None.
 ``to_placements`` turns a spec into DTensor placements on a ``DeviceMesh``
-with named dims.
+with named dims.  A spec is how a leaf is stored; ``compute_spec`` says how
+a rank computes with it over "model": split as stored (tensor
+parallelism), or gathered whole.
 """
 
 from __future__ import annotations
@@ -131,6 +133,65 @@ def param_pspec(path, shape, mesh, *, fsdp_axes=("pod", "data"),
     return tuple(spec)
 
 
+#: leaves split over "model" where they are computed: (path regex, the
+#: tensor dim counted from the end, what must divide the mesh dim: "heads"
+#: (whole query heads), "kv" (whole query and KV heads) or None (the
+#: storage spec's split is enough))
+_TP_COMPUTE: list[tuple[str, int, str | None]] = [
+    (r"(attn|xattn)/(wq|bq)$", -1, "heads"),        # column-parallel
+    (r"(attn|xattn)/wo$",      -2, "heads"),        # row-parallel
+    (r"(attn|xattn)/w[kv]$",   -1, "kv"),
+    (r"(attn|xattn)/b[kv]$",   -1, "kv"),
+    (r"(mlp|shared)/(wi|wi_gate|wi_up|bi)$", -1, None),
+    (r"(mlp|shared)/wo$",      -2, None),
+    (r"ffn_(gate|up)$",        -1, None),
+    (r"ffn_down$",             -2, None),
+    (r"embed/tok$",            -2, None),           # vocabulary-parallel
+    (r"unembed$",              -1, None),
+    (r"moe/(wi_gate|wi_up|wo)$", -3, None),         # expert-parallel
+]
+
+
+def compute_spec(path, spec: tuple, cfg, mesh, *, seq_parallel=False,
+                 tp_axis="model") -> tuple:
+    """How a leaf of storage ``spec`` at ``path`` is computed over
+    ``tp_axis``: (the tensor dim split over it, or None for whole, and
+    whether a rank's gradient of it is a partial sum over ``tp_axis``).
+
+    A leaf of ``_TP_COMPUTE`` keeps its storage split over ``tp_axis``
+    (tensor parallelism: each rank computes its heads, FFN columns,
+    vocabulary rows or experts) where that split exists and, for attention,
+    falls on whole heads: ``n_heads`` divides the axis for the query and
+    output projections, ``n_kv`` too for the key and value ones.  Any other
+    leaf is gathered whole.  A whole leaf's gradient is a partial sum when
+    the ranks compute with it on different inputs: the key and value
+    projections of a head-parallel layer whose KV heads do not divide
+    (each rank takes the KV heads its query heads read), and, under
+    sequence parallelism, every whole leaf but the MoE router (the norms,
+    residual biases and gates see the rank's sequence slice; the layers
+    computed whole end on the rank's slice).  The router runs inside the
+    expert region, which sums its gradient over the group itself."""
+    mshape = mesh_shape(mesh)
+    tp = mshape.get(tp_axis, 1)
+    if tp == 1:
+        return None, False
+    ps = path_str(path)
+    heads_tp = cfg.n_heads % tp == 0
+    for pat, dim, need in _TP_COMPUTE:
+        if not re.search(pat, ps):
+            continue
+        d = len(spec) + dim
+        stored = d >= 0 and spec[d] == tp_axis
+        ok = stored and (need is None or (heads_tp and (
+            need == "heads" or cfg.n_kv % tp == 0)))
+        if ok:
+            return d, False
+        if pat.startswith("moe/"):     # whole experts: moe_ep sums them
+            return None, False
+        return None, seq_parallel or (need == "kv" and heads_tp)
+    return None, seq_parallel and not ps.endswith("moe/router")
+
+
 def to_placements(spec: tuple, mesh) -> list:
     """DTensor placements of ``spec`` on ``mesh`` (named dims): ``Shard(d)``
     on each mesh dim named at tensor dim d, ``Replicate()`` elsewhere."""
@@ -173,8 +234,8 @@ def make_constraint_fn(mesh, *, fsdp_axes=("pod", "data"), tp_axis="model",
     ``(shape, kind) -> spec`` (None for a kind that is not constrained):
     batch over the data axes, "act_btd" sequence-parallel over ``tp_axis``
     when ``seq_parallel``, "act_btv" vocabulary over it, dims that do not
-    divide replicated.  The port's train step keeps activations
-    rank-local and applies none of them."""
+    divide replicated.  ``models.transformer.Runtime.shard`` applies them
+    to rank-local activations."""
     mshape = mesh_shape(mesh)
     axes = tuple(a for a in fsdp_axes if a in mshape)
     bspec = axes if len(axes) > 1 else (axes[0] if axes else None)

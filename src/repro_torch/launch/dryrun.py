@@ -20,18 +20,25 @@ live on ``cuda`` where PyTorch has a usable CUDA runtime, else on
 
 A cell runs ``make_train_step`` (train shapes), ``make_prefill_step``
 (prefill) or ``make_serve_step`` (decode, its caches split as
-``cache_shardings`` says over the data dims) on the production mesh
-(16×16 "data" × "model", or 2×16×16 with "pod").  A layer stack costs
+``cache_shardings`` says: the batch over the data dims, the KV length over
+"model") on the production mesh (16×16 "data" × "model", or 2×16×16 with
+"pod"), through ``make_runtime(mesh)``: tensor-parallel over "model" as
+the reference's GSPMD program is (heads, FFN columns and vocabulary split
+where they divide, ``sharding.compute_spec``), without sequence
+parallelism, as the reference's ``lower_cell`` runs.  A layer stack costs
 Python time per op here, not per byte, so a cell runs its architecture at
-g = 1 and 2 layer groups (``depth_variant``) and extrapolates to the
-full G: cost(1) + (G − 1)·(cost(2) − cost(1)) for FLOPs, bytes,
+g = 2 and 3 layer groups (``depth_variant``) and extrapolates to the
+full G: cost(2) + (G − 2)·(cost(3) − cost(2)) for FLOPs, bytes,
 collectives, the inputs' bytes and the peak (an architecture of three
 groups or fewer runs at full depth).  Eager PyTorch runs every group as
 the same ops, so this is exact (``tests/test_torch_dryrun_serve.py``
-holds it against a full-depth run).  The
-reference's g = 0 is not on the line here: a model without layer groups
-skips a few small ops over the stacked leaves (400 B of the reduced
-smollm's train step).  A step that
+holds it against a full-depth run).  The first group is off the line for
+the peak: while it runs, no earlier layer's output is alive yet (a
+tensor-parallel prefill of qwen2-72b: 1.80, 1.93, 1.94, 1.94 GB at g = 1–4
+and 4,096 tokens, so g = 1 and 2 would add 0.14 GB a group where the
+caches add 2 MB); the reference's g = 0 is off it for the counts (a model
+without layer groups skips a few small ops over the stacked leaves).  A
+step that
 raises is recorded as ``fail``; the pass criterion is every cell ``ok``.
 
 Importing this module has no side effect: ``main`` makes the fake world,
@@ -178,13 +185,17 @@ def _costs(rec: counts.StepRecord, pod_size) -> dict:
             "arg_bytes": rec.arg_bytes, "peak_bytes": rec.peak_bytes}
 
 
-def _extrapolate(c1: dict, c2: dict, G: int) -> dict:
-    """cost(1) + (G − 1)·(cost(2) − cost(1)), each quantity."""
+#: the depth variants a cell of more than three groups runs at
+DEPTHS = (2, 3)
+
+
+def _extrapolate(c2: dict, c3: dict, G: int) -> dict:
+    """cost(2) + (G − 2)·(cost(3) − cost(2)), each quantity."""
     def lin(a, b):
         if isinstance(a, dict) or isinstance(b, dict):
             return {k: lin(a.get(k, 0), b.get(k, 0)) for k in {*a, *b}}
-        return a + (G - 1) * (b - a)
-    return {k: lin(c1[k], c2[k]) for k in c1}
+        return a + (G - DEPTHS[0]) * (b - a)
+    return {k: lin(c2[k], c3[k]) for k in c2}
 
 
 def cell_costs(arch: str, shape_name: str, mesh, *, cfg=None, shape=None,
@@ -198,7 +209,7 @@ def cell_costs(arch: str, shape_name: str, mesh, *, cfg=None, shape=None,
         return _costs(rec, pod_size)
     var = [_costs(lower_cell(arch, shape_name, mesh, shape=shape,
                              cfg=depth_variant(cfg, g))[0], pod_size)
-           for g in (1, 2)]
+           for g in DEPTHS]
     return _extrapolate(*var, G)
 
 

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.models.common import KeyGen, dense_init
 
 NEG_INF = -1e30
@@ -48,23 +49,78 @@ def init_attn(seed, cfg, *, cross: bool = False, device):
     return p
 
 
-def _proj(x, w, b=None):
+def proj(x, w, b=None):
     y = x @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(y.dtype)
     return y
 
 
-def qkv(p, x, cfg, ctx=None):
-    """Project to per-head (q, k, v); k/v from ctx when cross-attending."""
+def kv_heads_of(q0: int, n_q: int, group: int) -> tuple:
+    """KV heads [lo, hi) that query heads q0 … q0 + n_q − 1 read, GQA
+    groups of ``group`` query heads a KV head."""
+    return q0 // group, (q0 + n_q - 1) // group + 1
+
+
+def kv_for_heads(k, q0: int, n_q: int, group: int, k0: int):
+    """KV heads ``k0`` … (B, S, n, hd) laid out for query heads q0 …
+    q0 + n_q − 1: as they are where local query head i reads local KV head
+    i // (n_q / n) (the attention's own grouping), else one KV head per
+    query head."""
+    n = k.shape[2]
+    want = [(q0 + i) // group - k0 for i in range(n_q)]
+    if n_q % n == 0 and want == [i // (n_q // n) for i in range(n_q)]:
+        return k
+    return k[:, :, want]
+
+
+def qkv(p, x, cfg, ctx=None, *, rotate=None, whole_kv=False, rank=0,
+        group=None):
+    """Project to per-head (q, k, v, k_all, v_all), k/v from ``ctx`` when
+    cross-attending.  The query heads are those of ``wq``'s columns: all
+    of them, or rank ``rank``'s shard over ``group`` ("model").  k/v are
+    the KV heads those query heads read, laid out for the attention's
+    grouping (``kv_for_heads``): the shard's own KV heads when they split
+    with the query heads, else the ones it needs of the whole KV
+    projection.  With ``whole_kv``, ``k_all``/``v_all`` hold every KV head
+    (what a cache holds; None otherwise).  ``rotate`` (rope) applies to q
+    and k."""
+    rotate = rotate or (lambda t: t)
     src = x if ctx is None else ctx
+    H, KH, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    Hl, KHl = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     B, Sq, _ = x.shape
     Skv = src.shape[1]
-    H, KH, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, Sq, H, hd)
-    k = _proj(src, p["wk"], p.get("bk")).reshape(B, Skv, KH, hd)
-    v = _proj(src, p["wv"], p.get("bv")).reshape(B, Skv, KH, hd)
-    return q, k, v
+    q = rotate(proj(x, p["wq"], p.get("bq")).reshape(B, Sq, Hl, hd))
+    if Hl == H or KHl < KH:
+        # a whole layer, or KV heads split with the query heads
+        k = rotate(proj(src, p["wk"], p.get("bk")).reshape(B, Skv, KHl, hd))
+        v = proj(src, p["wv"], p.get("bv")).reshape(B, Skv, KHl, hd)
+        if not whole_kv:
+            return q, k, v, None, None
+        if KHl == KH:
+            return q, k, v, k, v
+        return (q, k, v, tp_lib.all_gather(k, group, 2),
+                tp_lib.all_gather(v, group, 2))
+    # query heads split, KV heads whole: the ones this rank's heads read
+    q0 = rank * Hl
+    k0, k1 = kv_heads_of(q0, Hl, H // KH)
+    k_all = v_all = None
+    if whole_kv:
+        k_all = rotate(proj(src, p["wk"], p.get("bk")).reshape(B, Skv, KH,
+                                                                hd))
+        v_all = proj(src, p["wv"], p.get("bv")).reshape(B, Skv, KH, hd)
+        k, v = k_all[:, :, k0:k1], v_all[:, :, k0:k1]
+    else:
+        cols = slice(k0 * hd, k1 * hd)
+        bk, bv = p.get("bk"), p.get("bv")
+        k = rotate(proj(src, p["wk"][:, cols],
+                        None if bk is None else bk[cols])
+                   .reshape(B, Skv, k1 - k0, hd))
+        v = proj(src, p["wv"][:, cols], None if bv is None else bv[cols]) \
+            .reshape(B, Skv, k1 - k0, hd)
+    return (q, kv_for_heads(k, q0, Hl, H // KH, k0),
+            kv_for_heads(v, q0, Hl, H // KH, k0), k_all, v_all)
 
 
 # ---------------------------------------------------------------- core math
@@ -218,5 +274,29 @@ def dense_attention(q, k, v, *, causal: bool, window: int = 0,
     if kv_valid is not None:
         mask &= (kpos < kv_valid)[None, :]
     num, m, l = _attend_chunk(q, k, v, mask, softcap)
+    out = (num / torch.clamp_min(l, 1e-30)[..., None]).to(v.dtype)
+    return out.reshape(B, Sq, H, hd)
+
+
+def merged_decode(q, k, v, *, kv_valid, softcap: float, group):
+    """Decode attention over this rank's slice of the KV length, merged
+    over ``group``: each rank's partial softmax state (numerator, row max,
+    row sum) of ``_attend_chunk``, rescaled to the group's max (a max
+    all-reduce) and summed (a sum all-reduce), the ``_online_merge``
+    arithmetic over ranks.  ``kv_valid``: this slice's valid slots (None:
+    all).  q (B, Sq, H, hd) whole over heads; returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    KH = k.shape[2]
+    qr = q.reshape(B, Sq, KH, H // KH, hd)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if kv_valid is not None:
+        mask &= (kpos < kv_valid)[None, :]
+    num, m, l = _attend_chunk(qr, k, v, mask, softcap)
+    scale = torch.exp(m - tp_lib.all_max(m, group))
+    # the numerator and the row sum summed by one all-reduce
+    both = tp_lib.all_sum(torch.cat([num * scale[..., None],
+                                     (l * scale)[..., None]], -1), group)
+    num, l = both[..., :-1], both[..., -1]
     out = (num / torch.clamp_min(l, 1e-30)[..., None]).to(v.dtype)
     return out.reshape(B, Sq, H, hd)

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (KeyGen, ParamTree, Params, apply_norm,
                                        dense_init, embed_init, init_norm,
@@ -55,9 +56,10 @@ def init_params(cfg: ModelConfig, seed: int, *, device) -> Params:
 
 
 def init_caches(cfg, batch_size: int, kv_len: int, enc_len: int = 0, *,
-                device):
+                device, rt=None):
     return tf.init_stack_cache(cfg, cfg.layer_pattern, cfg.n_layers,
-                               batch_size, kv_len, enc_len, device=device)
+                               batch_size, kv_len, enc_len, device=device,
+                               rt=rt)
 
 
 class LM(nn.Module):
@@ -103,15 +105,34 @@ class LM(nn.Module):
 
     # ---------------------------------------------------------- embeddings
 
-    def embed_tokens(self, tokens):
+    def _lookup(self, tokens, rt):
+        """(token embeddings, whether they are a partial sum over
+        "model"): a vocabulary-parallel table (this rank's rows) gives each
+        token its row where the rank holds it and zeros elsewhere, exact
+        once summed over the group."""
+        tok = self.embed.tok
+        dt = self.cfg.dtype_torch
+        Vl = tok.shape[0]
+        if Vl == self.cfg.vocab:
+            return tok[tokens].to(dt), False
+        ids = tokens.long() - rt.tp_rank * Vl
+        inside = (ids >= 0) & (ids < Vl)
+        rows = tok[ids.clamp(0, Vl - 1)].to(dt)
+        return torch.where(inside[..., None], rows, torch.zeros_like(rows)), \
+            True
+
+    def embed_tokens(self, tokens, rt=tf.NULL_RT):
+        """Token (+ position) embeddings in ``act_btd``'s layout: the
+        reference's constraint applied (``Runtime.shard``)."""
         cfg = self.cfg
-        x = self.embed.tok[tokens].to(cfg.dtype_torch)
-        S = tokens.shape[1]
+        x, partial = self._lookup(tokens, rt)
+        x = rt.shard(x, "act_btd", partial=partial)
+        p0, n = rt.seq_span(tokens.shape[1])
         if cfg.pos_kind == "learned":
-            x = x + self.embed.pos[:S][None].to(x.dtype)
+            x = x + self.embed.pos[p0:p0 + n][None].to(x.dtype)
         elif cfg.pos_kind == "sinusoidal":
-            x = x + sinusoidal_positions(S, cfg.d_model, x.dtype,
-                                         device=x.device)[None]
+            x = x + sinusoidal_positions(p0 + n, cfg.d_model, x.dtype,
+                                         device=x.device)[p0:][None]
         return x
 
     def _decode_pos_embed(self, x, pos):
@@ -125,20 +146,27 @@ class LM(nn.Module):
             return x + pe.to(x.dtype)
         return x
 
-    def logits(self, x):
-        """Unembed: fp32 logits (tied embeddings read ``embed.tok``)."""
+    def logits(self, x, rt=tf.NULL_RT):
+        """Unembed: fp32 logits (tied embeddings read ``embed.tok``), in
+        ``act_btv``'s layout: this rank's vocabulary columns from the whole
+        sequence where the table is split over "model", else the whole
+        vocabulary of the residual stream's rows (under sequence
+        parallelism, the rank's slice of the sequence)."""
         w = self.embed.tok.T if self.cfg.tie_embeddings else self.unembed
+        if w.shape[1] < self.cfg.vocab:
+            x = rt.region_in(x, True)
         return (x @ w.to(x.dtype)).float()
 
     def _encode(self, enc_inputs, rt=tf.NULL_RT):
-        """Encoder for enc-dec (audio) models: frames (B, S_enc, D)."""
+        """Encoder for enc-dec (audio) models: frames (B, S_enc, D); the
+        states come out whole over the sequence."""
         cfg = self.cfg
         x = enc_inputs.to(cfg.dtype_torch)
         if cfg.pos_kind in ("sinusoidal", "learned"):
             x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
                                          device=x.device)[None]
-        x, _ = self.enc(x, mode="train", rt=rt)
-        return apply_norm(self.enc_norm, x, cfg.norm_kind)
+        x, _ = self.enc(rt.shard(x, "act_btd"), mode="train", rt=rt)
+        return rt.whole_seq(apply_norm(self.enc_norm, x, cfg.norm_kind))
 
     def context(self, batch, rt=tf.NULL_RT):
         """Cross-attention context from the modality stub, if any."""
@@ -153,41 +181,63 @@ class LM(nn.Module):
     def forward(self, batch, *, rt=tf.NULL_RT, caches=None):
         """Full-sequence forward.  batch: {tokens, [enc_frames|img_embeds]}.
         Returns (logits fp32 (B,S,V), caches, aux); ``caches`` (from
-        ``init_caches``) are filled in place: the prefill mode."""
+        ``init_caches``) are filled in place: the prefill mode.  On a
+        runtime over "model" the logits are ``logits``' layout: (B, S,
+        V/tp) where the vocabulary splits."""
+        rt = rt.for_batch(batch)
         return self._forward(batch, self.context(batch, rt), caches, rt)
 
     def _forward(self, batch, ctx, caches, rt):
-        x = rt.shard(self.embed_tokens(batch["tokens"]), "act_btd")
+        x = self.embed_tokens(batch["tokens"], rt)
         x, aux = self.dec(x, mode="prefill" if caches is not None
                           else "train", caches=caches, ctx=ctx, rt=rt)
         x = apply_norm(self.final_norm, x, self.cfg.norm_kind)
-        return rt.shard(self.logits(x), "act_btv"), caches, aux
+        return self.logits(x, rt), caches, aux
 
     def loss_fn(self, batch, *, rt=tf.NULL_RT):
         """Next-token cross entropy (+ MoE aux).  batch needs tokens,
-        labels (< 0: ignored)."""
+        labels (< 0: ignored).  On a runtime over "model" it is the
+        vocabulary-parallel cross entropy: the log-partition by a max and a
+        sum all-reduce, the gold logit from the rank holding it; where the
+        vocabulary does not split under sequence parallelism, each rank's
+        positions' sum, summed over the group."""
+        rt = rt.for_batch(batch)
         logits, _, aux = self.forward(batch, rt=rt)
         labels = batch["labels"]
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels.clamp_min(0).long()[..., None])[..., 0]
+        if logits.shape[-1] < self.cfg.vocab:
+            logz, gold = vocab_parallel_terms(logits, labels, rt)
+        else:
+            if rt.sp:
+                p0, n = rt.seq_span(labels.shape[1])
+                labels = labels[:, p0:p0 + n]
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                labels.clamp_min(0).long()[..., None])[..., 0]
         mask = (labels >= 0).float()
         nll = (logz - gold) * mask
-        loss = nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+        if logits.shape[-1] == self.cfg.vocab and rt.sp:
+            total = tp_lib.sum_shards(nll.sum(), rt.group)
+            count = tp_lib.all_sum(mask.sum(), rt.group)
+            loss = total / torch.clamp_min(count, 1.0)
+        else:
+            loss = nll.sum() / torch.clamp_min(mask.sum(), 1.0)
         return loss + aux, {"nll": loss, "aux": aux}
 
-    def init_caches(self, batch_size: int, kv_len: int, enc_len: int = 0):
+    def init_caches(self, batch_size: int, kv_len: int, enc_len: int = 0, *,
+                    rt=None):
         return init_caches(self.cfg, batch_size, kv_len, enc_len,
-                           device=self.device)
+                           device=self.device, rt=rt)
 
     @torch.inference_mode()
     def prefill(self, batch, kv_len: int, *, rt=tf.NULL_RT):
-        """Run the prompt, building decode caches.  Returns (logits,
+        """Run the prompt, building decode caches (on a runtime over
+        "model", the rank's slice of each KV length).  Returns (logits,
         caches)."""
+        rt = rt.for_batch(batch)
         B = batch["tokens"].shape[0]
         ctx = self.context(batch, rt)
         enc_len = ctx.shape[1] if ctx is not None else 0
-        caches = self.init_caches(B, kv_len, enc_len)
+        caches = self.init_caches(B, kv_len, enc_len, rt=rt)
         logits, caches, _ = self._forward(batch, ctx, caches, rt)
         return logits, caches
 
@@ -196,15 +246,36 @@ class LM(nn.Module):
         """One token for every sequence.  tokens (B, 1) integer, ``pos`` the
         position they take (an int).  Returns (logits (B, 1, V) fp32,
         caches), the caches written in place."""
-        x = self.embed.tok[tokens].to(self.cfg.dtype_torch)
-        x = self._decode_pos_embed(x, pos)
+        rt = rt.for_batch({"tokens": tokens})
+        x, partial = self._lookup(tokens, rt)
+        x = self._decode_pos_embed(rt.shard(x, "act_btd", partial=partial),
+                                   pos)
         x, _ = self.dec(x, mode="decode", caches=caches, pos=pos, ctx=ctx,
                         rt=rt)
         x = apply_norm(self.final_norm, x, self.cfg.norm_kind)
-        return self.logits(x), caches
+        return self.logits(x, rt), caches
 
     def input_specs(self, shape: ShapeConfig) -> dict:
         return input_specs(self.cfg, shape)
+
+
+def vocab_parallel_terms(logits, labels, rt):
+    """(log-partition, gold logit) per position from this rank's
+    vocabulary columns (B, S, V/tp) of the whole logits: the row max by a
+    max all-reduce (no gradient; the log-partition's gradient does not
+    depend on it), the sum of exponentials and the gold logit (held by one
+    rank, zero on the others) by sum all-reduces whose gradient is each
+    rank's own."""
+    Vl = logits.shape[-1]
+    m = tp_lib.all_max(logits.detach().amax(dim=-1), rt.group)
+    se = tp_lib.sum_shards(torch.exp(logits - m[..., None]).sum(dim=-1),
+                           rt.group)
+    ids = labels.clamp_min(0).long() - rt.tp_rank * Vl
+    inside = (ids >= 0) & (ids < Vl)
+    g = torch.gather(logits, -1, ids.clamp(0, Vl - 1)[..., None])[..., 0]
+    gold = tp_lib.sum_shards(torch.where(inside, g, torch.zeros_like(g)),
+                             rt.group)
+    return m + torch.log(se), gold
 
 
 # ------------------------------------------------------------- input specs

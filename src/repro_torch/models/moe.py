@@ -16,16 +16,19 @@ Two execution paths share one dispatch algorithm:
   the token shards.  Otherwise (decode-sized inputs) each rank runs its
   own experts on every token and the outputs are summed over "model".
 
-The collectives are differentiable, each with the transpose the
-reference's ``shard_map`` gives it: a replicated input enters the
-expert region through ``_Enter`` (identity; its gradient is summed over
-"model"), the output leaves through ``_GatherShards`` / ``_SumShards``
-(all-gather / all-reduce; the gradient of a replicated output is each
-rank's own slice / itself), and ``_AllToAll`` sends gradients back the
-way the slots came.  So every rank's gradients are the same across
-"model", and the data-parallel step averages them over the data dims;
-expert weights passed as the rank's own E/mp rows keep a gradient of
-those rows alone (no all-reduce over "model").
+The collectives are differentiable (``distributed.tensor_parallel``),
+each with the transpose the reference's ``shard_map`` gives it: a
+replicated input enters the expert region through ``_Enter`` (identity;
+its gradient is summed over "model"), the output leaves through
+``_GatherShards`` / ``_SumShards`` (all-gather / all-reduce; the gradient
+of a replicated output is each rank's own slice / itself), and
+``_AllToAll`` sends gradients back the way the slots came.  So every
+rank's gradients are the same across "model", and the data-parallel step
+averages them over the data dims; expert weights passed as the rank's own
+E/mp rows keep a gradient of those rows alone (no all-reduce over
+"model").  A model on a runtime over "model" passes ``moe_ep`` the routed
+experts only and runs the shared expert through the common
+tensor-parallel FFN beside it (``transformer._apply_ffn``).
 
 Router: softmax top-k (``lax.top_k``'s tie order), Switch-style
 load-balance auxiliary loss + z-loss.  Overflowed tokens (beyond capacity)
@@ -40,6 +43,8 @@ import functools
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed.tensor_parallel import (_Enter, _GatherShards,
+                                                      _SumShards)
 from repro_torch.models.common import KeyGen, dense_init, normal, silu
 from repro_torch.util.order import top_k
 
@@ -174,58 +179,6 @@ def _shared_ffn(p, x):
 
 # --------------------------------------------------------------------- EP --
 
-class _Enter(torch.autograd.Function):
-    """A tensor replicated over ``group`` entering per-rank work: the
-    identity forward, its gradient summed over the group backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _SumShards(torch.autograd.Function):
-    """Per-rank partial results summed over ``group`` into a replicated
-    tensor (``psum``): the gradient of the replicated sum is each rank's
-    own."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-class _GatherShards(torch.autograd.Function):
-    """Row shards gathered over ``group`` in rank order (``all_gather``,
-    tiled on dim 0): the gradient of the replicated whole is each rank's
-    own rows."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        n = dist.get_world_size(group)
-        ctx.rank, ctx.rows = dist.get_rank(group), x.shape[0]
-        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        r0 = ctx.rank * ctx.rows
-        return g[r0:r0 + ctx.rows], None
-
-
 class _AllToAll(torch.autograd.Function):
     """Equal chunks of dim 0 exchanged over ``group``: chunk j goes to rank
     j, and chunk j of the result came from rank j.  The gradient goes back
@@ -320,7 +273,7 @@ def moe_ep(p, x, cfg, mesh, *, data_axes=("pod", "data"), model_axis="model"):
 
         out, aux = _dispatch_combine({"router": rw}, xs, cfg, capacity,
                                      expert_fn)
-        out = _GatherShards.apply(out, group)
+        out = _GatherShards.apply(out, group, 0)
     else:
         # tiny token counts (decode): every rank runs its own experts on
         # every token; the outputs are summed over the model group

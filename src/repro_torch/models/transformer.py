@@ -40,6 +40,18 @@ which XLA updates in place under donation).  A local-attention ring holds
 position t in slot t mod W from the start: prefill rotates the last W keys
 into phase, where the reference writes them to slots 0..W−1, which agrees
 with its decode only when the prompt length is a multiple of W.
+
+On a ``Runtime`` over a mesh with a "model" dim the layers run
+tensor-parallel over it (the reference's GSPMD program; Megatron-LM's
+layout): attention on the rank's query heads (column-parallel q/k/v,
+row-parallel output, all-reduced or, under ``seq_parallel``,
+reduce-scattered to the rank's slice of the sequence), FFNs on its columns,
+where the parameters arrive split (``sharding.compute_spec``: whole heads
+only; elsewhere a layer runs whole on every rank).  The recurrent mixers
+(RG-LRU, mLSTM, sLSTM cells) run whole.  A decode cache holds the rank's
+slice of the KV length (``KVShard``): decode attends over it and merges
+the partial softmax states over the group; only the rank holding a slot
+writes it.
 """
 
 from __future__ import annotations
@@ -47,12 +59,185 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tp_lib
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.common import (KeyGen, ParamTree, apply_norm,
                                        dense_init, gelu, init_norm, rope,
                                        silu)
+
+
+# ----------------------------------------------------------- runtime context
+
+#: the mesh dim the layers run tensor-parallel over (the sharding rules'
+#: "model", which ``train.steps`` gathers and reduce-scatters around)
+TP_AXIS = "model"
+
+
+class Runtime:
+    """Mesh context for in-model parallel decisions.  ``mesh`` is a
+    ``DeviceMesh`` with named dims (None: one device).  The model runs on
+    each rank's own shard of the batch (``train.steps``): ``data_axes`` are
+    the mesh dims the batch is split over.  Over ``TP_AXIS`` ("model") the
+    layers run tensor-parallel, as the reference's GSPMD program does: a
+    layer whose parameters arrive as this rank's shard (its heads, FFN
+    columns or vocabulary rows; ``distributed.sharding.compute_spec``)
+    computes its part and sums or gathers over the group; a layer whose
+    parameters arrive whole computes the whole layer on every rank.  The
+    residual stream between the layers is whole over "model" or, under
+    ``seq_parallel``, the rank's slice of the sequence (the ``act_btd``
+    constraint of ``sharding.make_constraint_fn``, which ``shard``
+    applies).  A mesh with an ``ep_axis`` dim runs the MoE layers
+    expert-parallel over it (``moe.moe_ep``).  ``param_fn`` makes of a
+    block the parameters it computes with (the sharded steps gather the
+    shards there).  Without a "model" dim of more than one rank every
+    collective here is the identity."""
+
+    def __init__(self, mesh=None, data_axes=("pod", "data"), ep_axis="model",
+                 param_fn=None, *, seq_parallel=False):
+        names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+        self.mesh = mesh
+        self.data_axes = tuple(a for a in data_axes if a in names)
+        self.ep_axis = ep_axis if ep_axis in names else None
+        self.param_fn = param_fn
+        self.seq_parallel = seq_parallel
+        self.group, self.tp, self.tp_rank = None, 1, 0
+        self._constraint = None
+        if TP_AXIS in names:
+            from repro_torch.distributed.sharding import make_constraint_fn
+            self.group = mesh.get_group(TP_AXIS)
+            self.tp = mesh.size(names.index(TP_AXIS))
+            self.tp_rank = mesh.get_local_rank(TP_AXIS)
+            self._constraint = make_constraint_fn(
+                mesh, tp_axis=TP_AXIS, seq_parallel=seq_parallel)
+
+    def replace(self, **kw) -> "Runtime":
+        """A copy with the given fields changed."""
+        args = dict(data_axes=self.data_axes, ep_axis=self.ep_axis or "",
+                    param_fn=self.param_fn, seq_parallel=self.seq_parallel)
+        args.update(kw)
+        return Runtime(self.mesh, args.pop("data_axes"), args.pop("ep_axis"),
+                       args.pop("param_fn"), **args)
+
+    @property
+    def sp(self) -> bool:
+        """Sequence parallelism on: the residual stream is the rank's
+        slice of the sequence."""
+        return self.seq_parallel and self.tp > 1
+
+    def for_batch(self, batch) -> "Runtime":
+        """This runtime for ``batch``: sequence parallelism only where
+        every sequence it splits (the tokens, an encoder's frames) divides
+        over "model" (the reference's constraint drops the split
+        otherwise)."""
+        if not self.sp:
+            return self
+        lens = [batch["tokens"].shape[1]]
+        if "enc_frames" in batch:
+            lens.append(batch["enc_frames"].shape[1])
+        if all(n % self.tp == 0 for n in lens):
+            return self
+        return self.replace(seq_parallel=False)
+
+    def shard(self, x, kind: str, *, partial: bool = False):
+        """The reference's activation constraint of ``kind`` applied to a
+        rank-local ``x`` that is whole over "model" (the rank's slice is
+        taken: a view, so the gradient of the rest is the other ranks'),
+        or, with ``partial``, a partial sum over it (reduce-scattered to
+        the slice, or all-reduced)."""
+        if self.tp == 1:
+            return x
+        spec = self._constraint(tuple(x.shape), kind)
+        dim = None if spec is None else next(
+            (d for d, ax in enumerate(spec) if ax == TP_AXIS), None)
+        if partial:
+            return (tp_lib.sum_shards(x, self.group) if dim is None
+                    else tp_lib.reduce_scatter_seq(x, self.group, dim))
+        return x if dim is None else tp_lib.own_slice(x, self.group, dim)
+
+    def seq_span(self, S: int) -> tuple:
+        """(first position, count) of the rank's part of a sequence of S."""
+        if not self.sp:
+            return 0, S
+        return self.tp_rank * (S // self.tp), S // self.tp
+
+    # -- a layer's work in and out of the residual stream --------------------
+
+    def region_in(self, h, split: bool):
+        """A layer's input from the residual stream ``h``.  ``split`` work
+        (each rank its heads or columns, so its gradient of the input is a
+        partial sum) enters through ``enter``; whole work takes ``h`` as it
+        is.  Under sequence parallelism the sequence is gathered (its
+        gradient reduce-scattered: whole work ends on the rank's slice, so
+        its gradient is partial too)."""
+        if self.tp == 1:
+            return h
+        if self.sp:
+            return tp_lib.gather_seq(h, self.group, 1)
+        return tp_lib.enter(h, self.group) if split else h
+
+    def region_out(self, y, split: bool):
+        """A layer's output back to the residual stream: ``split`` work's
+        partial sums summed (reduce-scattered to the rank's slice under
+        sequence parallelism); whole work's output as it is (its slice
+        under sequence parallelism)."""
+        if self.tp == 1:
+            return y
+        if split:
+            return (tp_lib.reduce_scatter_seq(y, self.group, 1) if self.sp
+                    else tp_lib.sum_shards(y, self.group))
+        return tp_lib.own_slice(y, self.group, 1) if self.sp else y
+
+    def ctx_in(self, ctx, split: bool):
+        """A cross-attention context (whole on every rank) into a layer's
+        work: ``region_in`` without the gather."""
+        if self.tp == 1 or self.sp or not split:
+            return ctx
+        return tp_lib.enter(ctx, self.group)
+
+    def whole_seq(self, x):
+        """The whole sequence of a residual stream (an encoder's output,
+        which every rank's cross-attention reads)."""
+        return tp_lib.gather_seq(x, self.group, 1) if self.sp else x
+
+    def moe_in(self, h):
+        """The MoE layer's input: ``moe_ep`` takes token rows whole over
+        "model", its gradient too, so under sequence parallelism the
+        sequence is gathered (the rank keeps its slice of the gradient)."""
+        return tp_lib.gather_shards(h, self.group, 1) if self.sp else h
+
+    def moe_out(self, y):
+        return tp_lib.scatter_seq(y, self.group, 1) if self.sp else y
+
+    def use(self, block):
+        """The parameters a layer computes with: the block itself, or what
+        ``param_fn`` makes of it at the moment of use (the sharded train
+        step gathers the layer's shards there)."""
+        if self.param_fn is None:
+            return block
+        return self.param_fn(block)
+
+
+NULL_RT = Runtime()
+
+
+class KVShard(dict):
+    """An attention cache (``k``/``v`` or ``ek``/``ev``, (B, L, KH, hd))
+    holding positions ``start`` … ``start + L − 1`` of a KV length of
+    ``total`` split over "model" (``sharding.cache_shardings``): decode
+    attends over the slice and merges over the group."""
+
+    def __init__(self, tensors, *, start: int, total: int):
+        super().__init__(tensors)
+        self.start, self.total = start, total
+
+
+def kv_span(cache) -> tuple:
+    """(first position, KV length) of an attention cache."""
+    if isinstance(cache, KVShard):
+        return cache.start, cache.total
+    return 0, next(iter(cache.values())).shape[1]
 
 
 # ---------------------------------------------------------------------- FFN
@@ -74,16 +259,28 @@ def init_mlp(seed, cfg, *, device):
     return p
 
 
-def apply_mlp(p, x, cfg):
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        act = silu if cfg.mlp_kind == "swiglu" else gelu
+def apply_mlp(p, x, cfg, rt=None):
+    return ffn(p, x, d_ff=cfg.d_ff,
+               gated=cfg.mlp_kind in ("swiglu", "geglu"),
+               act=silu if cfg.mlp_kind == "swiglu" else gelu, rt=rt)
+
+
+def ffn(p, x, *, d_ff: int, gated: bool, act, rt=None):
+    """An MLP of ``d_ff`` columns: act(x·wi_gate) ⊙ (x·wi_up) when
+    ``gated``, else act(x·wi + bi); then ·wo + bo.  Given this rank's
+    columns (``wo`` of fewer than ``d_ff`` rows) it runs column- then
+    row-parallel over "model"."""
+    rt = rt or NULL_RT
+    split = p["wo"].shape[0] < d_ff
+    x = rt.region_in(x, split)
+    if gated:
         h = act(x @ p["wi_gate"].to(x.dtype)) * (x @ p["wi_up"].to(x.dtype))
     else:
         h = x @ p["wi"].to(x.dtype)
         if "bi" in p:
             h = h + p["bi"].to(x.dtype)
-        h = gelu(h)
-    y = h @ p["wo"].to(x.dtype)
+        h = act(h)
+    y = rt.region_out(h @ p["wo"].to(x.dtype), split)
     if "bo" in p:
         y = y + p["bo"].to(x.dtype)
     return y
@@ -98,51 +295,22 @@ def _init_ffn(seed, cfg, *, device):
 
 def _apply_ffn(p, x, cfg, mode="train", rt=None):
     """(y, aux): aux is the MoE router loss, or 0.0 without MoE.  A
-    runtime over a mesh with an expert axis runs expert parallelism."""
+    runtime over a mesh with an expert axis runs expert parallelism, the
+    shared expert tensor-parallel beside it."""
     if "moe" in p:
         if rt is not None and rt.mesh is not None and rt.ep_axis is not None:
-            return moe_lib.moe_ep(p["moe"], x, cfg, rt.mesh,
-                                  data_axes=rt.data_axes,
-                                  model_axis=rt.ep_axis)
+            experts = {k: v for k, v in p["moe"].items() if k != "shared"}
+            y, aux = moe_lib.moe_ep(experts, rt.moe_in(x), cfg, rt.mesh,
+                                    data_axes=rt.data_axes,
+                                    model_axis=rt.ep_axis)
+            y = rt.moe_out(y)
+            if "shared" in p["moe"]:
+                y = y + ffn(p["moe"]["shared"], x, d_ff=cfg.d_ff, gated=True,
+                            act=silu, rt=rt)
+            return y, aux
         return moe_lib.moe_local(p["moe"], x, cfg,
                                  dropless=(mode == "decode"))
-    return apply_mlp(p["mlp"], x, cfg), 0.0
-
-
-# ----------------------------------------------------------- runtime context
-
-class Runtime:
-    """Mesh context for in-model parallel decisions (expert parallelism,
-    parameters gathered on use).  ``mesh`` is a ``DeviceMesh`` with named
-    dims (None: one device).  The model runs on each rank's own shard of
-    the batch (``train.steps``): ``data_axes`` are the mesh dims the batch
-    is split over, and a mesh with an ``ep_axis`` dim runs the MoE layers
-    expert-parallel over it (``moe.moe_ep``)."""
-
-    def __init__(self, mesh=None, data_axes=("pod", "data"), ep_axis="model",
-                 param_fn=None):
-        names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
-        self.mesh = mesh
-        self.data_axes = tuple(a for a in data_axes if a in names)
-        self.ep_axis = ep_axis if ep_axis in names else None
-        self.param_fn = param_fn
-
-    def shard(self, x, kind: str):
-        """The reference's activation constraint: the identity, as every
-        activation here is rank-local (no sharding over "model")."""
-        del kind
-        return x
-
-    def use(self, block):
-        """The parameters a layer computes with: the block itself, or what
-        ``param_fn`` makes of it at the moment of use (the sharded train
-        step gathers the layer's shards there)."""
-        if self.param_fn is None:
-            return block
-        return self.param_fn(block)
-
-
-NULL_RT = Runtime()
+    return apply_mlp(p["mlp"], x, cfg, rt), 0.0
 
 
 # ------------------------------------------------------------ block: attn --
@@ -172,45 +340,95 @@ def init_attn_block(seed, cfg, *, kind: str, device):
 
 
 def _fill_self_cache(cache, k, v, window: int) -> None:
-    """Prefill: write the prompt's K/V into the preallocated cache."""
+    """Prefill: write the prompt's K/V (all KV heads) into the
+    preallocated cache, or into its slice of the KV length."""
     S = k.shape[1]
-    W = cache["k"].shape[1]
+    start, W = kv_span(cache)
+    n = cache["k"].shape[1]
     if window > 0 and W < S:
         # the ring in phase: position t in slot t mod W, where decode
         # writes it (the last W positions rotated by S mod W)
-        cache["k"].copy_(torch.roll(k[:, -W:], S % W, dims=1))
-        cache["v"].copy_(torch.roll(v[:, -W:], S % W, dims=1))
+        ring = slice(start, start + n)
+        cache["k"].copy_(torch.roll(k[:, -W:], S % W, dims=1)[:, ring])
+        cache["v"].copy_(torch.roll(v[:, -W:], S % W, dims=1)[:, ring])
         return
     if S > W:
         raise ValueError(f"a prompt of {S} tokens does not fit a KV cache "
                          f"of {W}")
-    cache["k"][:, :S] = k
-    cache["v"][:, :S] = v
-    cache["k"][:, S:] = 0
-    cache["v"][:, S:] = 0
+    m = max(0, min(S - start, n))
+    cache["k"][:, :m] = k[:, start:start + m]
+    cache["v"][:, :m] = v[:, start:start + m]
+    cache["k"][:, m:] = 0
+    cache["v"][:, m:] = 0
 
 
-def _self_attention(p, h, cfg, *, causal, window, mode, cache, pos):
-    """Shared self-attention core; writes the cache in place."""
-    B, S, _ = h.shape
-    q, k, v = attn_lib.qkv(p, h, cfg)
+def _fill_cross_cache(cache, k, v) -> None:
+    start, _ = kv_span(cache)
+    n = cache["ek"].shape[1]
+    cache["ek"].copy_(k[:, start:start + n])
+    cache["ev"].copy_(v[:, start:start + n])
+
+
+def _local_heads(p, cfg) -> int:
+    """Query heads of an attention's parameters as this rank computes
+    with them: all of them, or its shard over "model"."""
+    return p["wq"].shape[-1] // cfg.head_dim
+
+
+def _decode_attend(q, cache_k, cache_v, *, kv_valid, softcap, rt, cache):
+    """Decode attention of every query head (q made whole over heads)
+    over the cache; a cache split over "model" (``KVShard``) attends over
+    its slice and merges the partial softmax states over the group (the
+    reference's distributed flash-decode, its psum combine).  Returns
+    (B, 1, H, hd)."""
+    if not isinstance(cache, KVShard):
+        return attn_lib.dense_attention(q, cache_k, cache_v, causal=False,
+                                        kv_valid=kv_valid, softcap=softcap)
+    n = cache_k.shape[1]
+    valid = None if kv_valid is None else \
+        max(0, min(kv_valid - cache.start, n))
+    return attn_lib.merged_decode(q, cache_k, cache_v, kv_valid=valid,
+                                  softcap=softcap, group=rt.group)
+
+
+def _self_attention(p, h, cfg, *, causal, window, mode, cache, pos, rt):
+    """Shared self-attention core; writes the cache in place.  ``h`` is
+    the residual stream's layout; the result is too."""
+    rt = rt or NULL_RT
+    H, hd = cfg.n_heads, cfg.head_dim
+    Hl = _local_heads(p, cfg)
+    split = Hl < H
+    x = rt.region_in(h, split)
+    B, S, _ = x.shape
     if cfg.pos_kind == "rope":
-        rpos = _rope_positions(mode, S, pos, h.device)
-        q = rope(q, rpos, cfg.rope_theta)
-        k = rope(k, rpos, cfg.rope_theta)
-    if mode == "decode":
+        rpos = _rope_positions(mode, S, pos, x.device)
+
+        def rotate(t):
+            return rope(t, rpos, cfg.rope_theta)
+    else:
+        def rotate(t):
+            return t
+    decode = mode == "decode"
+    q, k, v, k_all, v_all = attn_lib.qkv(
+        p, x, cfg, rotate=rotate, whole_kv=decode or cache is not None,
+        rank=rt.tp_rank, group=rt.group)
+    if decode:
         ck, cv = cache["k"], cache["v"]
-        W = ck.shape[1]
+        start, W = kv_span(cache)
         pos = int(pos)
         slot = pos % W if window > 0 else pos
         if slot >= W:
             raise ValueError(f"decode position {pos} is past the KV cache's "
                              f"{W} slots")
-        ck[:, slot:slot + 1] = k
-        cv[:, slot:slot + 1] = v
-        out = attn_lib.dense_attention(
-            q, ck, cv, causal=False, window=0, q_offset=0,
-            kv_valid=min(pos + 1, W), softcap=cfg.logit_softcap)
+        if start <= slot < start + ck.shape[1]:
+            ck[:, slot - start:slot - start + 1] = k_all
+            cv[:, slot - start:slot - start + 1] = v_all
+        q_all = tp_lib.all_gather(q, rt.group, 2) if split else q
+        out = _decode_attend(q_all, ck, cv,
+                             kv_valid=min(pos + 1, W),
+                             softcap=cfg.logit_softcap, rt=rt, cache=cache)
+        if split:
+            out = out[:, :, rt.tp_rank * Hl:(rt.tp_rank + 1) * Hl]
     else:
         if cfg.attn_chunk and S > cfg.attn_chunk:
             out = attn_lib.blockwise_attention(
@@ -222,31 +440,41 @@ def _self_attention(p, h, cfg, *, causal, window, mode, cache, pos):
                                            window=window,
                                            softcap=cfg.logit_softcap)
         if cache is not None:
-            _fill_self_cache(cache, k, v, window)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"].to(h.dtype)
+            _fill_self_cache(cache, k_all, v_all, window)
+    out = out.reshape(B, S, Hl * hd) @ p["wo"].to(x.dtype)
+    out = rt.region_out(out, split)
     if "bo" in p:
         out = out + p["bo"].to(out.dtype)
     return out
 
 
-def _cross_attention(p, h, cfg, *, ctx, cache, mode):
+def _cross_attention(p, h, cfg, *, ctx, cache, mode, rt):
     """Cross-attention; KV from ctx (train/prefill, which fills the cache)
     or from the cache (decode)."""
-    B, S, _ = h.shape
+    rt = rt or NULL_RT
+    H, hd = cfg.n_heads, cfg.head_dim
+    Hl = _local_heads(p, cfg)
+    split = Hl < H
+    x = rt.region_in(h, split)
+    B, S, _ = x.shape
     if mode == "decode" and cache is not None and "ek" in cache:
-        q = h @ p["wq"].to(h.dtype)
-        if "bq" in p:
-            q = q + p["bq"].to(q.dtype)
-        q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-        k, v = cache["ek"], cache["ev"]
+        q = attn_lib.proj(x, p["wq"], p.get("bq")).reshape(B, S, Hl, hd)
+        q_all = tp_lib.all_gather(q, rt.group, 2) if split else q
+        out = _decode_attend(q_all, cache["ek"], cache["ev"],
+                             kv_valid=None, softcap=cfg.logit_softcap, rt=rt,
+                             cache=cache)
+        if split:
+            out = out[:, :, rt.tp_rank * Hl:(rt.tp_rank + 1) * Hl]
     else:
-        q, k, v = attn_lib.qkv(p, h, cfg, ctx=ctx)
+        q, k, v, k_all, v_all = attn_lib.qkv(
+            p, x, cfg, rt.ctx_in(ctx, split), whole_kv=cache is not None,
+            rank=rt.tp_rank, group=rt.group)
         if cache is not None:
-            cache["ek"].copy_(k)
-            cache["ev"].copy_(v)
-    out = attn_lib.dense_attention(q, k, v, causal=False,
-                                   softcap=cfg.logit_softcap)
-    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"].to(h.dtype)
+            _fill_cross_cache(cache, k_all, v_all)
+        out = attn_lib.dense_attention(q, k, v, causal=False,
+                                       softcap=cfg.logit_softcap)
+    out = out.reshape(B, S, Hl * hd) @ p["wo"].to(x.dtype)
+    return rt.region_out(out, split)
 
 
 def apply_attn_block(p, x, cfg, *, kind, mode, cache, pos, ctx,
@@ -257,13 +485,13 @@ def apply_attn_block(p, x, cfg, *, kind, mode, cache, pos, ctx,
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
     sc = cache.get("self") if cache is not None else None
     x = x + _self_attention(p["attn"], h, cfg, causal=causal, window=window,
-                            mode=mode, cache=sc, pos=pos)
+                            mode=mode, cache=sc, pos=pos, rt=rt)
 
     if kind == "attn_cross":
         h = apply_norm(p["norm_x"], x, cfg.norm_kind)
         xc = cache.get("cross") if cache is not None else None
         x = x + _cross_attention(p["xattn"], h, cfg, ctx=ctx, cache=xc,
-                                 mode=mode)
+                                 mode=mode, rt=rt)
 
     h = apply_norm(p["norm2"], x, cfg.norm_kind)
     y, aux = _apply_ffn(p["ffn"], h, cfg, mode, rt)
@@ -291,7 +519,8 @@ def apply_xattn_block(p, x, cfg, *, mode, cache, ctx, rt=None):
     """Llama-3.2-vision style gated cross-attention layer."""
     h = apply_norm(p["norm1"], x, cfg.norm_kind)
     xc = cache.get("cross") if cache is not None else None
-    out = _cross_attention(p["xattn"], h, cfg, ctx=ctx, cache=xc, mode=mode)
+    out = _cross_attention(p["xattn"], h, cfg, ctx=ctx, cache=xc, mode=mode,
+                           rt=rt)
     x = x + torch.tanh(p["gate_attn"]).to(x.dtype) * out
     h = apply_norm(p["norm2"], x, cfg.norm_kind)
     y, aux = _apply_ffn(p["ffn"], h, cfg, mode, rt)
@@ -320,7 +549,10 @@ def init_rglru_block(seed, cfg, *, device):
 
 
 def apply_rglru_block(p, x, cfg, *, mode, cache, rt=None):
-    h = apply_norm(p["norm1"], x, cfg.norm_kind)
+    """The recurrence runs whole on every rank of "model"; its FFN
+    tensor-parallel."""
+    rt = rt or NULL_RT
+    h = rt.region_in(apply_norm(p["norm1"], x, cfg.norm_kind), False)
     y = h @ p["wy"].to(h.dtype)
     gate = gelu(h @ p["wgate"].to(h.dtype))
     if mode == "decode":
@@ -331,7 +563,7 @@ def apply_rglru_block(p, x, cfg, *, mode, cache, rt=None):
     else:
         yc, new_conv = rec_lib.conv1d_causal(p["conv"], y, None)
         y, new_h = rec_lib.rglru_scan(p["lru"], yc, c=cfg.rglru_c)
-    x = x + (y * gate) @ p["wout"].to(x.dtype)
+    x = x + rt.region_out((y * gate) @ p["wout"].to(x.dtype), False)
     h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
     z, aux = _apply_ffn(p["ffn"], h2, cfg, mode, rt)
     if cache is not None:
@@ -359,8 +591,10 @@ def init_mlstm_block(seed, cfg, *, device):
     }
 
 
-def apply_mlstm_block(p, x, cfg, *, mode, cache):
-    h = apply_norm(p["norm"], x, cfg.norm_kind)
+def apply_mlstm_block(p, x, cfg, *, mode, cache, rt=None):
+    """Runs whole on every rank of "model"."""
+    rt = rt or NULL_RT
+    h = rt.region_in(apply_norm(p["norm"], x, cfg.norm_kind), False)
     up = h @ p["wup"].to(h.dtype)
     xm, z = torch.chunk(up, 2, dim=-1)
     if mode == "decode":
@@ -380,7 +614,7 @@ def apply_mlstm_block(p, x, cfg, *, mode, cache):
         for name, t in zip(("C", "n", "m"), new_state):
             cache[name].copy_(t)
         cache["conv"].copy_(new_conv)
-    return x + out, 0.0
+    return x + rt.region_out(out, False), 0.0
 
 
 def init_slstm_block(seed, cfg, *, device):
@@ -402,8 +636,11 @@ def init_slstm_block(seed, cfg, *, device):
     }
 
 
-def apply_slstm_block(p, x, cfg, *, mode, cache):
-    h = apply_norm(p["norm"], x, cfg.norm_kind)
+def apply_slstm_block(p, x, cfg, *, mode, cache, rt=None):
+    """The cell runs whole on every rank of "model"; its GeGLU FFN
+    tensor-parallel."""
+    rt = rt or NULL_RT
+    h = rt.region_in(apply_norm(p["norm"], x, cfg.norm_kind), False)
     decode = mode == "decode"
     c, new_conv = rec_lib.conv1d_causal(
         p["conv"], h, cache["conv"] if decode else None)
@@ -415,11 +652,11 @@ def apply_slstm_block(p, x, cfg, *, mode, cache):
         y = y[:, None, :]
     else:
         y, new_state = rec_lib.slstm_scan(p["cell"], c, cfg.n_heads, None)
-    x = x + y
+    x = x + rt.region_out(y, False)
     h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
-    ff = gelu(h2 @ p["ffn_gate"].to(x.dtype)) \
-        * (h2 @ p["ffn_up"].to(x.dtype))
-    x = x + ff @ p["ffn_down"].to(x.dtype)
+    x = x + ffn({"wi_gate": p["ffn_gate"], "wi_up": p["ffn_up"],
+                 "wo": p["ffn_down"]}, h2, d_ff=(4 * cfg.d_model) // 3,
+                gated=True, act=gelu, rt=rt)
     if cache is not None:
         for name, t in zip(("c", "n", "h", "m"), new_state):
             cache[name].copy_(t)
@@ -474,7 +711,7 @@ class MLSTMBlock(Block):
                 rt=None):
         del pos, ctx
         return apply_mlstm_block(self.params(rt), x, self.cfg, mode=mode,
-                                 cache=cache)
+                                 cache=cache, rt=rt)
 
 
 class SLSTMBlock(Block):
@@ -482,7 +719,7 @@ class SLSTMBlock(Block):
                 rt=None):
         del pos, ctx
         return apply_slstm_block(self.params(rt), x, self.cfg, mode=mode,
-                                 cache=cache)
+                                 cache=cache, rt=rt)
 
 
 BLOCKS = {"attn": AttnBlock, "local_attn": AttnBlock,
@@ -508,25 +745,34 @@ def init_block(seed, cfg, kind: str, *, device):
 # ----------------------------------------------------------- cache init ----
 
 def init_block_cache(cfg, kind: str, batch: int, kv_len: int,
-                     enc_len: int = 0, *, device):
+                     enc_len: int = 0, *, device, rt=None):
+    """One layer's decode cache.  On a runtime over "model" an attention
+    cache whose KV length divides the group holds the rank's slice of it
+    (a ``KVShard``), as ``sharding.cache_shardings`` splits it."""
     KH, hd = cfg.n_kv, cfg.head_dim
     cdt = cfg.dtype_torch
     f32 = torch.float32
+    tp = rt.tp if rt is not None else 1
 
     def z(*shape, dtype=cdt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    def kv(names, length):
+        if tp > 1 and length % tp == 0:
+            n = length // tp
+            return KVShard({k: z(batch, n, KH, hd) for k in names},
+                           start=rt.tp_rank * n, total=length)
+        return {k: z(batch, length, KH, hd) for k in names}
+
     if kind in ("attn", "local_attn", "attn_cross", "enc_attn"):
         W = min(cfg.window, kv_len) if kind == "local_attn" and cfg.window \
             else kv_len
-        c = {"self": {"k": z(batch, W, KH, hd), "v": z(batch, W, KH, hd)}}
+        c = {"self": kv(("k", "v"), W)}
         if kind == "attn_cross":
-            c["cross"] = {"ek": z(batch, enc_len, KH, hd),
-                          "ev": z(batch, enc_len, KH, hd)}
+            c["cross"] = kv(("ek", "ev"), enc_len)
         return c
     if kind == "xattn":
-        return {"cross": {"ek": z(batch, enc_len, KH, hd),
-                          "ev": z(batch, enc_len, KH, hd)}}
+        return {"cross": kv(("ek", "ev"), enc_len)}
     if kind == "rglru":
         lru = cfg.d_model
         return {"h": z(batch, lru, dtype=f32),
@@ -577,10 +823,10 @@ def init_stack(seed, cfg, pattern, n_layers, *, device):
 
 
 def init_stack_cache(cfg, pattern, n_layers, batch, kv_len, enc_len=0, *,
-                     device):
+                     device, rt=None):
     """One cache dict per layer, in layer order."""
     return [init_block_cache(cfg, pattern[layer % len(pattern)], batch,
-                             kv_len, enc_len, device=device)
+                             kv_len, enc_len, device=device, rt=rt)
             for layer in range(n_layers)]
 
 

@@ -10,7 +10,11 @@ Every figure is counted on fake tensors (``roofline/counts.py``), not
 measured: FLOPs, bytes and wire bytes per rank of one step, and the three
 roofline times against ``roofline.hw.H100``.  "HBM fit" holds the record's
 peak (the rank's inputs plus the most the step holds alive at once)
-against the H100's 80 GB.  The NMF table puts the cost model's words
+against the H100's 80 GB.  The LM cells run tensor-parallel over "model"
+(16 ranks on both production meshes): the "note" column names what a
+rank computes whole there instead (``tp_note``: heads or KV heads that do
+not divide, a vocabulary that does not, the recurrent mixers).  The NMF
+table puts the cost model's words
 (``core/costmodel.py``) beside the counted wire bytes.  The measured
 per-phase protocol is ``NMFSolver.fit(profile=True)`` joined against
 ``costmodel.schedule_cost_terms`` by ``repro_torch.obs.report``.
@@ -90,6 +94,31 @@ def hbm_fit(rec: dict) -> str:
     return "YES" if peak <= H100.hbm_bytes else f"NO ({peak / 1e9:.0f}GB)"
 
 
+#: ranks of "model" on the production meshes (``launch.mesh``)
+MODEL_RANKS = 16
+
+
+def tp_note(cfg, tp: int = MODEL_RANKS) -> str:
+    """What each rank of "model" computes whole rather than split
+    (``distributed.sharding.compute_spec``): every other attention, FFN
+    and vocabulary product runs on the rank's 1/tp."""
+    whole = []
+    kinds = set(cfg.layer_pattern) | (set(cfg.encoder_pattern)
+                                      if cfg.is_encdec else set())
+    if kinds & {"attn", "local_attn", "attn_cross", "enc_attn", "xattn"}:
+        if cfg.n_heads % tp:
+            whole.append(f"attention ({cfg.n_heads} heads)")
+        elif cfg.n_kv % tp:
+            whole.append(f"KV projections ({cfg.n_kv} KV heads)")
+    if cfg.vocab % tp:
+        whole.append(f"vocabulary ({cfg.vocab})")
+    if kinds & {"rglru", "mlstm", "slstm"}:
+        whole.append("recurrent mixers")
+    if "slstm" in kinds and ((4 * cfg.d_model) // 3) % tp:
+        whole.append("sLSTM FFN")
+    return "whole: " + ", ".join(whole) if whole else ""
+
+
 def fmt_table(mesh: str = "single", results_dir: str = RESULTS_DIR) -> str:
     rows = []
     header = ("| arch | shape | status | compute s | memory s | collective s"
@@ -121,7 +150,8 @@ def fmt_table(mesh: str = "single", results_dir: str = RESULTS_DIR) -> str:
             f"| {roof['collective_s']:.4f} "
             f"| {roof['dominant'].replace('_s', '')} "
             f"| {mf / 1e9:.1f} | {hf / 1e9:.1f} "
-            f"| {min(mf / max(hf, 1e-9), 9.99):.2f} | {hbm_fit(rec)} |  |")
+            f"| {min(mf / max(hf, 1e-9), 9.99):.2f} | {hbm_fit(rec)} "
+            f"| {tp_note(cfg)} |")
     return "\n".join(rows)
 
 

@@ -19,26 +19,26 @@ Under a mesh (a ``Runtime`` over a ``DeviceMesh`` with named dims, see
 optimizer leaf is a DTensor with the rule's placements
 (``distributed.sharding``; ``shard_state``), so a rank holds about 1/p of
 each sharded leaf.  A step runs the local model on the rank's shard of
-the batch (split over the data dims, replicated over "model").  Each
-layer gathers its parameter shards where it runs (``_GatherOnUse``;
-inside a remat group the recompute gathers them again, so no gathered
-layer outlives its group) and its backward reduce-scatters their
-gradients, averaged over the data dims, to the rule's placements; the
-embeddings, final norms and frontends are gathered once a step.  MoE
-layers run expert-parallel over "model": their expert weights are
-gathered over the data dims only, so a rank holds and differentiates its
-own E/mp experts, and their gradients need no exchange over "model".
-AdamW and sgd update each rank's shard (the global norm summed over the
-shards); Adafactor too, its row and column statistics summed over the
-shards (``_adafactor_sharded``).  Activations are not sharded over
-"model": ``Runtime.shard`` is the identity on rank-local tensors, and
-``seq_parallel`` is refused.
+the batch (split over the data dims), tensor-parallel over "model"
+(``models.transformer.Runtime``): each leaf is gathered to the placements
+it is computed with (``sharding.compute_spec``): over the data dims only
+for the leaves computed split over "model" (heads, FFN columns,
+vocabulary rows, experts), over "model" too for the rest.  Each layer
+gathers where it runs (``_GatherOnUse``; inside a remat group the
+recompute gathers again, so no gathered layer outlives its group) and its
+backward reduce-scatters the gradients, averaged over the data dims and
+summed over "model" where a rank's gradient is a partial sum there, to
+the rule's placements; the embeddings, final norms and frontends are
+gathered once a step.  ``seq_parallel`` splits the residual stream's
+sequence over "model" too (``act_btd``).  AdamW and sgd update each
+rank's shard (the global norm summed over the shards); Adafactor too, its
+row and column statistics summed over the shards
+(``_adafactor_sharded``).  The storage placements, and so checkpoints,
+are the reference's whatever the compute layout.
 """
 
 from __future__ import annotations
 
-import logging
-import re
 
 import torch
 import torch.distributed as dist
@@ -47,7 +47,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shard_rules
 from repro_torch.models import lm as lm_lib
 from repro_torch.models.lm import LM
-from repro_torch.models.transformer import NULL_RT, Runtime
+from repro_torch.distributed import tensor_parallel as tp_lib
+from repro_torch.models.transformer import NULL_RT, KVShard, Runtime
 from repro_torch.optim.optimizers import (OptConfig, _decay, _factored,
                                           apply_updates,
                                           clip_by_global_norm,
@@ -55,21 +56,15 @@ from repro_torch.optim.optimizers import (OptConfig, _decay, _factored,
                                           tree_leaves, tree_map)
 from repro_torch.util.convert import stack_params, unstack_params
 
-# DTensor warns on every gather over two mesh dims of one tensor dim
-logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
-    logging.ERROR)
 
 
 def make_runtime(mesh, *, seq_parallel: bool = False) -> Runtime:
-    """The model's runtime over ``mesh`` (None: one device).  Activations
-    stay rank-local, so sequence parallelism is not available."""
-    if seq_parallel:
-        raise NotImplementedError(
-            "seq_parallel: activations are not sharded over \"model\" "
-            "(the activation-sharding gap, ROADMAP.md queue 1 item 12d)")
+    """The model's runtime over ``mesh`` (None: one device): tensor
+    parallelism over its "model" dim, and with ``seq_parallel`` the
+    residual stream's sequence split over it as well."""
     if mesh is None:
         return NULL_RT
-    return Runtime(mesh=mesh)
+    return Runtime(mesh=mesh, seq_parallel=seq_parallel)
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: OptConfig, seed: int = 0, *,
@@ -147,10 +142,42 @@ def full_state(state) -> dict:
 
 
 def _full(t):
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Replicate
     if isinstance(t, DTensor):
         with torch.no_grad():
-            return t.full_tensor()
+            return redistribute(t.to_local(), t.device_mesh, t.placements,
+                                [Replicate()] * t.device_mesh.ndim)
+    return t
+
+
+def redistribute(t, mesh, src, dst):
+    """``t``, this rank's local tensor of DTensor placements ``src`` on
+    ``mesh``, as its local tensor of placements ``dst``: DTensor's
+    redistribution, done with ``torch.distributed``'s own collectives over
+    the mesh dims' groups (DTensor's functional collectives crash on CUDA
+    tensors over gloo, where four processes share one card).  Per mesh
+    dim: Partial → Replicate all-reduces, Partial → Shard reduce-scatters,
+    Replicate → Shard takes the slice, Shard → Replicate all-gathers.
+    Mesh dims that split one tensor dim together split it major first
+    (``sharding.local_slices``), so reductions and slices run over the
+    mesh dims in order and gathers in reverse."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    names = mesh.mesh_dim_names
+    for i, (a, b) in enumerate(zip(src, dst)):
+        if a == b or isinstance(b, Partial):
+            continue
+        group = mesh.get_group(names[i])
+        if isinstance(a, Partial):
+            t = (tp_lib.reduce_scatter(t, group, b.dim)
+                 if isinstance(b, Shard) else tp_lib.all_sum(t, group))
+        elif isinstance(a, Replicate):
+            t = tp_lib.own_slice(t, group, b.dim)
+    for i in reversed(range(len(names))):
+        a, b = src[i], dst[i]
+        if isinstance(a, Shard) and a != b:
+            if not isinstance(b, Replicate):
+                raise ValueError(f"no redistribution of {a} to {b}")
+            t = tp_lib.all_gather(t, mesh.get_group(names[i]), a.dim)
     return t
 
 
@@ -324,19 +351,25 @@ def _sharded_norm(grads, specs, mesh) -> torch.Tensor:
     return torch.sqrt(sum(totals))
 
 
-_EXPERT_LEAF = re.compile(r"moe/(wi_gate|wi_up|wo)$")
-
-
-def _use_of(spec, path: str, mesh, ep_axis) -> list:
-    """The placements a parameter of ``spec`` at ``path`` is computed with:
-    replicated, except the MoE expert weights under expert parallelism,
-    which keep their shard over ``ep_axis`` (a rank runs only its own
-    experts, ``moe.moe_ep``)."""
-    from torch.distributed.tensor import Replicate, Shard
-    ep_dim = (spec.index(ep_axis) if ep_axis is not None and ep_axis in spec
-              and _EXPERT_LEAF.search(path) else None)
-    return [Shard(ep_dim) if name == ep_axis and ep_dim is not None
-            else Replicate() for name in mesh.mesh_dim_names]
+def _placements(spec, path, rt, cfg) -> tuple:
+    """(the placements a parameter of storage ``spec`` at ``path`` is
+    computed with, those of a rank's gradient of it): "model" as
+    ``sharding.compute_spec`` says (split, or whole with a gradient that is
+    the same on every rank or a partial sum), the data dims whole for use
+    and partial in the gradient (one data shard's)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dim, partial = shard_rules.compute_spec(
+        path, spec, cfg, rt.mesh, seq_parallel=rt.sp, tp_axis="model")
+    use, src = [], []
+    for name in rt.mesh.mesh_dim_names:
+        if name == "model" and dim is not None:
+            use.append(Shard(dim))
+            src.append(Shard(dim))
+            continue
+        use.append(Replicate())
+        src.append(Partial() if name in rt.data_axes
+                   or (name == "model" and partial) else Replicate())
+    return use, src
 
 
 def _in_stack(path) -> bool:
@@ -354,18 +387,13 @@ class _GatherOnUse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, shard, mesh, rule, use, src, dp):
-        from torch.distributed.tensor import DTensor
         ctx.mesh, ctx.rule, ctx.src, ctx.dp = mesh, rule, src, dp
-        return DTensor.from_local(shard, mesh, rule, run_check=False) \
-            .redistribute(mesh, use).to_local()
+        return redistribute(shard, mesh, rule, use)
 
     @staticmethod
     def backward(ctx, g):
-        from torch.distributed.tensor import DTensor
-        out = DTensor.from_local(g / ctx.dp, ctx.mesh, ctx.src,
-                                 run_check=False) \
-            .redistribute(ctx.mesh, ctx.rule).to_local()
-        return out, None, None, None, None, None
+        return (redistribute(g / ctx.dp, ctx.mesh, ctx.src, ctx.rule),
+                None, None, None, None, None)
 
 
 def _local(t):
@@ -373,14 +401,7 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def _src_of(use, rt):
-    # a gradient of one data shard: partial over the data dims
-    from torch.distributed.tensor import Partial
-    return [Partial() if name in rt.data_axes else pl
-            for name, pl in zip(rt.mesh.mesh_dim_names, use)]
-
-
-def _for_use(t, spec, path, rt):
+def _for_use(t, spec, path, rt, cfg):
     """A parameter leaf as the step computes with it: a stack's layers
     gather on use (their shard, as it is); the rest (embeddings, final
     norms, frontends) gathered now."""
@@ -388,12 +409,12 @@ def _for_use(t, spec, path, rt):
     if not isinstance(t, DTensor) or _in_stack(path):
         return _local(t)
     with torch.no_grad():
-        return t.redistribute(rt.mesh, _use_of(
-            spec, "/".join(map(str, path)), rt.mesh, rt.ep_axis)).to_local()
+        return redistribute(t.to_local(), rt.mesh, t.placements, _placements(
+            spec, "/".join(map(str, path)), rt, cfg)[0])
 
 
-def _gathering_runtime(rt, leaves, slots, pspecs, dp):
-    """A runtime whose layers gather their shards on use."""
+def _gathering_runtime(rt, leaves, slots, pspecs, dp, cfg):
+    """``rt`` with layers that gather their shards on use."""
     mesh = rt.mesh
     info = {}
     for p, (path, g) in zip(leaves, slots):
@@ -404,9 +425,9 @@ def _gathering_runtime(rt, leaves, slots, pspecs, dp):
             spec = spec[k]
         if g is not None:
             spec = spec[1:]           # the group dim: never sharded
-        use = _use_of(spec, "/".join(map(str, path)), mesh, rt.ep_axis)
-        info[id(p)] = (mesh, shard_rules.to_placements(spec, mesh), use,
-                       _src_of(use, rt), dp)
+        use, src = _placements(spec, "/".join(map(str, path)), rt, cfg)
+        info[id(p)] = (mesh, shard_rules.to_placements(spec, mesh), use, src,
+                       dp)
 
     def gathered(block):
         out = {n: _GatherOnUse.apply(p, *info[id(p)]) if id(p) in info
@@ -417,40 +438,63 @@ def _gathering_runtime(rt, leaves, slots, pspecs, dp):
                       else gathered(m))
         return out
 
-    return Runtime(mesh=mesh, data_axes=rt.data_axes,
-                   ep_axis=rt.ep_axis, param_fn=gathered)
+    return rt.replace(param_fn=gathered)
 
 
-def _make_sharded_step(cfg, opt_cfg, rt, microbatches):
+def sharded_grads(cfg, params, batch, rt, *, microbatches: int = 1):
+    """(loss, metrics, gradients) of the mean loss on a mesh (``rt``):
+    ``params`` the stacked tree of DTensor shards (a train state's, or
+    ``shard_params``'), ``batch`` the whole batch of which this rank runs
+    its rows; the gradients rank-local, each leaf this rank's shard of the
+    rule's placements (wrap them with ``wrap_shards``); the loss and
+    metrics averaged over the data dims (the same on every rank)."""
     from torch.distributed.tensor import DTensor
     mesh = rt.mesh
     dgroups, dp = _data_info(mesh, rt.data_axes)
+    pspecs = shard_rules.tree_specs(params, mesh, ("params",))
+    batches = [_local_rows(b, mesh) for b in
+               (_split(batch, microbatches) if microbatches > 1
+                else [batch])]
+    run = rt.for_batch(batches[0])
 
     def reduce_scatter(g, spec, path):
         if _in_stack(path):
             return g                      # reduced by _GatherOnUse
-        use = _use_of(spec, "/".join(map(str, path)), mesh, rt.ep_axis)
-        return DTensor.from_local(g / dp, mesh, _src_of(use, rt),
-                                  run_check=False) \
-            .redistribute(mesh, shard_rules.to_placements(spec, mesh)) \
-            .to_local()
+        src = _placements(spec, "/".join(map(str, path)), run, cfg)[1]
+        return redistribute(g / dp, mesh, src,
+                            shard_rules.to_placements(spec, mesh))
+
+    local = _zip_specs(lambda t, spec, path: _for_use(t, spec, path, run,
+                                                      cfg), params, pspecs)
+    loss, metrics, grads = grads_of(
+        cfg, local, batches,
+        runtime_for=lambda leaves, slots: _gathering_runtime(
+            run, leaves, slots, pspecs, dp, cfg))
+    del local
+    with torch.no_grad():
+        grads = _zip_specs(reduce_scatter, grads, pspecs)
+        loss = _sum_over(loss, dgroups) / dp
+        metrics = {k: _sum_over(v.float(), dgroups) / dp
+                   for k, v in metrics.items()}
+    return loss, metrics, grads
+
+
+def wrap_shards(tree, like, mesh) -> dict:
+    """Rank-local shards of a stacked parameter tree (``sharded_grads``'
+    gradients) as DTensors with the placements of ``like`` (the DTensor
+    parameters they belong to)."""
+    return _wrap(tree, shard_rules.tree_specs(like, mesh, ("params",)),
+                 mesh)
+
+
+def _make_sharded_step(cfg, opt_cfg, rt, microbatches):
+    mesh = rt.mesh
 
     def train_step(state, batch):
         specs = state_specs(state, mesh)
-        params = _zip_specs(lambda t, spec, path: _for_use(t, spec, path, rt),
-                            state["params"], specs["params"])
-        batches = (_split(batch, microbatches) if microbatches > 1
-                   else [batch])
-        loss, metrics, grads = grads_of(
-            cfg, params, [_local_rows(b, mesh) for b in batches],
-            runtime_for=lambda leaves, slots: _gathering_runtime(
-                rt, leaves, slots, specs["params"], dp))
-        del params
+        loss, metrics, grads = sharded_grads(cfg, state["params"], batch, rt,
+                                             microbatches=microbatches)
         with torch.no_grad():
-            grads = _zip_specs(reduce_scatter, grads, specs["params"])
-            loss = _sum_over(loss, dgroups) / dp
-            metrics = {k: _sum_over(v.float(), dgroups) / dp
-                       for k, v in metrics.items()}
             gnorm = _sharded_norm(grads, specs["params"], mesh)
             p_loc = tree_map(_local, state["params"])
             o_loc = tree_map(_local, state["opt"])
@@ -568,21 +612,36 @@ def _model(cfg, params) -> LM:
     return params if isinstance(params, LM) else model_of(cfg, params)
 
 
-def _serving(cfg, params, rt):
-    """(the model, its runtime) for a serving step.  On a mesh ``params``
-    is a stacked tree of DTensor shards (``shard_params``): the model runs
-    on this rank's batch rows, its embeddings, final norms and frontends
-    gathered at the call, each layer's parameters where the layer runs,
-    as the sharded train step gathers them."""
+def _serving(cfg, params, rt, batch):
+    """(the model, its runtime for ``batch``) for a serving step.  On a
+    mesh ``params`` is a stacked tree of DTensor shards
+    (``shard_params``): the model runs on this rank's batch rows,
+    tensor-parallel over "model", its embeddings, final norms and
+    frontends gathered at the call, each layer's parameters where the
+    layer runs, as the sharded train step gathers them."""
     if rt.mesh is None:
         return _model(cfg, params), rt
     mesh = rt.mesh
+    run = rt.for_batch(batch)
     specs = shard_rules.tree_specs(params, mesh, ("params",))
     model = model_of(cfg, _zip_specs(
-        lambda t, spec, path: _for_use(t, spec, path, rt), params, specs))
+        lambda t, spec, path: _for_use(t, spec, path, run, cfg), params,
+        specs))
     leaves, slots = _grad_slots(model)
-    _, dp = _data_info(mesh, rt.data_axes)
-    return model, _gathering_runtime(rt, leaves, slots, specs, dp)
+    _, dp = _data_info(mesh, run.data_axes)
+    return model, _gathering_runtime(run, leaves, slots, specs, dp, cfg)
+
+
+def _last_logits(logits, run, vocab: int):
+    """The last position's logits over the whole vocabulary, (B, V): the
+    rank's vocabulary columns gathered over "model", or, where the
+    sequence is split instead, the last rank's last row."""
+    last = logits[:, -1:]
+    if last.shape[-1] < vocab:
+        last = tp_lib.all_gather(last, run.group, 2)
+    elif run.sp:
+        last = tp_lib.all_gather(last, run.group, 1)[:, -1:]
+    return last[:, 0]
 
 
 def shard_params(params, mesh) -> dict:
@@ -594,51 +653,75 @@ def shard_params(params, mesh) -> dict:
 
 
 def local_caches(caches, mesh, batch: int) -> list:
-    """This rank's part of whole decode caches (the same on every rank):
-    ``cache_shardings``' split of the batch over the data dims.  Its split
-    of the KV length over "model" is not taken: activations, the caches
-    among them, are not sharded over "model" (ROADMAP.md item 12d)."""
+    """This rank's part of whole decode caches (the same on every rank),
+    split as ``cache_shardings`` says: the batch over the data dims and
+    the KV length of the attention caches over "model", each such cache a
+    ``KVShard`` that knows its first position."""
     specs = shard_rules.cache_shardings(caches, mesh, batch)
+    names = list(mesh.mesh_dim_names)
 
     def walk(tree, spec):
         if isinstance(tree, dict):
-            return {k: walk(v, spec[k]) for k, v in tree.items()}
+            out = {k: walk(v, spec[k]) for k, v in tree.items()}
+            first = next(iter(tree.values()))
+            sp = spec[next(iter(tree))]
+            if torch.is_tensor(first) and first.ndim >= 3 \
+                    and sp[first.ndim - 3] == "model":
+                n = first.shape[first.ndim - 3] // mesh.size(
+                    names.index("model"))
+                return KVShard(out, start=mesh.get_local_rank("model") * n,
+                               total=first.shape[first.ndim - 3])
+            return out
         if isinstance(tree, (list, tuple)):
             return [walk(v, sp) for v, sp in zip(tree, spec)]
-        data_only = tuple(None if ax == "model" else ax for ax in spec)
-        return shard_rules.local_slice(tree, data_only, mesh).contiguous()
+        return shard_rules.local_slice(tree, spec, mesh).contiguous()
 
     return walk(caches, specs)
 
 
 def make_prefill_step(cfg: ModelConfig, kv_len: int, *, rt=NULL_RT):
-    """(params, batch) -> (last-position logits, caches); ``params`` an
-    ``LM`` or a stacked parameter tree, on a mesh (``rt``) its DTensor
+    """(params, batch) -> (last-position logits (B, V), caches); ``params``
+    an ``LM`` or a stacked parameter tree, on a mesh (``rt``) its DTensor
     shards (``shard_params``) and ``batch`` the whole batch, of which the
-    step runs this rank's rows."""
+    step runs this rank's rows: the logits are those rows' over the whole
+    vocabulary, the caches the rank's part."""
     def prefill_step(params, batch):
-        model, run = _serving(cfg, params, rt)
         if rt.mesh is not None:
             batch = _local_rows(batch, rt.mesh)
+        model, run = _serving(cfg, params, rt, batch)
         logits, caches = model.prefill(batch, kv_len, rt=run)
         # return only last-position logits (what serving samples from)
-        return logits[:, -1, :], caches
+        return _last_logits(logits, run, cfg.vocab), caches
     return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, *, rt=NULL_RT):
+    """One decode step for a running batch: (params, caches, tokens, pos)
+    -> (last-position logits (B, V) fp32, caches written in place).  On a
+    mesh (``rt``) ``params`` are DTensor shards (``shard_params``),
+    ``caches`` this rank's (``local_caches``) and ``tokens`` the whole
+    batch's; the logits are the rank's rows' over the whole
+    vocabulary."""
+    def decode_step(params, caches, tokens, pos):
+        if rt.mesh is not None:
+            tokens = _local_rows({"t": tokens}, rt.mesh)["t"]
+        model, run = _serving(cfg, params, rt, {"tokens": tokens})
+        logits, caches = model.decode_step(caches, tokens, int(pos),
+                                           rt=run)
+        return _last_logits(logits, run, cfg.vocab), caches
+    return decode_step
 
 
 def make_serve_step(cfg: ModelConfig, *, rt=NULL_RT):
     """One greedy decode step for a running batch: (params, caches, tokens,
-    pos) -> (next_tokens (B, 1) int32, caches written in place).  On a mesh
-    (``rt``) ``params`` are DTensor shards (``shard_params``), ``caches``
-    this rank's (``local_caches``) and ``tokens`` the whole batch's."""
+    pos) -> (next_tokens (B, 1) int32, caches written in place), the
+    argmax (``torch.argmax``'s tie order) of ``make_decode_step``'s
+    logits; on a mesh the rank's rows'."""
+    decode = make_decode_step(cfg, rt=rt)
+
     def serve_step(params, caches, tokens, pos):
-        model, run = _serving(cfg, params, rt)
-        if rt.mesh is not None:
-            tokens = _local_rows({"t": tokens}, rt.mesh)["t"]
-        logits, caches = model.decode_step(caches, tokens, int(pos),
-                                           rt=run)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return nxt[:, None], caches
+        logits, caches = decode(params, caches, tokens, pos)
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], caches
     return serve_step
 
 

@@ -217,12 +217,3 @@ def test_constraint_specs_match_the_reference(mesh, seq_parallel, kind,
     want = jsr.make_constraint_fn(fake, seq_parallel=seq_parallel)(x, kind)
     got = sr.make_constraint_fn(fake, seq_parallel=seq_parallel)(shape, kind)
     assert got == (None if want is x else tuple(want))
-
-
-def test_seq_parallel_is_refused():
-    mesh = FakeMesh(MESHES["data2_model2"])
-    with pytest.raises(NotImplementedError, match="12d"):
-        steps.make_runtime(mesh, seq_parallel=True)
-    with pytest.raises(NotImplementedError, match="12d"):
-        steps.jitted_train_step(cb.get_reduced_config("smollm_135m"),
-                                OptConfig(), mesh, seq_parallel=True)

@@ -13,7 +13,11 @@ Columns (GB, 1e9 bytes, per rank; activations are not counted):
   frontends) and the stacks' tail layers (no remat: kept until their
   backward);
 * ``group``: the largest layer group's parameters as its layers gather
-  them on use (MoE expert weights: E/mp experts each);
+  them on use;
+
+each gathered over the data dims and, where a rank computes the leaf
+split over "model" (``sharding.compute_spec``: heads, FFN columns,
+vocabulary rows, E/mp experts), kept at its share of "model";
 * ``fwd_bwd``: state + 2 × (once + group) (each with a gradient of its
   size before the reduce-scatter) + the stacks' gradient shards;
 * ``update``: state + the gradient shards + the new shards (every
@@ -62,6 +66,7 @@ def _shard_bytes(t, spec, shape) -> float:
 
 def per_rank(arch: str, mesh_shape: dict) -> dict:
     from repro_torch.configs import base as cb
+    from repro_torch.distributed import sharding
     from repro_torch.optim.optimizers import OptConfig
     from repro_torch.train import steps
     cfg = cb.get_config(arch)
@@ -76,7 +81,8 @@ def per_rank(arch: str, mesh_shape: dict) -> dict:
     for path, t, s in _leaves(state["params"], specs["params"]):
         keys = path.strip("/").split("/")
         n = t.numel() * t.element_size()
-        if steps._EXPERT_LEAF.search(path) and "model" in s:
+        if sharding.compute_spec(path, s, cfg, FakeMesh(mesh_shape))[0] \
+                is not None:
             n /= mesh_shape["model"]
         if steps._in_stack(keys) and keys[1] == "groups":
             # one group's share of a stacked leaf, summed per stack
