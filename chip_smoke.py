@@ -32,7 +32,9 @@ group:
   smollm-135m at full size and dbrx-132b at full width (one layer), and
   the sharded step and ``moe_ep`` on a one-rank NCCL mesh;
 * tensor and sequence parallelism over "model" on four ranks sharing the
-  card: smollm-135m's train step and serving, qwen2-72b's serving.
+  card: smollm-135m's train step and serving, qwen2-72b's serving; the
+  recurrent mixers split: recurrentgemma-9b's and xlstm-125m's train step
+  and serving.
 
 Phases, each of which raises on failure:
 
@@ -296,6 +298,20 @@ Phases, each of which raises on failure:
                step on (1, 4) with seq_parallel; qwen2-72b at full width,
                2 of 80 layers, prefill 2 × 2,048 and 8 decode steps on
                (1, 4), its bytes a rank against the card's memory.
+ 37. tp_rec    the recurrent mixers split over "model" on four gloo ranks
+               sharing the card, by the same rules: recurrentgemma-9b at
+               full width, one period (rglru, rglru, local_attn) of its 38
+               layers, bf16, on (1, 4) (its RG-LRU on 1,024 of 4,096
+               channels a rank): a train step at 2 × 1,024 (sgd: the
+               gradient held leaf by leaf), prefill 2 × 2,048 and 8 decode
+               steps on split caches, each rank's bytes and peak;
+               xlstm-125m at full size on (1, 4) (its 4 mLSTM and sLSTM
+               heads one a rank): a train step at 4 × 512, prefill 4 × 512
+               and 8 decode steps; each recurrent mixer alone in fp32 at
+               full width against itself whole (``TP_REC_FP32_TOL``); and
+               a wholesale-bf16 xlstm-125m tree (every leaf bf16, the
+               sLSTM's recurrent blocks too) loaded through
+               ``lm_params_from_numpy`` and served unsharded.
 
 Last of all (the profiler doubles the host cost of every later launch,
 tools/probe_profiler_overhead.py), one smollm-135m decode step of phase
@@ -5348,6 +5364,534 @@ def phase_tp(dev, seed: int, card: str) -> dict:
 
 
 
+# ----------------------------------------------------------------------------
+# Phase 37: the recurrent mixers split over "model"
+
+#: phase 37: recurrentgemma-9b at full width, (layers kept: one period of
+#: its pattern, train batch, train sequence, serve batch, prompt, decode
+#: steps) on (1, 4)
+TP_REC_GEMMA = (3, 2, 1_024, 2, 2_048, 8)
+#: phase 37: xlstm-125m at full size, (train batch, train sequence, serve
+#: batch, prompt, decode steps) on (1, 4); the sLSTM loops over time in
+#: Python, so the sequence stays short
+TP_REC_XLSTM = (4, 512, 4, 512, 8)
+#: phase 37: each recurrent mixer at full width in fp32, split over
+#: "model", against the same mixer whole on the same input, scaled: its
+#: forward over TP_REC_XLSTM's sequence and a decode step after it.  The
+#: bf16 rule says little of xlstm-125m, whose bf16 run sits O(1) from its
+#: fp32 twin, and a whole fp32 model cannot be held either: it amplifies
+#: rounding (a 1e-7 relative change of its weights moves its logits 3e-3
+#: at 12 layers and 512 tokens), so each mixer is held alone.
+TP_REC_FP32_TOL = 1e-4
+
+
+def _tp_rec_cfgs():
+    from repro_torch.configs import base as cb
+    return (cb.get_config("recurrentgemma_9b").replace(
+        n_layers=TP_REC_GEMMA[0]), cb.get_config("xlstm_125m"))
+
+
+def _rec_cache_shapes(caches) -> dict:
+    """{leaf: shape} of the recurrent decode caches (of two kinds with a
+    leaf of one name, the later layer's: xlstm's last layer is an
+    sLSTM)."""
+    return {k: tuple(t.shape) for layer in caches for k, t in layer.items()
+            if k in ("h", "conv", "C", "n", "m", "c")}
+
+
+def _sq_dist(got, want, chunk: int = 1 << 26) -> tuple:
+    """(‖got − want‖², ‖want‖²) in float64, ``want`` on any device, a
+    chunk of ``chunk`` elements at a time (no fp32 copy of a whole
+    vocabulary-sized leaf)."""
+    import torch
+    g, w = got.reshape(-1), want.reshape(-1)
+    num = den = 0.0
+    for i in range(0, g.numel(), chunk):
+        b = w[i:i + chunk].to(g.device, torch.float32)
+        d = g[i:i + chunk].float() - b
+        num += float(torch.dot(d, d).double())
+        den += float(torch.dot(b, b).double())
+    return num, den
+
+
+def _flip_ties(got, ref_logits, fed, twin_row, n: int) -> tuple:
+    """(tokens agreeing, of, the largest flip's unsharded margin over the
+    fp32 twin's distance on its row): phase 36's greedy rule."""
+    want = fed.T.long()                                   # (n, B)
+    ref_l = ref_logits[:n]
+    pick = got[:n].argmax(-1)
+    flip = pick != want
+    margin = (ref_l.gather(-1, want[..., None])
+              - ref_l.gather(-1, pick[..., None]))[..., 0]
+    tie = (margin / twin_row[:n])[flip]
+    return (int((~flip).sum()), flip.numel(),
+            float(tie.max()) if tie.numel() else 0.0)
+
+
+def tp_rec_rank(out: str, seed: int, device: str) -> None:
+    """Phase 37's rank (four share the card over gloo): recurrentgemma-9b
+    and xlstm-125m split over "model", held by rank 0 against the
+    unsharded runs (``ref.pt``; recurrentgemma's unsharded gradient rank 0
+    computes itself, from the same seeded weights: 5.5 GB, not sent)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.optim.optimizers import (OptConfig, init_opt_state,
+                                              tree_map)
+    from repro_torch.roofline.counts import tensor_bytes
+    from repro_torch.train import steps as st
+    r = dist.get_rank()
+    dev = torch.device(device)
+    ref = torch.load(os.path.join(out, "ref.pt"), map_location=dev)
+    res = {"err": None}
+    gemma, xlstm = _tp_rec_cfgs()
+    _, Bt, St, Bs, P, n_dec = TP_REC_GEMMA
+    mesh = DeviceMesh(dev.type, [list(range(TP_RANKS))],
+                      mesh_dim_names=("data", "model"))
+    group = mesh.get_group("model")
+    rt = st.make_runtime(mesh)
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier(group=group)
+
+    def kept_step(cfg, opt, state, batch, want):
+        # one train step: (loss, ms, its gradient's distance from ``want``
+        # (the unsharded one; rank 0's, None elsewhere) as _rel_l2 and
+        # _leaf_rel_l2 read it).  The gradient, as ``sharded_grads``
+        # returns it, is gathered whole one leaf at a time (every rank
+        # takes part), so no rank holds it whole.
+        from repro_torch.optim.optimizers import tree_leaves
+        kept, sharded_grads = [], st.sharded_grads
+
+        def keep(*a, **k):
+            got = sharded_grads(*a, **k)
+            kept[:] = [got[2]]
+            return got
+        st.sharded_grads = keep
+        try:
+            sync()
+            t0 = time.perf_counter()
+            _, m = st.make_train_step(cfg, opt, rt=rt)(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            st.sharded_grads = sharded_grads
+        shards = tree_leaves(st.wrap_shards(kept.pop(), state["params"],
+                                            mesh))
+        ref_leaves = tree_leaves(want) if r == 0 else [None] * len(shards)
+        num, den = [], []
+        for t, w in zip(shards, ref_leaves):
+            whole = st.full_state(t)
+            if r == 0:
+                a, b = _sq_dist(whole, w)
+                num.append(a)
+                den.append(b)
+            del whole
+        dists = None
+        if r == 0:
+            dists = (math.sqrt(sum(num) / sum(den)),
+                     [math.sqrt(a / b) if b > 0 else
+                      (0.0 if a == 0 else math.inf)
+                      for a, b in zip(num, den)])
+        return float(m["loss"]), ms, dists
+
+    def serve(cfg, params, prompt, fed, kv, steps_n):
+        sync()
+        t0 = time.perf_counter()
+        last, caches = st.make_prefill_step(cfg, kv, rt=rt)(
+            params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode = st.make_decode_step(cfg, rt=rt)
+        outs = [last.float()]
+        for i in range(steps_n):
+            lg, caches = decode(params, caches, fed[:, i:i + 1],
+                                prompt.shape[1] + i)
+            outs.append(lg.float())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        info = {"prefill_ms": (t1 - t0) * 1e3,
+                "decode_ms": (t2 - t1) * 1e3 / steps_n,
+                "cache_bytes": tensor_bytes(caches),
+                "rec_caches": _rec_cache_shapes(caches),
+                "kv_lens": sorted({c["k"].shape[1] for layer in caches
+                                   for c in layer.values()
+                                   if isinstance(c, dict) and "k" in c})}
+        return torch.stack(outs), info
+
+    def mixer_errs(cfg, layer: int, x) -> dict:
+        # the layer's mixer split over "model" (its parameters gathered as
+        # serving gathers them) and whole: the forward over x, then a
+        # prefill of x into a decode cache and one decode step, scaled
+        from repro_torch.models import transformer as tf
+        whole = _tp_params(cfg, seed, dev)
+        ref_blk = st.model_of(cfg, whole).dec.layers()[layer]
+        model, run = st._serving(cfg, st.shard_params(whole, mesh), rt,
+                                 {"tokens": x[..., 0]})
+        blk = model.dec.layers()[layer]
+        mixer = getattr(tf, f"{blk.kind}_mixer")
+        B, S, _ = x.shape
+        errs = {}
+        with torch.no_grad():
+            p = blk.params(run)
+            errs["forward"] = scaled_err(
+                mixer(p, x, cfg, mode="train", cache=None, rt=run),
+                mixer(ref_blk, x, cfg, mode="train", cache=None,
+                      rt=None))[1]
+            caches = [tf.init_block_cache(cfg, blk.kind, B, S + 1,
+                                          device=dev, rt=q)
+                      for q in (run, None)]
+            for q, c, prm in ((run, caches[0], p), (None, caches[1],
+                                                     ref_blk)):
+                mixer(prm, x, cfg, mode="prefill", cache=c, rt=q)
+            errs["decode"] = scaled_err(
+                mixer(p, x[:, -1:], cfg, mode="decode", cache=caches[0],
+                      rt=run),
+                mixer(ref_blk, x[:, -1:], cfg, mode="decode",
+                      cache=caches[1], rt=None))[1]
+            errs["cache"] = {k: tuple(t.shape) for k, t in caches[0].items()}
+        return errs
+
+    try:
+        # recurrentgemma-9b: two ranks at a time make the whole seeded
+        # weights (5.5 GB) and keep their shards; rank 0 keeps the whole
+        # weights for its unsharded gradient
+        whole = None
+        for i in range(0, TP_RANKS, 2):
+            if i <= r < i + 2:
+                whole = _tp_params(gemma, seed, dev)
+                params = st.shard_params(whole, mesh)
+                if r:
+                    del whole
+                    whole = None
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier(group=group)
+        sgd = OptConfig(kind="sgd", lr=1e-3, warmup_steps=1, total_steps=10)
+        batch = make_lm_loader(gemma, cb.ShapeConfig("train", St, Bt,
+                                                     "train"),
+                               seed=seed, device=dev)(0)
+        # rank 0's unsharded gradient first, while the others hold only
+        # their shards; it waits in host memory (5.5 GB) for the
+        # comparison, which brings it back one leaf at a time
+        g16 = None
+        if r == 0:
+            _, _, g16 = st.grads_of(gemma, whole, [batch])
+            g16 = tree_map(lambda t: t.cpu(), g16)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier(group=group)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        state = {"params": params, "opt": init_opt_state("sgd", params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        loss, ms, dists = kept_step(gemma, sgd, state, batch, g16)
+        del state, g16
+        g = {"step_ms": ms, "loss": loss, "param_bytes": tensor_bytes(
+            params), "base_bytes": base,
+             "train_peak_bytes": torch.cuda.max_memory_allocated(dev)}
+        if r == 0:
+            g["grad_vs_ref"], g["grad_leaf_vs_ref"] = dists
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier(group=group)
+        torch.cuda.reset_peak_memory_stats(dev)
+        outs, info = serve(gemma, params, ref["gemma_prompt"],
+                           ref["gemma_fed"], ref["gemma_kv"], n_dec)
+        g.update(info)
+        g["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        if r == 0:
+            g["err"] = scaled_err(outs, ref["gemma_logits"])[1]
+            g["agree"], g["of"], g["worst_tie"] = _flip_ties(
+                outs, ref["gemma_logits"], ref["gemma_fed"],
+                ref["gemma_twin_row"], n_dec)
+        res["gemma"] = g
+        del params, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # xlstm-125m at full size (every rank makes its weights)
+        Bx, Sx, Bxs, Px, nx = TP_REC_XLSTM
+        adamw = OptConfig(kind="adamw", lr=1e-3, warmup_steps=1,
+                          total_steps=10)
+        wx = _tp_params(xlstm, seed, dev)
+        state = st.shard_state({"params": wx, "opt": init_opt_state(
+            "adamw", wx), "step": torch.zeros((), dtype=torch.int32,
+                                              device=dev)}, mesh)
+        batch = make_lm_loader(xlstm, cb.ShapeConfig("train", Sx, Bx,
+                                                     "train"),
+                               seed=seed, device=dev)(0)
+        loss, ms, dists = kept_step(xlstm, adamw, state, batch,
+                                    ref.pop("xlstm_g16"))
+        x = {"step_ms": ms, "loss": loss}
+        if r == 0:
+            x["grad_vs_ref"], x["grad_leaf_vs_ref"] = dists
+        del state
+        params = st.shard_params(wx, mesh)
+        outs, info = serve(xlstm, params, ref["xlstm_prompt"],
+                           ref["xlstm_fed"], ref["xlstm_kv"], nx)
+        x.update(info)
+        if r == 0:
+            x["err"] = scaled_err(outs, ref["xlstm_logits"])[1]
+            x["agree"], x["of"], x["worst_tie"] = _flip_ties(
+                outs, ref["xlstm_logits"], ref["xlstm_fed"],
+                ref["xlstm_twin_row"], nx)
+        res["xlstm"] = x
+        del params, outs, wx
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # each recurrent mixer alone in fp32, split and whole, on one
+        # input: recurrentgemma's RG-LRU (its first layer, the vocabulary
+        # cut: the mixer never reads it), xlstm's mLSTM and sLSTM
+        def noise(cfg):
+            gen = torch.Generator(device=dev).manual_seed(seed + 37)
+            return torch.randn((Bxs, Px, cfg.d_model), generator=gen,
+                               device=dev)
+        g32 = fp32_cfg(gemma).replace(n_layers=1, vocab=256)
+        x32 = fp32_cfg(xlstm).replace(n_layers=len(xlstm.layer_pattern))
+        res["mixers"] = {"rglru": mixer_errs(g32, 0, noise(g32)),
+                         "mlstm": mixer_errs(x32, 0, noise(x32)),
+                         "slstm": mixer_errs(x32, 3, noise(x32))}
+    except Exception as e:  # noqa: BLE001 — reported by the parent
+        import traceback
+        res["err"] = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
+    torch.save(res, os.path.join(out, f"tp_rec_{r}.pt"))
+
+
+def _bf16_tree_check(cfg, seed: int, dev, card: str) -> dict:
+    """Fault F5's check on the card: xlstm-125m's fp32 seeded weights in
+    the reference's layout (``lm_params_to_numpy``), every leaf cast to
+    bf16 (the sLSTM's recurrent blocks R, the gates' biases and Λ too),
+    loaded through ``lm_params_from_numpy`` and served unsharded: its
+    forward finite and its decode logits no further from the fp32 forward
+    of the same weights than ``BF16_FACTOR`` × its own bf16 forward is
+    (phase 28's rule), beside the distance of the port's own bf16 tree
+    (fp32 gates) from it."""
+    import torch
+    from repro_torch.models.lm import LM
+    from repro_torch.util.convert import lm_params_from_numpy, \
+        lm_params_to_numpy
+    _, _, B, P, n = TP_REC_XLSTM
+    c32 = fp32_cfg(cfg)
+    m32 = LM(c32, device=dev, seed=seed)
+    tree = torch.utils._pytree.tree_map(
+        lambda a: torch.as_tensor(a).to(torch.bfloat16),
+        lm_params_to_numpy(m32))
+    m16 = lm_params_from_numpy(cfg, tree, device=dev)
+    dtypes = {t.dtype for t in m16.parameters()}
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+    toks = torch.randint(0, cfg.vocab, (B, P + n), generator=gen, device=dev)
+    native = LM(cfg, device=dev, seed=seed)    # bf16, fp32 gates kept
+    with torch.inference_mode():
+        f32 = m32({"tokens": toks})[0]
+        f16 = m16({"tokens": toks})[0]
+        fn16 = native({"tokens": toks})[0]
+        _, caches = m16.prefill({"tokens": toks[:, :P]}, kv_len=P + n)
+        dec = []
+        for t in range(P, P + n):
+            dl, caches = m16.decode_step(caches, toks[:, t:t + 1], t)
+            dec.append(dl[:, 0])
+        dec = torch.stack(dec, 1)
+    torch.cuda.synchronize()
+    e16 = scaled_err(f16, f32)[1]
+    e_native = scaled_err(fn16, f32)[1]
+    e_dec = scaled_err(dec, f32[:, P:])[1]
+    finite = bool(torch.isfinite(f16).all()) and bool(
+        torch.isfinite(dec).all())
+    ok = (dtypes == {torch.bfloat16} and finite
+          and e_dec <= BF16_FACTOR * e16)
+    log(f"[tp_rec] xlstm-125m from a wholesale-bf16 tree ({len(tree)} "
+        f"top keys, every parameter {sorted(map(str, dtypes))}) unsharded: "
+        f"forward {tuple(f16.shape)} finite {finite}, vs the fp32 forward "
+        f"{e16:.3e} (the port's own bf16 tree, fp32 gates: {e_native:.3e});"
+        f" prefill {B} x {P} and {n} decode steps vs the fp32 forward "
+        f"{e_dec:.3e} (tol {BF16_FACTOR:g} x {e16:.3e} = "
+        f"{BF16_FACTOR * e16:.3e}) {'ok' if ok else 'FAIL'}; card {card}")
+    require(ok, "phase 37: the wholesale-bf16 xlstm-125m tree does not serve")
+    del m16, m32, native, caches, f32, f16, fn16
+    torch.cuda.empty_cache()
+    return {"fwd_vs_fp32": e16, "native_fwd_vs_fp32": e_native,
+            "decode_vs_fp32": e_dec, "finite": finite}
+
+
+def phase_tp_rec(dev, seed: int, card: str) -> dict:
+    """Phase 37: the recurrent mixers split over "model" on four gloo
+    ranks sharing the card, as phase 36 runs them, against the unsharded
+    runs on the card by phase 36's rules (``BF16_FACTOR`` × the unsharded
+    bf16 run's own distance from its fp32 twin, the gradient leaf by leaf,
+    a greedy flip only at a near-tie, the loss within
+    ``TRAIN_LOSS_TOL``): recurrentgemma-9b at full width, depth cut to one
+    period, and xlstm-125m at full size (``TP_REC_GEMMA``,
+    ``TP_REC_XLSTM``), each rank's caches of the split shapes; then the
+    wholesale-bf16 xlstm-125m tree (fault F5)."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train import steps as st
+    from repro_torch.util import dist as rdist
+    t_phase = time.perf_counter()
+    gemma, xlstm = _tp_rec_cfgs()
+    _, Bt, St, Bs, P, n_dec = TP_REC_GEMMA
+    Bx, Sx, Bxs, Px, nx = TP_REC_XLSTM
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    ref, out = {}, {"card": card}
+    gen = torch.Generator(device=dev).manual_seed(seed + 37)
+
+    def train_ref(cfg, B, S):
+        params = _tp_params(cfg, seed, dev)
+        batch = make_lm_loader(cfg, cb.ShapeConfig("train", S, B, "train"),
+                               seed=seed, device=dev)(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss16, _, g16 = st.grads_of(cfg, params, [batch])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        p32 = tree_map(lambda t: t.float(), params)
+        loss32, _, g32 = st.grads_of(fp32_cfg(cfg), p32, [batch])
+        info = {"loss": float(loss16), "loss32": float(loss32),
+                "grads_ms": ms, "grad_vs_fp32": _rel_l2(g16, g32),
+                "grad_leaf_vs_fp32": _leaf_rel_l2(g16, g32),
+                "leaves": _leaf_paths(g16)}
+        del g32, batch
+        torch.cuda.empty_cache()
+        return params, p32, g16, info
+
+    def serve_ref(cfg, params, p32, B, P, n, tag):
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen,
+                               device=dev)
+        kv = _kv_len(P, n, TP_RANKS)
+        fed, lg16, pre, dec = _greedy_ref(cfg, params, prompt, kv, n)
+        _, lg32, _, _ = _greedy_ref(fp32_cfg(cfg), p32, prompt, kv, n,
+                                    fed=fed)
+        ref.update({f"{tag}_prompt": prompt, f"{tag}_fed": fed,
+                    f"{tag}_logits": lg16, f"{tag}_kv": kv,
+                    f"{tag}_twin_row": (lg16 - lg32).abs().amax(-1)})
+        return {"serve_vs_fp32": scaled_err(lg16, lg32)[1],
+                "prefill_ms": pre, "decode_ms": dec}
+
+    params, p32, g16, out["gemma_ref"] = train_ref(gemma, Bt, St)
+    del g16
+    out["gemma_ref"].update(serve_ref(gemma, params, p32, Bs, P, n_dec,
+                                      "gemma"))
+    del params, p32
+    torch.cuda.empty_cache()
+    params, p32, g16, out["xlstm_ref"] = train_ref(xlstm, Bx, Sx)
+    ref["xlstm_g16"] = g16
+    out["xlstm_ref"].update(serve_ref(xlstm, params, p32, Bxs, Px, nx,
+                                      "xlstm"))
+    del params, p32, g16
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_rec_") as tmp:
+        torch.save(ref, os.path.join(tmp, "ref.pt"))
+        ref.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[tp_rec] the unsharded references took {t_ref:.1f} s; this "
+            f"process holds {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB "
+            f"of the card ({held / 1e9:.2f} GB allocated before the phase)")
+        t_spawn = time.perf_counter()
+        where = f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu"
+        rdist.spawn(tp_rec_rank, TP_RANKS, tmp, seed, where,
+                    backend="gloo", device=where)
+        out["ranks_s"] = time.perf_counter() - t_spawn
+        ranks = [torch.load(os.path.join(tmp, f"tp_rec_{r}.pt"))
+                 for r in range(TP_RANKS)]
+    errs = [f"rank {i}: {x['err'][-1500:]}" for i, x in enumerate(ranks)
+            if x["err"]]
+    require(not errs, "phase 37 failed: " + "\n".join(errs))
+    total = torch.cuda.get_device_properties(dev).total_memory
+    want_caches = {
+        "gemma": {"h": (Bs, gemma.d_model // TP_RANKS),
+                  "conv": (Bs, gemma.conv_width - 1,
+                           gemma.d_model // TP_RANKS)},
+        "xlstm": {"C": (Bxs, xlstm.n_heads // TP_RANKS,
+                        2 * xlstm.d_model // xlstm.n_heads,
+                        2 * xlstm.d_model // xlstm.n_heads),
+                  "m": (Bxs, xlstm.n_heads // TP_RANKS,
+                        xlstm.d_model // xlstm.n_heads),
+                  "c": (Bxs, xlstm.n_heads // TP_RANKS,
+                        xlstm.d_model // xlstm.n_heads)}}
+    names = {"gemma": f"recurrentgemma-9b full width, {gemma.n_layers} of "
+                      f"38 layers,", "xlstm": "xlstm-125m full size"}
+    shapes = {"gemma": (Bt, St, Bs, P, n_dec), "xlstm": (Bx, Sx, Bxs, Px,
+                                                         nx)}
+    for tag in ("gemma", "xlstm"):
+        x, rf = ranks[0][tag], out[f"{tag}_ref"]
+        e_loss = abs(x["loss"] - rf["loss"]) / abs(rf["loss"])
+        i, ratio = _worst_leaf(x["grad_leaf_vs_ref"], rf["grad_leaf_vs_fp32"])
+        tol_g = BF16_FACTOR * rf["grad_vs_fp32"]
+        tol_s = BF16_FACTOR * rf["serve_vs_fp32"]
+        caches = [y[tag]["rec_caches"] for y in ranks]
+        shapes_ok = all(all(c.get(k) == v for k, v in
+                            want_caches[tag].items()) for c in caches)
+        ok = (x["grad_vs_ref"] <= tol_g and ratio <= BF16_FACTOR
+              and e_loss <= TRAIN_LOSS_TOL and x["err"] <= tol_s
+              and x["worst_tie"] <= 2 * BF16_FACTOR and shapes_ok)
+        B1, S1, B2, P2, n2 = shapes[tag]
+        peak = max(y[tag].get("peak_bytes", 0) for y in ranks)
+        log(f"[tp_rec] {names[tag]} bf16 on (1, {TP_RANKS}): train step "
+            f"{B1} x {S1} {x['step_ms']:.1f} ms (unsharded forward and "
+            f"backward {rf['grads_ms']:.1f} ms; each the first of its "
+            f"process at these shapes); gradient vs the unsharded "
+            f"bf16 one {x['grad_vs_ref']:.3e} (tol {BF16_FACTOR:g} x its "
+            f"fp32 twin's {rf['grad_vs_fp32']:.3e} = {tol_g:.3e}); worst "
+            f"leaf {rf['leaves'][i]} {x['grad_leaf_vs_ref'][i]:.3e}, "
+            f"{ratio:.2f} x its twin's {rf['grad_leaf_vs_fp32'][i]:.3e} "
+            f"(tol {BF16_FACTOR:g} x); loss {x['loss']:.6f} vs "
+            f"{rf['loss']:.6f} ({e_loss:.2e}, tol {TRAIN_LOSS_TOL:.0e}); "
+            f"prefill {B2} x {P2} {x['prefill_ms']:.1f} ms (unsharded "
+            f"{rf['prefill_ms']:.1f}), decode {x['decode_ms']:.2f} ms a step "
+            f"(unsharded {rf['decode_ms']:.2f}); logits vs the unsharded "
+            f"run {x['err']:.3e} (tol {BF16_FACTOR:g} x "
+            f"{rf['serve_vs_fp32']:.3e} = {tol_s:.3e}); greedy tokens agree "
+            f"{x['agree']} / {x['of']}, each flip's unsharded margin "
+            f"{x['worst_tie']:.2f} x the twin's row distance or less (tol "
+            f"{2 * BF16_FACTOR:g} x); each rank's recurrent caches "
+            f"{caches[0]}, attention caches {x['kv_lens']} positions"
+            + (f"; a rank holds {x['param_bytes'] / 1e9:.3f} GB of "
+               f"parameters, peak in the train step "
+               f"{max(y[tag]['train_peak_bytes'] for y in ranks) / 1e9:.2f}"
+               f" GB, in serving {peak / 1e9:.2f} GB (four ranks "
+               f"{sum(y[tag]['peak_bytes'] for y in ranks) / 1e9:.2f} GB of "
+               f"the card's {total / 1e9:.1f} GB)" if tag == "gemma" else "")
+            + f" {'ok' if ok else 'FAIL'}; card {card}")
+        require(ok, f"phase 37: {names[tag]} split over model is off the "
+                    f"unsharded run")
+        out[tag] = {**x, "ranks": [y[tag] for y in ranks]}
+    mix = [y["mixers"] for y in ranks]
+    worst = max(e[k] for m in mix for e in m.values()
+                for k in ("forward", "decode"))
+    ok = worst <= TP_REC_FP32_TOL
+    log(f"[tp_rec] each mixer alone, fp32, full width, {Bxs} x {Px} on (1, "
+        f"{TP_RANKS}) against itself whole (forward; decode step after a "
+        f"prefill): " + "; ".join(
+            f"{k} {mix[0][k]['forward']:.3e} / {mix[0][k]['decode']:.3e}, "
+            f"rank 0's cache {mix[0][k]['cache']}" for k in mix[0])
+        + f"; worst over the ranks {worst:.3e} (tol {TP_REC_FP32_TOL:.0e})"
+        f" {'ok' if ok else 'FAIL'}; card {card}")
+    require(ok, "phase 37: a recurrent mixer split over model is off the "
+                "whole one")
+    out["mixers"] = mix
+    out["bf16_tree"] = _bf16_tree_check(xlstm, seed, dev, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp_rec] phase 37 took {out['phase_s']:.1f} s (the ranks "
+        f"{out['ranks_s']:.1f} s)")
+    return out
+
+
 def phase_dryrun_phases(dev, seed: int, card: str, prefill_ms=None,
                         train_ms=None) -> dict:
     """Phases 33 (models), 34 and 35 in order."""
@@ -5510,6 +6054,7 @@ def main(argv=None) -> int:
     log(f"[dryrun] phases 33–35 took "
         f"{summary['count']['phase_s'] + summary['dryrun']['phase_s']:.1f} s")
     summary["tp"] = phase_tp(dev, args.seed, card)
+    summary["tp_rec"] = phase_tp_rec(dev, args.seed, card)
 
     if args.sparse_dim != SPARSE_DIM:
         log(f"[data] cut: sparse m = n = {args.sparse_dim} of {SPARSE_DIM}")

@@ -135,8 +135,11 @@ def param_pspec(path, shape, mesh, *, fsdp_axes=("pod", "data"),
 
 #: leaves split over "model" where they are computed: (path regex, the
 #: tensor dim counted from the end, what must divide the mesh dim: "heads"
-#: (whole query heads), "kv" (whole query and KV heads) or None (the
-#: storage spec's split is enough))
+#: (whole query heads), "kv" (whole query and KV heads), "cell" (whole
+#: heads of an xLSTM cell: ``n_heads`` of an mLSTM or sLSTM block), "conv"
+#: (a recurrent block's conv: the RG-LRU's channels, the mLSTM's on whole
+#: heads; the sLSTM's stays whole) or None (the storage spec's split is
+#: enough))
 _TP_COMPUTE: list[tuple[str, int, str | None]] = [
     (r"(attn|xattn)/(wq|bq)$", -1, "heads"),        # column-parallel
     (r"(attn|xattn)/wo$",      -2, "heads"),        # row-parallel
@@ -149,7 +152,33 @@ _TP_COMPUTE: list[tuple[str, int, str | None]] = [
     (r"embed/tok$",            -2, None),           # vocabulary-parallel
     (r"unembed$",              -1, None),
     (r"moe/(wi_gate|wi_up|wo)$", -3, None),         # expert-parallel
+    # the recurrent mixers: RG-LRU channels, xLSTM heads
+    (r"(^|/)(wy|wgate)$",      -1, None),
+    (r"lru/(wa|wx|ba|bx|lam)$", -1, None),
+    (r"(^|/)wout$",            -2, None),
+    (r"conv/[wb]$",            -1, "conv"),
+    (r"cell/(w[qkv]|wz|wo)$",  -1, "cell"),
+    (r"(^|/)wdown$",           -2, "cell"),
 ]
+
+#: leaves stored whole over "model" (or split off the heads: the mLSTM's
+#: ``wup`` [x_m, z]) of which a head-split xLSTM cell takes the rank's
+#: heads' columns: gathered whole, their gradient a partial sum
+_TP_SLICED = r"((^|/)wup|cell/(w[if]|b[zifo]|r[zifo]|ogate_scale))$"
+
+_STACK = re.compile(r"(?:^|/)(enc|dec)/(?:groups/p(\d+)|tail/(\d+))/")
+
+
+def _block_kind(path: str, cfg) -> str | None:
+    """The block kind of a stack leaf's path (``dec/groups/p{i}/…`` in
+    the stacked layout, ``…/p{i}/{g}/…`` per layer, ``dec/tail/{t}/…``),
+    or None off the stacks."""
+    m = _STACK.search(path)
+    if m is None:
+        return None
+    pattern = cfg.layer_pattern if m.group(1) == "dec" \
+        else cfg.encoder_pattern
+    return pattern[int(m.group(2) or m.group(3)) % len(pattern)]
 
 
 def compute_spec(path, spec: tuple, cfg, mesh, *, seq_parallel=False,
@@ -160,35 +189,47 @@ def compute_spec(path, spec: tuple, cfg, mesh, *, seq_parallel=False,
 
     A leaf of ``_TP_COMPUTE`` keeps its storage split over ``tp_axis``
     (tensor parallelism: each rank computes its heads, FFN columns,
-    vocabulary rows or experts) where that split exists and, for attention,
-    falls on whole heads: ``n_heads`` divides the axis for the query and
-    output projections, ``n_kv`` too for the key and value ones.  Any other
-    leaf is gathered whole.  A whole leaf's gradient is a partial sum when
-    the ranks compute with it on different inputs: the key and value
-    projections of a head-parallel layer whose KV heads do not divide
-    (each rank takes the KV heads its query heads read), and, under
-    sequence parallelism, every whole leaf but the MoE router (the norms,
-    residual biases and gates see the rank's sequence slice; the layers
-    computed whole end on the rank's slice).  The router runs inside the
-    expert region, which sums its gradient over the group itself."""
+    vocabulary rows, experts or recurrent channels) where that split
+    exists and, for attention and the xLSTM cells, falls on whole heads:
+    ``n_heads`` divides the axis for the query and output projections and
+    the cells, ``n_kv`` too for the key and value ones; an RG-LRU splits
+    over its channels, an sLSTM's conv never.  Any other leaf is gathered
+    whole.  A whole leaf's gradient is a partial sum when the ranks
+    compute with it on different inputs: the key and value projections of
+    a head-parallel layer whose KV heads do not divide (each rank takes
+    the KV heads its query heads read), the leaves a head-split xLSTM cell
+    takes its heads' columns of (``_TP_SLICED``), and, under sequence
+    parallelism, every whole leaf but the MoE router (the norms, residual
+    biases and gates see the rank's sequence slice; the layers computed
+    whole end on the rank's slice).  The router runs inside the expert
+    region, which sums its gradient over the group itself."""
     mshape = mesh_shape(mesh)
     tp = mshape.get(tp_axis, 1)
     if tp == 1:
         return None, False
     ps = path_str(path)
     heads_tp = cfg.n_heads % tp == 0
+    kind = _block_kind(ps, cfg)
+    cells = kind in ("mlstm", "slstm") and heads_tp      # head-split cells
     for pat, dim, need in _TP_COMPUTE:
         if not re.search(pat, ps):
             continue
         d = len(spec) + dim
         stored = d >= 0 and spec[d] == tp_axis
-        ok = stored and (need is None or (heads_tp and (
-            need == "heads" or cfg.n_kv % tp == 0)))
-        if ok:
+        if need == "conv":
+            need_ok = kind == "rglru" or (kind == "mlstm" and cells)
+        elif need == "cell":
+            need_ok = cells
+        else:
+            need_ok = need is None or (heads_tp and (
+                need == "heads" or cfg.n_kv % tp == 0))
+        if stored and need_ok:
             return d, False
         if pat.startswith("moe/"):     # whole experts: moe_ep sums them
             return None, False
         return None, seq_parallel or (need == "kv" and heads_tp)
+    if cells and re.search(_TP_SLICED, ps):
+        return None, True
     return None, seq_parallel and not ps.endswith("moe/router")
 
 
@@ -285,6 +326,30 @@ def cache_shardings(caches, mesh, batch: int, *, fsdp_axes=("pod", "data"),
         return leaf_spec(path, tree)
 
     return [walk(c, str(layer)) for layer, c in enumerate(caches)]
+
+
+def recurrent_cache_dims(layer, tp: int) -> dict:
+    """{leaf: its dim over "model"} of one recurrent layer's decode cache
+    (a dict of tensors) where its mixer runs split over a "model" of
+    ``tp`` ranks (``compute_spec``): an RG-LRU's ``h`` and ``conv`` on its
+    channels, an mLSTM's ``C``, ``n``, ``m`` on its heads and its ``conv``
+    on their channels, an sLSTM's ``c``, ``n``, ``h``, ``m`` on its heads
+    (its conv whole); {} for any other layer or where the width or heads
+    do not divide.  The reference's ``cache_shardings`` keeps these states
+    replicated over "model" (GSPMD reshards them every step); the port's
+    decode caches hold the rank's part (``train.steps.local_caches``)."""
+    if tp == 1 or not isinstance(layer, dict):
+        return {}
+    if "C" in layer:                                       # mLSTM
+        width, dims = layer["C"].shape[1], {"C": 1, "n": 1, "m": 1,
+                                            "conv": 2}
+    elif "c" in layer:                                     # sLSTM
+        width, dims = layer["c"].shape[1], {"c": 1, "n": 1, "h": 1, "m": 1}
+    elif "h" in layer and "conv" in layer:                 # RG-LRU
+        width, dims = layer["h"].shape[1], {"h": 1, "conv": 2}
+    else:
+        return {}
+    return dims if width % tp == 0 else {}
 
 
 def tree_specs(tree, mesh, prefix=(), **kw):

@@ -20,11 +20,13 @@ live on ``cuda`` where PyTorch has a usable CUDA runtime, else on
 
 A cell runs ``make_train_step`` (train shapes), ``make_prefill_step``
 (prefill) or ``make_serve_step`` (decode, its caches split as
-``cache_shardings`` says: the batch over the data dims, the KV length over
-"model") on the production mesh (16×16 "data" × "model", or 2×16×16 with
-"pod"), through ``make_runtime(mesh)``: tensor-parallel over "model" as
-the reference's GSPMD program is (heads, FFN columns and vocabulary split
-where they divide, ``sharding.compute_spec``), without sequence
+``steps.local_caches`` says: the batch over the data dims, the KV length
+over "model", a split recurrent layer's state over its channels or heads)
+on the production mesh (16×16 "data" × "model", or 2×16×16 with "pod"),
+through ``make_runtime(mesh)``: tensor-parallel over "model" as the
+reference's GSPMD program is (heads, FFN columns, vocabulary, RG-LRU
+channels and xLSTM heads split where they divide,
+``sharding.compute_spec``), without sequence
 parallelism, as the reference's ``lower_cell`` runs.  A layer stack costs
 Python time per op here, not per byte, so a cell runs its architecture at
 g = 2 and 3 layer groups (``depth_variant``) and extrapolates to the

@@ -67,10 +67,14 @@ def init_rglru(seed, dim, dtype, *, device):
     }
 
 
-def _rglru_coeffs(p, x, c: float):
+def _rglru_coeffs(p, x, c: float, xg=None):
+    """(a, b) of the recurrence on ``x``'s channels; the gates read ``xg``
+    (default ``x``): under tensor parallelism ``x`` is the rank's channels
+    and ``xg`` all of them, ``p``'s gate columns and Λ the rank's."""
     x32 = x.float()
-    r = torch.sigmoid(x32 @ p["wa"].float() + p["ba"].float())
-    i = torch.sigmoid(x32 @ p["wx"].float() + p["bx"].float())
+    g32 = x32 if xg is None else xg.float()
+    r = torch.sigmoid(g32 @ p["wa"].float() + p["ba"].float())
+    i = torch.sigmoid(g32 @ p["wx"].float() + p["bx"].float())
     log_a = -c * F.softplus(p["lam"]) * r
     a = torch.exp(log_a)
     # β = √(1−a²) computed stably via expm1: 1−a² = −expm1(2·log_a)
@@ -93,9 +97,10 @@ def linear_scan(a, b):
     return a, b
 
 
-def rglru_scan(p, x, *, c: float = 8.0, h0=None):
-    """x (B,S,D) -> (y (B,S,D), h_last (B,D))."""
-    a, b = _rglru_coeffs(p, x, c)
+def rglru_scan(p, x, *, c: float = 8.0, h0=None, xg=None):
+    """x (B,S,D) -> (y (B,S,D), h_last (B,D)); ``xg`` what the gates read
+    (``_rglru_coeffs``)."""
+    a, b = _rglru_coeffs(p, x, c, xg)
     if h0 is not None:
         # Fold the carried state into the first step's offset.
         b = b.clone()
@@ -104,9 +109,10 @@ def rglru_scan(p, x, *, c: float = 8.0, h0=None):
     return h.to(x.dtype), h[:, -1, :]
 
 
-def rglru_step(p, x_t, h, *, c: float = 8.0):
+def rglru_step(p, x_t, h, *, c: float = 8.0, xg_t=None):
     """One decode step.  x_t (B,D), h (B,D) fp32 -> (y_t, h_new)."""
-    a, b = _rglru_coeffs(p, x_t[:, None, :], c)
+    a, b = _rglru_coeffs(p, x_t[:, None, :], c,
+                         None if xg_t is None else xg_t[:, None, :])
     h_new = a[:, 0] * h + b[:, 0]
     return h_new.to(x_t.dtype), h_new
 
@@ -132,8 +138,10 @@ def init_mlstm_cell(seed, d_inner, n_heads, dtype, *, device):
 
 
 def _mlstm_qkvg(p, x, n_heads):
-    B, S, Din = x.shape
-    hd = Din // n_heads
+    """q, k, v, ĩ, f̃ of ``n_heads`` heads (``p``'s columns: all heads, or
+    a rank's) from the cell input ``x`` (B,S,Din)."""
+    B, S, _ = x.shape
+    hd = p["wq"].shape[-1] // n_heads
     q = (x @ p["wq"].to(x.dtype)).reshape(B, S, n_heads, hd)
     k = (x @ p["wk"].to(x.dtype)).reshape(B, S, n_heads, hd)
     v = (x @ p["wv"].to(x.dtype)).reshape(B, S, n_heads, hd)
@@ -148,12 +156,15 @@ def _mlstm_qkvg(p, x, n_heads):
 
 
 def mlstm_chunked(p, x, n_heads: int, chunk: int = 256, state=None):
-    """Chunked-parallel mLSTM.  x (B,S,Din) -> (y (B,S,Din), state).
+    """Chunked-parallel mLSTM.  x (B,S,Din) -> (y (B,S,H·dh), state): the
+    ``n_heads`` heads of ``p``'s q/k/v columns (all of them, or a rank's
+    under tensor parallelism, which reads the whole ``x``).
 
     state = (C (B,H,dh,dh), n (B,H,dh), m (B,H)).
     """
-    B, S, Din = x.shape
+    B, S, _ = x.shape
     H = n_heads
+    Din = p["wq"].shape[-1]
     hd = Din // H
     q, k, v, ig, fg = _mlstm_qkvg(p, x, H)            # (B,H,S,dh) / (B,H,S)
     L = min(chunk, S)
@@ -219,8 +230,8 @@ def mlstm_chunked(p, x, n_heads: int, chunk: int = 256, state=None):
 
 
 def mlstm_step(p, x_t, n_heads: int, state):
-    """One decode step.  x_t (B,Din) -> (y_t, state)."""
-    B, Din = x_t.shape
+    """One decode step.  x_t (B,Din) -> (y_t (B,H·dh), state)."""
+    B = x_t.shape[0]
     q, k, v, ig, fg = _mlstm_qkvg(p, x_t[:, None, :], n_heads)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]       # (B,H,hd)
     ig, fg = ig[:, :, 0], fg[:, :, 0]                  # (B,H)
@@ -236,7 +247,7 @@ def mlstm_step(p, x_t, n_heads: int, state):
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", q, n)),
                         torch.exp(-m_new))
     h = num / den[..., None]
-    y = h.reshape(B, Din)
+    y = h.reshape(B, -1)
     return y.to(x_t.dtype), (C, n, m_new)
 
 
@@ -264,9 +275,13 @@ def init_slstm_cell(seed, d_inner, n_heads, dtype, *, device):
 
 
 def slstm_scan(p, x, n_heads: int, state=None):
-    """x (B,S,Din) -> (y, state); a loop over time (see module doc)."""
-    B, S, Din = x.shape
+    """x (B,S,Din) -> (y (B,S,H·dh), state); a loop over time (see module
+    doc).  ``n_heads`` heads of ``p``'s gate columns and recurrent blocks:
+    all, or a rank's under tensor parallelism (which reads the whole
+    ``x``)."""
+    B, S, _ = x.shape
     H = n_heads
+    Din = p["wz"].shape[-1]
     hd = Din // H
     x32 = x.float()
     zx = x32 @ p["wz"].float() + p["bz"]
@@ -279,7 +294,9 @@ def slstm_scan(p, x, n_heads: int, state=None):
     if state is None:
         zeros = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
         state = (zeros, zeros + 1e-6, zeros, zeros - 1e30)  # c, n, h, m
-    R = torch.stack([p["rz"], p["ri"], p["rf"], p["ro"]], 0)  # (4,H,hd,hd)
+    # (4,H,hd,hd) in fp32 whatever the parameters' dtype (the reference's
+    # einsum promotes a bf16 R against the fp32 state)
+    R = torch.stack([p["rz"], p["ri"], p["rf"], p["ro"]], 0).float()
 
     c, n, h, m = state
     hs = []

@@ -48,10 +48,12 @@ row-parallel output, all-reduced or, under ``seq_parallel``,
 reduce-scattered to the rank's slice of the sequence), FFNs on its columns,
 where the parameters arrive split (``sharding.compute_spec``: whole heads
 only; elsewhere a layer runs whole on every rank).  The recurrent mixers
-(RG-LRU, mLSTM, sLSTM cells) run whole.  A decode cache holds the rank's
-slice of the KV length (``KVShard``): decode attends over it and merges
-the partial softmax states over the group; only the rank holding a slot
-writes it.
+split too: an RG-LRU over its channels (the gates read all of them, an
+all-gather), an mLSTM or sLSTM cell over whole heads.  A decode cache
+holds the rank's slice of the KV length (``KVShard``): decode attends over
+it and merges the partial softmax states over the group; only the rank
+holding a slot writes it.  A recurrent cache holds the rank's channels or
+heads.
 """
 
 from __future__ import annotations
@@ -190,11 +192,24 @@ class Runtime:
         return tp_lib.own_slice(y, self.group, 1) if self.sp else y
 
     def ctx_in(self, ctx, split: bool):
-        """A cross-attention context (whole on every rank) into a layer's
-        work: ``region_in`` without the gather."""
+        """A tensor whole on every rank (a cross-attention context, the
+        sLSTM's conv output) into a layer's work: ``region_in`` without
+        the gather."""
         if self.tp == 1 or self.sp or not split:
             return ctx
         return tp_lib.enter(ctx, self.group)
+
+    def gather_channels(self, x, *, partial: bool = True):
+        """The rank's channels of ``x`` (its last dim) made whole over
+        "model": all-gather forward; backward, the reduce-scatter of a
+        gradient that is a partial sum over the group (``partial``:
+        split work reads the whole, or the sequence is split after), else
+        the rank's slice of a gradient that is the same on every rank."""
+        if self.tp == 1:
+            return x
+        if partial:
+            return tp_lib.gather_seq(x, self.group, x.ndim - 1)
+        return tp_lib.gather_shards(x, self.group, x.ndim - 1)
 
     def whole_seq(self, x):
         """The whole sequence of a residual stream (an encoder's output,
@@ -548,27 +563,39 @@ def init_rglru_block(seed, cfg, *, device):
     }
 
 
-def apply_rglru_block(p, x, cfg, *, mode, cache, rt=None):
-    """The recurrence runs whole on every rank of "model"; its FFN
-    tensor-parallel."""
+def rglru_mixer(p, x, cfg, *, mode, cache, rt=None):
+    """The RG-LRU block's recurrent mixer on the residual stream ``x``:
+    what it adds to it (the decode cache written in place).  Given the
+    rank's channels (``wy`` of fewer than d_model columns) it runs split
+    over "model": the projections, conv and scan on its channels, the
+    gates' products on all of them (gathered), the output row-parallel."""
     rt = rt or NULL_RT
-    h = rt.region_in(apply_norm(p["norm1"], x, cfg.norm_kind), False)
+    split = p["wy"].shape[-1] < cfg.d_model
+    h = rt.region_in(apply_norm(p["norm1"], x, cfg.norm_kind), split)
     y = h @ p["wy"].to(h.dtype)
     gate = gelu(h @ p["wgate"].to(h.dtype))
     if mode == "decode":
         yc, new_conv = rec_lib.conv1d_causal(p["conv"], y, cache["conv"])
-        y_t, new_h = rec_lib.rglru_step(p["lru"], yc[:, 0], cache["h"],
-                                        c=cfg.rglru_c)
+        y_t, new_h = rec_lib.rglru_step(
+            p["lru"], yc[:, 0], cache["h"], c=cfg.rglru_c,
+            xg_t=rt.gather_channels(yc[:, 0]) if split else None)
         y = y_t[:, None, :]
     else:
         yc, new_conv = rec_lib.conv1d_causal(p["conv"], y, None)
-        y, new_h = rec_lib.rglru_scan(p["lru"], yc, c=cfg.rglru_c)
-    x = x + rt.region_out((y * gate) @ p["wout"].to(x.dtype), False)
-    h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
-    z, aux = _apply_ffn(p["ffn"], h2, cfg, mode, rt)
+        y, new_h = rec_lib.rglru_scan(
+            p["lru"], yc, c=cfg.rglru_c,
+            xg=rt.gather_channels(yc) if split else None)
     if cache is not None:
         cache["h"].copy_(new_h)
         cache["conv"].copy_(new_conv)
+    return rt.region_out((y * gate) @ p["wout"].to(x.dtype), split)
+
+
+def apply_rglru_block(p, x, cfg, *, mode, cache, rt=None):
+    """``rglru_mixer``, then the FFN tensor-parallel."""
+    x = x + rglru_mixer(p, x, cfg, mode=mode, cache=cache, rt=rt)
+    h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
+    z, aux = _apply_ffn(p["ffn"], h2, cfg, mode, rt)
     return x + z, aux
 
 
@@ -591,30 +618,61 @@ def init_mlstm_block(seed, cfg, *, device):
     }
 
 
-def apply_mlstm_block(p, x, cfg, *, mode, cache, rt=None):
-    """Runs whole on every rank of "model"."""
+def _head_cols(t, rank: int, n: int, dim: int = -1):
+    """Rank ``rank``'s 1/n of ``t``'s dim ``dim`` (its heads' columns of
+    a whole leaf laid out head by head; a view)."""
+    size = t.shape[dim] // n
+    return t.narrow(dim, rank * size, size)
+
+
+def mlstm_mixer(p, x, cfg, *, mode, cache, rt=None):
+    """The mLSTM block (its projections and cell: the whole block, which
+    has no FFN) on the residual stream ``x``: what it adds to it (the
+    decode cache written in place).  Given the rank's heads (``cell/wq`` of
+    fewer than d_in columns) it runs split over "model": ``wup``, gathered
+    whole, gives the rank's heads' x_m and z columns; the conv runs on
+    their channels, q, k, v and the gates on the whole conv output
+    (gathered) and the cell on the rank's H/tp heads; ``wdown``
+    row-parallel."""
     rt = rt or NULL_RT
-    h = rt.region_in(apply_norm(p["norm"], x, cfg.norm_kind), False)
-    up = h @ p["wup"].to(h.dtype)
+    d_in = 2 * cfg.d_model
+    cell = p["cell"]
+    split = cell["wq"].shape[-1] < d_in
+    h = rt.region_in(apply_norm(p["norm"], x, cfg.norm_kind), split)
+    H = cfg.n_heads
+    wup = p["wup"]
+    if split:
+        n = rt.tp
+        H = cfg.n_heads // n
+        wup = torch.cat([_head_cols(w, rt.tp_rank, n)
+                         for w in torch.chunk(wup, 2, dim=-1)], dim=-1)
+        cell = {"wq": cell["wq"], "wk": cell["wk"], "wv": cell["wv"],
+                **{k: _head_cols(cell[k], rt.tp_rank, n)
+                   for k in ("wi", "wf", "bi", "bf")}}
+    up = h @ wup.to(h.dtype)
     xm, z = torch.chunk(up, 2, dim=-1)
-    if mode == "decode":
-        c, new_conv = rec_lib.conv1d_causal(p["conv"], xm, cache["conv"])
-        c = silu(c)
+    decode = mode == "decode"
+    c, new_conv = rec_lib.conv1d_causal(p["conv"], xm,
+                                        cache["conv"] if decode else None)
+    c = silu(c)
+    if split:
+        c = rt.gather_channels(c)
+    if decode:
         y, new_state = rec_lib.mlstm_step(
-            p["cell"], c[:, 0], cfg.n_heads,
-            (cache["C"], cache["n"], cache["m"]))
+            cell, c[:, 0], H, (cache["C"], cache["n"], cache["m"]))
         y = y[:, None, :]
     else:
-        c, new_conv = rec_lib.conv1d_causal(p["conv"], xm, None)
-        c = silu(c)
-        y, new_state = rec_lib.mlstm_chunked(p["cell"], c, cfg.n_heads,
+        y, new_state = rec_lib.mlstm_chunked(cell, c, H,
                                              chunk=cfg.mlstm_chunk)
-    out = (y * silu(z)) @ p["wdown"].to(x.dtype)
     if cache is not None:
         for name, t in zip(("C", "n", "m"), new_state):
             cache[name].copy_(t)
         cache["conv"].copy_(new_conv)
-    return x + rt.region_out(out, False), 0.0
+    return rt.region_out((y * silu(z)) @ p["wdown"].to(x.dtype), split)
+
+
+def apply_mlstm_block(p, x, cfg, *, mode, cache, rt=None):
+    return x + mlstm_mixer(p, x, cfg, mode=mode, cache=cache, rt=rt), 0.0
 
 
 def init_slstm_block(seed, cfg, *, device):
@@ -636,32 +694,53 @@ def init_slstm_block(seed, cfg, *, device):
     }
 
 
-def apply_slstm_block(p, x, cfg, *, mode, cache, rt=None):
-    """The cell runs whole on every rank of "model"; its GeGLU FFN
-    tensor-parallel."""
+def slstm_mixer(p, x, cfg, *, mode, cache, rt=None):
+    """The sLSTM block's conv and cell on the residual stream ``x``: what
+    they add to it (the decode cache written in place).  Given the rank's
+    heads (``cell/wz`` of fewer than d_model columns) the cell runs on
+    them, on the whole conv output (the conv runs whole), and its heads'
+    outputs are gathered (the cell has no projection back)."""
     rt = rt or NULL_RT
+    cell = p["cell"]
+    split = cell["wz"].shape[-1] < cfg.d_model
     h = rt.region_in(apply_norm(p["norm"], x, cfg.norm_kind), False)
     decode = mode == "decode"
     c, new_conv = rec_lib.conv1d_causal(
         p["conv"], h, cache["conv"] if decode else None)
-    c = silu(c)
+    c = rt.ctx_in(silu(c), split)
+    H = cfg.n_heads
+    if split:
+        n = rt.tp
+        H = cfg.n_heads // n
+        cell = {"wz": cell["wz"], "wo": cell["wo"],
+                **{k: _head_cols(cell[k], rt.tp_rank, n, 0 if k[0] == "r"
+                                 else -1)
+                   for k in ("wi", "wf", "bz", "bi", "bf", "bo",
+                             "rz", "ri", "rf", "ro")}}
     if decode:
         state = (cache["c"], cache["n"], cache["h"], cache["m"])
-        y, new_state = rec_lib.slstm_step(p["cell"], c[:, 0], cfg.n_heads,
-                                          state)
+        y, new_state = rec_lib.slstm_step(cell, c[:, 0], H, state)
         y = y[:, None, :]
     else:
-        y, new_state = rec_lib.slstm_scan(p["cell"], c, cfg.n_heads, None)
-    x = x + rt.region_out(y, False)
-    h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
-    x = x + ffn({"wi_gate": p["ffn_gate"], "wi_up": p["ffn_up"],
-                 "wo": p["ffn_down"]}, h2, d_ff=(4 * cfg.d_model) // 3,
-                gated=True, act=gelu, rt=rt)
+        y, new_state = rec_lib.slstm_scan(cell, c, H, None)
     if cache is not None:
         for name, t in zip(("c", "n", "h", "m"), new_state):
             cache[name].copy_(t)
         cache["conv"].copy_(new_conv)
-    return x, 0.0
+    if split:
+        # the gradient of the whole output is the same on every rank, or,
+        # where the sequence is split after, a partial sum
+        y = rt.gather_channels(y, partial=rt.sp)
+    return rt.region_out(y, False)
+
+
+def apply_slstm_block(p, x, cfg, *, mode, cache, rt=None):
+    """``slstm_mixer``, then the GeGLU FFN tensor-parallel."""
+    x = x + slstm_mixer(p, x, cfg, mode=mode, cache=cache, rt=rt)
+    h2 = apply_norm(p["norm2"], x, cfg.norm_kind)
+    return x + ffn({"wi_gate": p["ffn_gate"], "wi_up": p["ffn_up"],
+                    "wo": p["ffn_down"]}, h2, d_ff=(4 * cfg.d_model) // 3,
+                   gated=True, act=gelu, rt=rt), 0.0
 
 
 # ------------------------------------------------------------ the modules --
@@ -748,7 +827,9 @@ def init_block_cache(cfg, kind: str, batch: int, kv_len: int,
                      enc_len: int = 0, *, device, rt=None):
     """One layer's decode cache.  On a runtime over "model" an attention
     cache whose KV length divides the group holds the rank's slice of it
-    (a ``KVShard``), as ``sharding.cache_shardings`` splits it."""
+    (a ``KVShard``), and a recurrent state the rank's channels or heads
+    where its mixer runs split, as ``sharding.cache_shardings`` and
+    ``sharding.recurrent_cache_dims`` split them."""
     KH, hd = cfg.n_kv, cfg.head_dim
     cdt = cfg.dtype_torch
     f32 = torch.float32
@@ -773,21 +854,25 @@ def init_block_cache(cfg, kind: str, batch: int, kv_len: int,
         return c
     if kind == "xattn":
         return {"cross": kv(("ek", "ev"), enc_len)}
+    # a recurrent state: the rank's 1/tp of its channels or heads where
+    # they divide
+    cells = tp if tp > 1 and cfg.n_heads % tp == 0 else 1
     if kind == "rglru":
         lru = cfg.d_model
+        lru //= tp if tp > 1 and lru % tp == 0 else 1
         return {"h": z(batch, lru, dtype=f32),
                 "conv": z(batch, cfg.conv_width - 1, lru)}
     if kind == "mlstm":
         d_in = 2 * cfg.d_model
-        H = cfg.n_heads
-        dh = d_in // H
+        dh = d_in // cfg.n_heads
+        H = cfg.n_heads // cells
         return {"C": z(batch, H, dh, dh, dtype=f32),
                 "n": z(batch, H, dh, dtype=f32),
                 "m": z(batch, H, dtype=f32) - 1e30,
-                "conv": z(batch, cfg.conv_width - 1, d_in)}
+                "conv": z(batch, cfg.conv_width - 1, d_in // cells)}
     if kind == "slstm":
-        H = cfg.n_heads
-        dh = cfg.d_model // H
+        dh = cfg.d_model // cfg.n_heads
+        H = cfg.n_heads // cells
         return {"c": z(batch, H, dh, dtype=f32),
                 "n": z(batch, H, dh, dtype=f32) + 1e-6,
                 "h": z(batch, H, dh, dtype=f32),

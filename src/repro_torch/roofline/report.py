@@ -13,7 +13,7 @@ peak (the rank's inputs plus the most the step holds alive at once)
 against the H100's 80 GB.  The LM cells run tensor-parallel over "model"
 (16 ranks on both production meshes): the "note" column names what a
 rank computes whole there instead (``tp_note``: heads or KV heads that do
-not divide, a vocabulary that does not, the recurrent mixers).  The NMF
+not divide, a vocabulary that does not, xLSTM cells whose heads do not).  The NMF
 table puts the cost model's words
 (``core/costmodel.py``) beside the counted wire bytes.  The measured
 per-phase protocol is ``NMFSolver.fit(profile=True)`` joined against
@@ -100,8 +100,9 @@ MODEL_RANKS = 16
 
 def tp_note(cfg, tp: int = MODEL_RANKS) -> str:
     """What each rank of "model" computes whole rather than split
-    (``distributed.sharding.compute_spec``): every other attention, FFN
-    and vocabulary product runs on the rank's 1/tp."""
+    (``distributed.sharding.compute_spec``): every other attention, FFN,
+    vocabulary and recurrent product runs on the rank's 1/tp (an RG-LRU
+    over its channels, an xLSTM cell over whole heads)."""
     whole = []
     kinds = set(cfg.layer_pattern) | (set(cfg.encoder_pattern)
                                       if cfg.is_encdec else set())
@@ -112,8 +113,10 @@ def tp_note(cfg, tp: int = MODEL_RANKS) -> str:
             whole.append(f"KV projections ({cfg.n_kv} KV heads)")
     if cfg.vocab % tp:
         whole.append(f"vocabulary ({cfg.vocab})")
-    if kinds & {"rglru", "mlstm", "slstm"}:
-        whole.append("recurrent mixers")
+    cells = sorted(kinds & {"mlstm", "slstm"})
+    if cells and cfg.n_heads % tp:
+        whole.append("/".join(k[0] + k[1:].upper() for k in cells)
+                     + f" cells ({cfg.n_heads} heads)")
     if "slstm" in kinds and ((4 * cfg.d_model) // 3) % tp:
         whole.append("sLSTM FFN")
     return "whole: " + ", ".join(whole) if whole else ""

@@ -656,19 +656,25 @@ def local_caches(caches, mesh, batch: int) -> list:
     """This rank's part of whole decode caches (the same on every rank),
     split as ``cache_shardings`` says: the batch over the data dims and
     the KV length of the attention caches over "model", each such cache a
-    ``KVShard`` that knows its first position."""
+    ``KVShard`` that knows its first position; and a recurrent state's
+    channels or heads over "model" where its mixer runs split
+    (``sharding.recurrent_cache_dims``)."""
     specs = shard_rules.cache_shardings(caches, mesh, batch)
     names = list(mesh.mesh_dim_names)
+    tp = mesh.size(names.index("model")) if "model" in names else 1
 
     def walk(tree, spec):
         if isinstance(tree, dict):
+            rec = shard_rules.recurrent_cache_dims(tree, tp)
+            spec = {k: tuple("model" if i == rec.get(k) else a
+                             for i, a in enumerate(sp))
+                    for k, sp in spec.items()} if rec else spec
             out = {k: walk(v, spec[k]) for k, v in tree.items()}
             first = next(iter(tree.values()))
             sp = spec[next(iter(tree))]
-            if torch.is_tensor(first) and first.ndim >= 3 \
+            if next(iter(tree)) in ("k", "ek") \
                     and sp[first.ndim - 3] == "model":
-                n = first.shape[first.ndim - 3] // mesh.size(
-                    names.index("model"))
+                n = first.shape[first.ndim - 3] // tp
                 return KVShard(out, start=mesh.get_local_rank("model") * n,
                                total=first.shape[first.ndim - 3])
             return out

@@ -105,8 +105,9 @@ def _leading_dim(tree) -> int:
 def lm_params_from_numpy(cfg, tree, *, device=None):
     """A port ``models.lm.LM`` holding the JAX package's parameters:
     ``tree`` is the reference's nested dict (``jax.tree.map(np.asarray,
-    params)``), stacked ``{enc,dec}/groups/p{i}`` leaves and ``tail`` list
-    included; group g of ``p{i}`` becomes layer g·period + i."""
+    params)``; a leaf may also be a tensor, e.g. a bf16 one where numpy
+    has no bf16), stacked ``{enc,dec}/groups/p{i}`` leaves and ``tail``
+    list included; group g of ``p{i}`` becomes layer g·period + i."""
     from repro_torch.models.lm import LM
     from repro_torch.util.device import resolve_device
     dev = resolve_device(device)
@@ -123,7 +124,8 @@ def lm_params_from_numpy(cfg, tree, *, device=None):
         if groups is not None:
             n = _leading_dim(groups)
             groups = {pk: [_map_tree(g_tree, lambda a, g=g: conv(
-                np.asarray(a)[g])) for g in range(n)]
+                a[g] if isinstance(a, torch.Tensor) else np.asarray(a)[g]))
+                for g in range(n)]
                 for pk, g_tree in groups.items()}
         port[key] = {"groups": groups,
                      "tail": [_map_tree(t, conv) for t in sub["tail"]]}

@@ -169,3 +169,87 @@ def test_smollm_reduced_in_bf16():
     t_bf16 = t_bf16.numpy()
     assert scaled(t_bf16, j_bf16) < BF16_TOL
     assert scaled(t_bf16, j_fp32) <= 1.5 * scaled(j_bf16, j_fp32)
+
+
+def _bf16_case(arch, pattern=None, n_layers=None, S=35):
+    """(JAX fp32 logits, JAX bf16 logits, the port's model on the JAX fp32
+    tree cast wholesale to bf16, the tokens) of reduced ``arch`` (its
+    pattern and depth replaced where given)."""
+    kw = {}
+    if pattern is not None:
+        kw = {"layer_pattern": pattern, "n_layers": n_layers}
+    j32 = jcb.get_reduced_config(arch).replace(**kw)
+    c16 = cb.get_reduced_config(arch).replace(
+        param_dtype="bfloat16", dtype="bfloat16", **kw)
+    j16 = j32.replace(param_dtype="bfloat16", dtype="bfloat16")
+    p32 = jlm.init_params(j32, KEY)
+    p16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), p32)
+    toks = np.random.default_rng(0).integers(0, j32.vocab, (2, S)) \
+        .astype(np.int32)
+    batch = {"tokens": jnp.asarray(toks)}
+    j_fp32 = np.asarray(jax.jit(lambda p, b: jlm.forward(p, j32, b)[0])(
+        p32, batch))
+    j_bf16 = np.asarray(jax.jit(lambda p, b: jlm.forward(p, j16, b)[0])(
+        p16, batch))
+    model = lm_params_from_numpy(c16, jax.tree.map(np.asarray, p16),
+                                 device="cpu")
+    return j_fp32, j_bf16, model, torch.as_tensor(toks)
+
+
+def _serve_bf16(model, toks, prompt: int) -> list:
+    """Prefill ``prompt`` tokens and decode the rest: each step's logits."""
+    with torch.no_grad():
+        logits, caches = model.prefill({"tokens": toks[:, :prompt]},
+                                       kv_len=toks.shape[1])
+        out = [logits[:, -1]]
+        for t in range(prompt, toks.shape[1]):
+            dl, caches = model.decode_step(caches, toks[:, t:t + 1], t)
+            out.append(dl[:, 0])
+    return out
+
+
+def test_xlstm_reduced_in_bf16():
+    """Reduced xlstm-125m from the JAX fp32 tree cast wholesale to bf16
+    (the sLSTM's recurrent blocks R in bf16 against its fp32 state): the
+    port's forward runs and sits no further from the JAX fp32 forward than
+    1.5× the JAX package's own bf16 distance from it (xLSTM's bf16
+    rounding diverges in both packages: 0.1 scaled, not smollm's 2e-2);
+    its prefill and decode run and give finite logits."""
+    j_fp32, j_bf16, model, toks = _bf16_case("xlstm_125m")
+    assert model.dec.groups["p3"][0].cell.rz.dtype == torch.bfloat16
+    with torch.no_grad():
+        t_bf16 = model({"tokens": toks})[0]
+    assert t_bf16.dtype == torch.float32
+    t_bf16 = t_bf16.numpy()
+    assert np.isfinite(t_bf16).all()
+    assert scaled(t_bf16, j_fp32) <= 1.5 * scaled(j_bf16, j_fp32)
+    for lg in _serve_bf16(model, toks, 32):
+        assert lg.shape == (2, model.cfg.vocab)
+        assert bool(torch.isfinite(lg).all())
+
+
+#: (arch whose reduced config gives the widths, the block kind)
+RECURRENT_KINDS = [("recurrentgemma_9b", "rglru"), ("xlstm_125m", "mlstm"),
+                   ("xlstm_125m", "slstm")]
+
+
+@pytest.mark.parametrize("arch,kind", RECURRENT_KINDS,
+                         ids=[k for _, k in RECURRENT_KINDS])
+def test_recurrent_block_runs_a_bf16_tree(arch, kind):
+    """Two layers of one recurrent block kind from a wholesale-bf16 JAX
+    tree (every leaf bf16, the fp32 gates, Λ and recurrent blocks too):
+    forward, prefill and decode run with no mixed-dtype product, the
+    forward within 1.5× the JAX bf16 forward's distance from the JAX fp32
+    one (or 1e-2 scaled, where the JAX bf16 forward is closer: both
+    round to bf16's 3 digits), every logit finite."""
+    j_fp32, j_bf16, model, toks = _bf16_case(arch, (kind,), 2)
+    with torch.no_grad():
+        t_bf16 = model({"tokens": toks})[0].numpy()
+    assert np.isfinite(t_bf16).all()
+    assert scaled(t_bf16, j_fp32) <= max(1.5 * scaled(j_bf16, j_fp32), 1e-2)
+    steps = _serve_bf16(model, toks, 32)
+    assert all(bool(torch.isfinite(lg).all()) for lg in steps)
+    # the decode steps against the port's own bf16 forward at their
+    # positions
+    for t, lg in zip(range(32, toks.shape[1]), steps[1:]):
+        assert scaled(lg.numpy(), t_bf16[:, t]) <= 5e-2

@@ -28,18 +28,24 @@ load-balance weight 0, as there):
   and 70 (S mod W ≠ 0; 70 does not divide 4, so ``seq_parallel`` drops
   the split there, as the reference's constraint does);
 * the vocabulary-parallel cross entropy and its gradient against the
-  whole-vocabulary one, within 1e-6.
+  whole-vocabulary one, within 1e-6;
+* the recurrent mixers (reduced recurrentgemma-9b: 64 RG-LRU channels,
+  split on both meshes; reduced xlstm-125m: 2 heads, its cells split on
+  (2, 2), whole on (1, 4)): each rank's leaf widths and decode caches,
+  and each mixer's forward collectives (``util.wire.record_wire``).
 
-The JAX side runs reduced qwen2's train step on 4 forced host devices in
-a fresh interpreter (this file runs itself as a script), from the state
-it writes with ``repro.checkpoint.save``, and ``jax.grad`` of that state
-on the batch; the ranks restore both, run the port's 2 × 2
-``seq_parallel`` step on the same batch and hold its loss and parameters
-at the same tolerances, its gradient norm within a relative 1e-4 and its
+The JAX side runs reduced qwen2's, recurrentgemma's and xlstm's train
+steps on 4 forced host devices in a fresh interpreter (this file runs
+itself as a script), from the state it writes with
+``repro.checkpoint.save``, and ``jax.grad`` of that state on the batch;
+the ranks restore both, run the port's 2 × 2 ``seq_parallel`` step on
+the same batch and hold its loss at the same tolerance (qwen2's
+parameters too), its gradient norm within a relative 1e-4 and its
 gradient shards within a scaled 1e-4.
 """
 
 import dataclasses
+import math
 import os
 import subprocess
 import sys
@@ -71,7 +77,13 @@ B, S = 4, 32
 KV_LEN = 80
 RING_PROMPTS = (40, 70)
 OPT = dict(kind="adamw", lr=1e-3, warmup_steps=1, total_steps=10)
-JAX_ARCH = "qwen2_72b"
+#: the archs whose 2 × 2 seq_parallel step is held against the JAX
+#: package's
+JAX_ARCHS = ("qwen2_72b", "recurrentgemma_9b", "xlstm_125m")
+#: the archs with recurrent mixers (reduced recurrentgemma-9b: d = 64,
+#: split on both meshes; reduced xlstm-125m: 2 heads, split on (2, 2),
+#: whole on (1, 4))
+REC_ARCHS = ("recurrentgemma_9b", "xlstm_125m")
 
 
 def _cfg(arch):
@@ -173,9 +185,12 @@ class _Seen:
         from repro_torch.train import steps
         self.mods = (attention, transformer, steps)
         self.act, self.wq, self.ffn, self.grads = [], set(), set(), []
+        self.rec = set()
         self._qkv, self._shard, self._ffn, self._grads = (
             attention.qkv, transformer.Runtime.shard, transformer.ffn,
             steps.sharded_grads)
+        self._mixers = {k: getattr(transformer, f"{k}_mixer")
+                        for k in RECURRENT}
 
         def qkv(p, *a, **k):
             self.wq.add(p["wq"].shape[-1])
@@ -195,22 +210,61 @@ class _Seen:
             out = self._grads(*a, **k)
             self.grads.append(out[2])
             return out
+        def mixer(kind):
+            def run(p, *a, **k):
+                self.rec.add((kind,) + _rec_widths(kind, p))
+                return self._mixers[kind](p, *a, **k)
+            return run
         attention.qkv, transformer.Runtime.shard, transformer.ffn = \
             qkv, shard, ffn
         steps.sharded_grads = sharded_grads
+        for kind in RECURRENT:
+            setattr(transformer, f"{kind}_mixer", mixer(kind))
 
     def close(self):
         attention, transformer, steps = self.mods
         attention.qkv, transformer.Runtime.shard, transformer.ffn = \
             self._qkv, self._shard, self._ffn
         steps.sharded_grads = self._grads
+        for kind, fn in self._mixers.items():
+            setattr(transformer, f"{kind}_mixer", fn)
+
+
+#: the recurrent mixers (``transformer.{kind}_mixer``)
+RECURRENT = ("rglru", "mlstm", "slstm")
+
+
+def _rec_widths(kind, p) -> tuple:
+    """The widths of a recurrent mixer's leaves as a rank computes with
+    them: RG-LRU (wy, wgate, lru/wa's columns, lru/lam, conv/w, wout's
+    rows), mLSTM (cell/wq, cell/wk, cell/wv, conv/w, wdown's rows), sLSTM
+    (cell/wz, cell/wo, conv/w)."""
+    if kind == "rglru":
+        return (p["wy"].shape[-1], p["wgate"].shape[-1],
+                p["lru"]["wa"].shape[-1], p["lru"]["lam"].shape[-1],
+                p["conv"]["w"].shape[-1], p["wout"].shape[0])
+    if kind == "mlstm":
+        c = p["cell"]
+        return (c["wq"].shape[-1], c["wk"].shape[-1], c["wv"].shape[-1],
+                p["conv"]["w"].shape[-1], p["wdown"].shape[0])
+    c = p["cell"]
+    return (c["wz"].shape[-1], c["wo"].shape[-1], p["conv"]["w"].shape[-1])
+
+
+def _rec_cache_shapes(caches) -> set:
+    """(leaf, shape) of each recurrent layer's decode cache."""
+    out = set()
+    for layer in caches:
+        if any(k in layer for k in ("C", "c", "h")):
+            out |= {(k, tuple(t.shape)) for k, t in layer.items()}
+    return out
 
 
 def _serve(cfg, params, batch, rt, prompt, n_steps=3):
     """Prefill ``batch`` then decode ``n_steps`` tokens: (the prefill's
     logits (this rank's rows, whole over "model"), the last position's
     logits of each step over the whole vocabulary, the caches' local KV
-    lengths)."""
+    lengths, the recurrent caches' (leaf, shape))."""
     from repro_torch.models.transformer import KVShard
     from repro_torch.train import steps
     pb = {k: v for k, v in batch.items() if k != "labels"}
@@ -228,7 +282,7 @@ def _serve(cfg, params, batch, rt, prompt, n_steps=3):
     lens = sorted({(c.total, c["k" if "k" in c else "ek"].shape[1])
                    for layer in caches for c in layer.values()
                    if isinstance(c, KVShard)})
-    return logits, torch.stack(outs), lens
+    return logits, torch.stack(outs), lens, _rec_cache_shapes(caches)
 
 
 def _arch_cases(arch, mesh, refs):
@@ -246,7 +300,7 @@ def _arch_cases(arch, mesh, refs):
                 steps.shard_state(state, mesh), batch)
             act = list(seen.act)
             grads = seen.grads[-1]
-            logits, got, lens = _serve(
+            logits, got, lens, rec_caches = _serve(
                 cfg, steps.shard_params(state["params"], mesh), batch, rt, S)
         finally:
             seen.close()
@@ -264,7 +318,8 @@ def _arch_cases(arch, mesh, refs):
             "serve": _scaled(got, ref["serve"][:, _rows(
                 torch.arange(B), mesh)]),
             "cache_lens": lens, "wq": sorted(seen.wq),
-            "ffn": sorted(seen.ffn)}
+            "ffn": sorted(seen.ffn), "rec": sorted(seen.rec),
+            "rec_caches": sorted(rec_caches)}
     return out
 
 
@@ -290,7 +345,7 @@ def _references(arch):
     model = LM(cfg, params=unstack_params(state["params"]))
     with torch.no_grad():
         logits, _, _ = model(batch)
-    _, serve, _ = _serve(cfg, state["params"], batch, steps.NULL_RT, S)
+    _, serve, _, _ = _serve(cfg, state["params"], batch, steps.NULL_RT, S)
     return state, batch, {"loss": float(mref["loss"]),
                           "params": sref["params"], "logits": logits,
                           "grads": grads,
@@ -309,9 +364,9 @@ def _ring_cases(mesh):
     for prompt in RING_PROMPTS:
         batch = {k: torch.as_tensor(v)
                  for k, v in _batch(cfg, S=prompt).items()}
-        _, ref, _ = _serve(cfg, whole, batch, steps.NULL_RT, prompt)
+        _, ref, _, _ = _serve(cfg, whole, batch, steps.NULL_RT, prompt)
         for sp in (False, True):
-            _, got, _ = _serve(cfg, steps.shard_params(whole, mesh), batch,
+            _, got, _, _ = _serve(cfg, steps.shard_params(whole, mesh), batch,
                                steps.make_runtime(mesh, seq_parallel=sp),
                                prompt)
             out[(prompt, sp)] = _scaled(got, ref[:, _rows(torch.arange(B),
@@ -348,13 +403,52 @@ def _xent_case(mesh):
                           .abs().max())}
 
 
-def _jax_case(mesh, jax_dir):
-    """The port's 2 × 2 ``seq_parallel`` step from the JAX package's
-    state, against the JAX step's result (the JAX process, started with
-    the ranks, writes its metrics last: wait for them)."""
+def _wire_cases(mesh) -> dict:
+    """Each recurrent mixer's forward collectives over "model" on this
+    rank, (op, the elements of the tensor the rank sends) in issue order:
+    {(arch, kind, seq_parallel): [...]}, from the first layer of each kind
+    of reduced recurrentgemma-9b and xlstm-125m (parameters gathered
+    before the count)."""
+    from repro_torch.models import transformer
+    from repro_torch.train import steps
+    from repro_torch.util.convert import stack_params
+    from repro_torch.util.wire import record_wire
+    from repro_torch.models.lm import LM
+    out = {}
+    for arch in REC_ARCHS:
+        cfg = _cfg(arch)
+        whole = stack_params(LM(cfg, device="cpu", seed=0).tree())
+        batch = {k: torch.as_tensor(v) for k, v in _batch(cfg).items()}
+        for sp in (False, True):
+            rt = steps.make_runtime(mesh, seq_parallel=sp)
+            local = steps._local_rows(batch, mesh)
+            model, run = steps._serving(cfg, steps.shard_params(whole, mesh),
+                                        rt, local)
+            first, n = run.seq_span(S)
+            x = 0.1 * torch.randn((B // mesh.size(0), n, cfg.d_model),
+                                  generator=torch.Generator().manual_seed(5))
+            for kind in dict.fromkeys(cfg.layer_pattern):
+                if kind not in RECURRENT:
+                    continue
+                blk = next(b for b in model.dec.layers() if b.kind == kind)
+                p = blk.params(run)
+                mixer = getattr(transformer, f"{kind}_mixer")
+                with torch.no_grad(), record_wire() as log:
+                    mixer(p, x, cfg, mode="train", cache=None, rt=run)
+                out[(arch, kind, sp)] = [(c.op, math.prod(c.shape))
+                                         for c in log]
+    return out
+
+
+def _jax_case(mesh, jax_dir, arch):
+    """The port's 2 × 2 ``seq_parallel`` step of ``arch`` from the JAX
+    package's state, against the JAX step's result (the JAX process,
+    started with the ranks, writes each arch's metrics last: wait for
+    them)."""
     import json
     import time
-    done = os.path.join(jax_dir, "metrics.json")
+    out_dir = os.path.join(jax_dir, arch)
+    done = os.path.join(out_dir, "metrics.json")
     for _ in range(600):
         if os.path.exists(done):
             break
@@ -362,16 +456,16 @@ def _jax_case(mesh, jax_dir):
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.optim.optimizers import OptConfig
     from repro_torch.train import steps
-    cfg = _cfg(JAX_ARCH)
+    cfg = _cfg(arch)
     opt = OptConfig(**OPT)
-    template = steps.init_train_state(cfg, opt, 0, device="cpu")
-    state, _ = ckpt.restore(jax_dir, template, step=0)
-    after, _ = ckpt.restore(jax_dir, template, step=1)
-    grads, _ = ckpt.restore(jax_dir, template, step=2)
     with open(done) as f:
         want = json.load(f)
     if "error" in want:
         return {"error": "the JAX side failed"}
+    template = steps.init_train_state(cfg, opt, 0, device="cpu")
+    state, _ = ckpt.restore(out_dir, template, step=0)
+    after, _ = ckpt.restore(out_dir, template, step=1)
+    grads, _ = ckpt.restore(out_dir, template, step=2)
     batch = {k: torch.as_tensor(v) for k, v in _batch(cfg, seed=7).items()}
     step = steps.make_train_step(cfg, opt, rt=steps.make_runtime(
         mesh, seq_parallel=True))
@@ -386,7 +480,8 @@ def _jax_case(mesh, jax_dir):
             "params": max(_shard_diffs(sd["params"], after["params"], mesh)),
             "grads": max(_shard_diffs(seen.grads[-1], grads["params"],
                                       mesh)) / top,
-            "grad_norm": abs(float(md["grad_norm"]) / want["grad_norm"] - 1)}
+            "grad_norm": abs(float(md["grad_norm"]) / want["grad_norm"] - 1),
+            "rec": sorted(seen.rec)}
 
 
 def _rank_body(out_dir, jax_dir):
@@ -403,8 +498,11 @@ def _rank_body(out_dir, jax_dir):
         for key, err in _ring_cases(mesh).items():
             res[(shape, "ring") + key] = err
         res[(shape, "xent")] = _xent_case(mesh)
+        for key, ops in _wire_cases(mesh).items():
+            res[(shape, "wire") + key] = ops
         if shape == (2, 2):
-            res["jax"] = _jax_case(mesh, jax_dir)
+            for arch in JAX_ARCHS:
+                res[("jax", arch)] = _jax_case(mesh, jax_dir, arch)
     torch.save(res, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
 
 
@@ -420,27 +518,29 @@ def _jax_main(out_dir):
     from repro.optim import optimizers as jopt
     from repro.train import steps as jsteps
     from repro.util.compat import make_mesh
-    cfg = jcb.get_reduced_config(JAX_ARCH)
-    opt = jopt.OptConfig(**OPT)
     mesh = make_mesh((2, 2), ("data", "model"))
-    step, ssh = jsteps.jitted_train_step(cfg, opt, mesh, seq_parallel=True,
-                                         donate=False)
-    state = jsteps.init_train_state(cfg, opt, jax.random.PRNGKey(3))
-    jckpt.save(jax.tree.map(np.asarray, state), 0, out_dir)
-    batch = {k: jnp.asarray(v) for k, v in _batch(cfg, seed=7).items()}
-    new, metrics = step(jax.device_put(state, ssh), batch)
-    jckpt.save(jax.tree.map(np.asarray, new), 1, out_dir)
-    # the gradient of the same state and batch, unsharded, saved as step 2
-    # in the parameters' place
-    grads = jax.jit(jax.grad(lambda p: jlm.loss_fn(p, cfg, batch)[0]))(
-        state["params"])
-    jckpt.save(jax.tree.map(np.asarray, {**state, "params": grads}), 2,
-               out_dir)
-    tmp = os.path.join(out_dir, "metrics.tmp")
-    with open(tmp, "w") as f:
-        json.dump({"loss": float(metrics["loss"]),
-                   "grad_norm": float(metrics["grad_norm"])}, f)
-    os.replace(tmp, os.path.join(out_dir, "metrics.json"))
+    opt = jopt.OptConfig(**OPT)
+    for arch in JAX_ARCHS:
+        arch_dir = os.path.join(out_dir, arch)
+        cfg = jcb.get_reduced_config(arch)
+        step, ssh = jsteps.jitted_train_step(cfg, opt, mesh,
+                                             seq_parallel=True, donate=False)
+        state = jsteps.init_train_state(cfg, opt, jax.random.PRNGKey(3))
+        jckpt.save(jax.tree.map(np.asarray, state), 0, arch_dir)
+        batch = {k: jnp.asarray(v) for k, v in _batch(cfg, seed=7).items()}
+        new, metrics = step(jax.device_put(state, ssh), batch)
+        jckpt.save(jax.tree.map(np.asarray, new), 1, arch_dir)
+        # the gradient of the same state and batch, unsharded, saved as
+        # step 2 in the parameters' place
+        grads = jax.jit(jax.grad(lambda p: jlm.loss_fn(p, cfg, batch)[0]))(
+            state["params"])
+        jckpt.save(jax.tree.map(np.asarray, {**state, "params": grads}), 2,
+                   arch_dir)
+        tmp = os.path.join(arch_dir, "metrics.tmp")
+        with open(tmp, "w") as f:
+            json.dump({"loss": float(metrics["loss"]),
+                       "grad_norm": float(metrics["grad_norm"])}, f)
+        os.replace(tmp, os.path.join(arch_dir, "metrics.json"))
 
 
 @pytest.fixture(scope="module")
@@ -547,6 +647,77 @@ def test_decode_caches_hold_their_slice_of_the_kv_length(ranks, mesh, arch):
         assert all(n * tp == total for total, n in lens), lens
 
 
+def _want_rec(cfg, tp, dp):
+    """{kind: the widths ``_rec_widths`` reads} and the recurrent caches'
+    {(leaf, shape)} a rank of (dp, tp) holds: the RG-LRU on lru/tp
+    channels where they divide, the xLSTM cells on H/tp heads where the
+    heads do (the sLSTM's conv whole), else whole."""
+    D, H = cfg.d_model, cfg.n_heads
+    lru = D // tp if D % tp == 0 else D
+    cells = tp if H % tp == 0 else 1
+    d_in = 2 * D
+    Bl, w1 = B // dp, cfg.conv_width - 1
+    Hl, dm, ds = H // cells, d_in // H, D // H
+    widths = {"rglru": (lru,) * 6, "mlstm": (d_in // cells,) * 5,
+              "slstm": (D // cells, D // cells, D)}
+    caches = {"rglru": {("h", (Bl, lru)), ("conv", (Bl, w1, lru))},
+              "mlstm": {("C", (Bl, Hl, dm, dm)), ("n", (Bl, Hl, dm)),
+                        ("m", (Bl, Hl)), ("conv", (Bl, w1, d_in // cells))},
+              "slstm": {(k, (Bl, Hl, ds)) for k in "cnhm"}
+              | {("conv", (Bl, w1, D))}}
+    kinds = [k for k in RECURRENT if k in cfg.layer_pattern]
+    return ({(k,) + widths[k] for k in kinds},
+            set().union(*(caches[k] for k in kinds)))
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_recurrent_leaves_and_caches_split(ranks, mesh, arch):
+    """Each rank's RG-LRU leaves and caches on lru/tp channels, its mLSTM
+    and sLSTM cells and caches on H/tp heads where the heads divide (the
+    sLSTM's conv whole), all whole where they do not (xlstm's 2 heads on
+    (1, 4)), in the train step and in serving, with seq_parallel off and
+    on."""
+    cfg = _cfg(arch)
+    dp, tp = mesh
+    widths, caches = _want_rec(cfg, tp, dp)
+    for res in ranks:
+        for sp in (False, True):
+            r = res[(mesh, arch, sp)]
+            assert set(r["rec"]) == widths, (sp, r["rec"])
+            assert set(r["rec_caches"]) == caches, (sp, r["rec_caches"])
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", REC_ARCHS)
+@pytest.mark.parametrize("sp", [False, True])
+def test_recurrent_mixer_collectives(ranks, mesh, arch, sp):
+    """A recurrent mixer's forward over "model" (``util.wire.record_wire``):
+    split, an RG-LRU or mLSTM one all-gather of its channels (the gates'
+    and q/k/v's input) and one all-reduce of its output (under
+    seq_parallel the sequence all-gathered first and the output
+    reduce-scattered), an sLSTM one all-gather of its heads' outputs;
+    whole, nothing (under seq_parallel the sequence gathered)."""
+    cfg = _cfg(arch)
+    dp, tp = mesh
+    D = cfg.d_model
+    rows = B // dp * S                    # the rank's tokens, whole sequence
+    cells = cfg.n_heads % tp == 0
+    seq = [("all_gather", rows // tp * D)] if sp else []
+    out_sum = [("reduce_scatter" if sp else "all_reduce", rows * D)]
+    want = {
+        "rglru": seq + [("all_gather", rows * D // tp)] + out_sum,
+        "mlstm": (seq + [("all_gather", rows * 2 * D // tp)] + out_sum)
+        if cells else seq,
+        "slstm": seq + ([("all_gather", rows * D // tp)] if cells else []),
+    }
+    for res in ranks:
+        for kind in RECURRENT:
+            if kind in cfg.layer_pattern:
+                assert res[(mesh, "wire", arch, kind, sp)] == want[kind], \
+                    (kind, res[(mesh, "wire", arch, kind, sp)])
+
+
 @pytest.mark.parametrize("mesh", MESHES)
 def test_vocab_parallel_loss_and_gradient(ranks, mesh):
     for res in ranks:
@@ -572,7 +743,14 @@ COMPUTE_CASES = [
     ("llama4_maverick", "ffn/moe/wi_gate", 0, False),
     ("llama4_maverick", "ffn/moe/router", None, False),
     ("llama4_maverick", "ffn/moe/shared/wi_up", 1, False),
-    ("recurrentgemma_9b", "wy", None, False),    # the recurrent mixers
+    ("recurrentgemma_9b", "wy", 1, False),       # RG-LRU: 4,096 channels
+    ("recurrentgemma_9b", "lru/wa", 1, False),
+    ("recurrentgemma_9b", "lru/lam", 0, False),
+    ("recurrentgemma_9b", "wout", 0, False),
+    ("recurrentgemma_9b", "conv/w", 1, False),
+    ("xlstm_125m", "cell/wq", None, False),      # 4 heads do not divide
+    ("xlstm_125m", "wup", None, False),
+    ("xlstm_125m", "cell/wi", None, False),
 ]
 
 
@@ -602,6 +780,64 @@ def test_compute_spec_at_the_production_tp(arch, leaf, dim, partial):
     assert sp == (dim, dim is None and not leaf.endswith("router"))
 
 
+#: (leaf of xlstm-125m's layer group 0: p0 an mLSTM, p3 an sLSTM block,
+#: its compute split at tp = 4, where its 4 heads divide, and its
+#: gradient partial over "model" without seq_parallel)
+CELL_CASES = [
+    ("p0/cell/wq", 1, False),                   # the rank's heads
+    ("p0/conv/w", 1, False),
+    ("p0/wdown", 0, False),
+    ("p0/wup", None, True),                     # gathered, its heads' x_m, z
+    ("p0/cell/wi", None, True),                 # stored whole, sliced
+    ("p0/cell/bf", None, True),
+    ("p3/cell/wz", 1, False),
+    ("p3/cell/wo", 1, False),
+    ("p3/cell/wf", None, True),
+    ("p3/cell/rz", None, True),
+    ("p3/cell/bo", None, True),
+    ("p3/conv/w", None, False),                 # the sLSTM's conv: whole
+    ("p3/ffn_gate", 1, False),
+]
+
+
+@pytest.mark.parametrize("leaf,dim,partial", CELL_CASES)
+def test_compute_spec_splits_xlstm_cells_where_heads_divide(leaf, dim,
+                                                            partial):
+    """xlstm-125m at tp = 4: its cells split by whole heads; the leaves a
+    rank takes its heads' columns of are whole with a partial gradient."""
+    import types
+    from repro_torch.configs import base as cb
+    from repro_torch.distributed import sharding as sr
+    from repro_torch.models import lm
+    from repro_torch.util.convert import stack_params
+    cfg = cb.get_config("xlstm_125m")
+    mesh = types.SimpleNamespace(shape={"data": 4, "model": 4})
+    tree = stack_params(lm.init_params(cfg, 0, device=torch.device("meta")))
+    path = ("dec", "groups") + tuple(leaf.split("/"))
+    t = tree
+    for k in path:
+        t = t[k]
+    spec = sr.param_pspec(path, t.shape[1:], mesh)
+    assert sr.compute_spec(path, spec, cfg, mesh) == (dim, partial)
+    if dim is not None:
+        assert spec[dim] == "model"
+    assert sr.compute_spec(path, spec, cfg, mesh, seq_parallel=True) == (
+        dim, dim is None)
+
+
+@pytest.mark.parametrize("arch,tp,note", [
+    ("recurrentgemma_9b", 16, "whole: KV projections (1 KV heads)"),
+    ("xlstm_125m", 16, "whole: mLSTM/sLSTM cells (4 heads)"),
+    ("xlstm_125m", 4, ""),
+])
+def test_tp_note_names_what_stays_whole(arch, tp, note):
+    """``roofline.report.tp_note``: the RG-LRU splits over its channels;
+    the xLSTM cells are whole only where their heads do not divide."""
+    from repro_torch.configs import base as cb
+    from repro_torch.roofline.report import tp_note
+    assert tp_note(cb.get_config(arch), tp) == note
+
+
 def test_seq_parallel_step_matches_jax(ranks):
     """The port's 2 × 2 ``seq_parallel`` step from the JAX package's
     state equals ``jitted_train_step(seq_parallel=True)``'s on 4 forced
@@ -610,7 +846,7 @@ def test_seq_parallel_step_matches_jax(ranks):
     scale), and each rank's gradient shards against ``jax.grad`` of the
     same state and batch (scaled GRAD_TOL)."""
     for res in ranks:
-        r = res["jax"]
+        r = res[("jax", "qwen2_72b")]
         assert "error" not in r, r
         assert r["loss"] < LOSS_TOL, r
         assert r["params"] < PARAM_TOL, r
@@ -618,12 +854,36 @@ def test_seq_parallel_step_matches_jax(ranks):
         assert r["grads"] < GRAD_TOL, r
 
 
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_recurrent_seq_parallel_step_matches_jax(ranks, arch):
+    """``test_seq_parallel_step_matches_jax`` for reduced recurrentgemma-9b
+    and xlstm-125m, whose recurrent mixers run split on 2 × 2 (64 RG-LRU
+    channels, 2 xLSTM heads over 2): the loss, the gradient norm and each
+    gradient shard (the parameters after AdamW's sign step are not held:
+    the mLSTM's input-gate bias has a gradient that is zero up to
+    rounding, its sign rounding's)."""
+    cfg = _cfg(arch)
+    for res in ranks:
+        r = res[("jax", arch)]
+        assert "error" not in r, r
+        assert r["loss"] < LOSS_TOL, r
+        assert r["grad_norm"] < GRAD_NORM_TOL, r
+        assert r["grads"] < GRAD_TOL, r
+        whole = {"rglru": cfg.d_model, "mlstm": 2 * cfg.d_model,
+                 "slstm": cfg.d_model}
+        assert r["rec"] and all(w[1] < whole[w[0]] for w in r["rec"]), \
+            r["rec"]
+
+
 if __name__ == "__main__":
     try:
         _jax_main(sys.argv[1])
     except BaseException:
-        # the ranks wait for metrics.json: tell them, then fail
-        os.makedirs(sys.argv[1], exist_ok=True)
-        with open(os.path.join(sys.argv[1], "metrics.json"), "w") as f:
-            f.write('{"error": true}')
+        # the ranks wait for each arch's metrics.json: tell them, then fail
+        for arch in JAX_ARCHS:
+            arch_dir = os.path.join(sys.argv[1], arch)
+            os.makedirs(arch_dir, exist_ok=True)
+            if not os.path.exists(os.path.join(arch_dir, "metrics.json")):
+                with open(os.path.join(arch_dir, "metrics.json"), "w") as f:
+                    f.write('{"error": true}')
         raise
