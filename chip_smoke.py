@@ -312,6 +312,18 @@ Phases, each of which raises on failure:
                a wholesale-bf16 xlstm-125m tree (every leaf bf16, the
                sLSTM's recurrent blocks too) loaded through
                ``lm_params_from_numpy`` and served unsharded.
+ 38. tp_heads  attention and the xLSTM cells on each rank's whole heads
+               where they do not divide "model" (uneven), on three gloo
+               ranks sharing the card, by the same rules: yi-34b at full
+               width, 2 of 60 layers, bf16 (heads 19 / 19 / 18, KV heads
+               read 0–2 / 2–5 / 5–7), prefill 2 × 2,048 and 8 decode
+               steps; whisper-base at full size (3 / 3 / 2 in its
+               encoder, self- and cross-attention), prefill 2 × 64 over
+               1,500 frames and 8 decode steps; xlstm-125m at full size
+               (2 / 1 / 1): a train step at 4 × 512, prefill 4 × 512 and
+               8 decode steps; each uneven layer (yi's attention,
+               whisper's cross-attention, xlstm's mLSTM and sLSTM) alone
+               in fp32 against itself whole (``TP_REC_FP32_TOL``).
 
 Last of all (the profiler doubles the host cost of every later launch,
 tools/probe_profiler_overhead.py), one smollm-135m decode step of phase
@@ -4984,18 +4996,20 @@ def _tp_params(cfg, seed: int, dev):
     return stack_params(LM(cfg, device=dev, seed=seed).tree())
 
 
-def _greedy_ref(cfg, params, prompt, kv_len: int, steps: int, fed=None):
+def _greedy_ref(cfg, params, prompt, kv_len: int, steps: int, fed=None,
+                extra=None):
     """Prefill and ``steps`` greedy decode steps through the serving steps
     (``make_prefill_step``, ``make_decode_step``) on one card: (the fed
     tokens (B, steps), each step's logits (steps + 1, B, V), prefill ms,
     decode ms a step).  ``fed`` forces the tokens (an fp32
-    twin's run on the bf16 run's tokens)."""
+    twin's run on the bf16 run's tokens); ``extra`` adds leaves to the
+    prefill's batch (an encoder's frames)."""
     import torch
     from repro_torch.train import steps as st
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last, caches = st.make_prefill_step(cfg, kv_len)(params,
-                                                     {"tokens": prompt})
+    last, caches = st.make_prefill_step(cfg, kv_len)(
+        params, {"tokens": prompt, **(extra or {})})
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     decode = st.make_decode_step(cfg)
@@ -5292,8 +5306,8 @@ def phase_tp(dev, seed: int, card: str) -> dict:
     tol_g, tol_s, tol_q = (BF16_FACTOR * sref["grad_vs_fp32"],
                            BF16_FACTOR * sref["serve_vs_fp32"],
                            BF16_FACTOR * qref["serve_vs_fp32"])
-    for tag, mesh in (("smollm_13", "(1, 3)"),
-                      ("smollm_14_sp", "(1, 4) seq_parallel")):
+    for tag, mesh, tp in (("smollm_13", "(1, 3)", 3),
+                          ("smollm_14_sp", "(1, 4) seq_parallel", TP_RANKS)):
         x = r0[tag]
         e_loss = abs(x["loss"] - sref["loss"]) / abs(sref["loss"])
         i, ratio = _worst_leaf(x["grad_leaf_vs_ref"],
@@ -5303,7 +5317,9 @@ def phase_tp(dev, seed: int, card: str) -> dict:
                            "twin": sref["grad_leaf_vs_fp32"][i]}
         ok = (x["grad_vs_ref"] <= tol_g and ratio <= BF16_FACTOR
               and e_loss <= TRAIN_LOSS_TOL)
-        log(f"[tp] smollm-135m full size {B} x {S} bf16 on {mesh}: train "
+        x["heads"] = _head_ranges(smollm, tp)
+        log(f"[tp] smollm-135m full size {B} x {S} bf16 on {mesh}, heads a "
+            f"rank {x['heads']}: train "
             f"step {' / '.join(f'{v:.1f}' for v in x['step_ms'])} ms "
             f"({B * S / (x['step_ms'][-1] * 1e-3):.0f} tokens/s; unsharded "
             f"on the card {sref['step_ms']:.1f} ms); gradient vs the "
@@ -5428,6 +5444,137 @@ def _flip_ties(got, ref_logits, fed, twin_row, n: int) -> tuple:
             float(tie.max()) if tie.numel() else 0.0)
 
 
+def _rank_step(cfg, opt, state, batch, want, rt):
+    """One sharded train step on this rank (a process of phases 37–38):
+    (loss, ms, its gradient's distance from ``want`` (the unsharded one;
+    rank 0's, None elsewhere) as _rel_l2 and _leaf_rel_l2 read it).  The
+    gradient, as ``sharded_grads`` returns it, is gathered whole one leaf
+    at a time (every rank takes part), so no rank holds it whole."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import steps as st
+    r = dist.get_rank()
+    kept, sharded_grads = [], st.sharded_grads
+
+    def keep(*a, **k):
+        got = sharded_grads(*a, **k)
+        kept[:] = [got[2]]
+        return got
+    st.sharded_grads = keep
+    try:
+        torch.cuda.synchronize()
+        dist.barrier(group=rt.group)
+        t0 = time.perf_counter()
+        _, m = st.make_train_step(cfg, opt, rt=rt)(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        st.sharded_grads = sharded_grads
+    shards = tree_leaves(st.wrap_shards(kept.pop(), state["params"],
+                                        rt.mesh))
+    ref_leaves = tree_leaves(want) if r == 0 else [None] * len(shards)
+    num, den = [], []
+    for t, w in zip(shards, ref_leaves):
+        whole = st.full_state(t)
+        if r == 0:
+            a, b = _sq_dist(whole, w)
+            num.append(a)
+            den.append(b)
+        del whole
+    dists = None
+    if r == 0:
+        dists = (math.sqrt(sum(num) / sum(den)),
+                 [math.sqrt(a / b) if b > 0 else
+                  (0.0 if a == 0 else math.inf)
+                  for a, b in zip(num, den)])
+    return float(m["loss"]), ms, dists
+
+
+def _rank_serve(cfg, params, prompt, fed, kv, steps_n, rt, extra=None):
+    """This rank's prefill of ``prompt`` (and ``extra``'s leaves) and
+    ``steps_n`` decode steps fed ``fed``, split over ``rt``'s "model":
+    (each step's logits (steps_n + 1, B, V), {ms, caches})."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.roofline.counts import tensor_bytes
+    from repro_torch.train import steps as st
+    torch.cuda.synchronize()
+    dist.barrier(group=rt.group)
+    t0 = time.perf_counter()
+    last, caches = st.make_prefill_step(cfg, kv, rt=rt)(
+        params, {"tokens": prompt, **(extra or {})})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    decode = st.make_decode_step(cfg, rt=rt)
+    outs = [last.float()]
+    for i in range(steps_n):
+        lg, caches = decode(params, caches, fed[:, i:i + 1],
+                            prompt.shape[1] + i)
+        outs.append(lg.float())
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    info = {"prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms": (t2 - t1) * 1e3 / steps_n,
+            "cache_bytes": tensor_bytes(caches),
+            "rec_caches": _rec_cache_shapes(caches),
+            "kv_lens": sorted({c[k].shape[1] for layer in caches
+                               for c in layer.values()
+                               if isinstance(c, dict)
+                               for k in ("k", "ek") if k in c})}
+    return torch.stack(outs), info
+
+
+def _layer_errs(cfg, seed: int, dev, rt, layer: int, x, run, cache_of):
+    """One layer's sublayer (``run(params, x, mode, cache, pos, rt)``: a
+    recurrent mixer, an attention) split over ``rt``'s "model" (its
+    parameters gathered as serving gathers them) against itself whole,
+    fp32: the forward over x, then a prefill of x into a decode cache
+    (``cache_of(rt)``, the layer's) and one decode step, scaled."""
+    import torch
+    from repro_torch.train import steps as st
+    whole = _tp_params(cfg, seed, dev)
+    ref_blk = st.model_of(cfg, whole).dec.layers()[layer]
+    model, split = st._serving(cfg, st.shard_params(whole, rt.mesh), rt,
+                               {"tokens": x[..., 0]})
+    blk = model.dec.layers()[layer]
+    S = x.shape[1]
+    errs = {}
+    with torch.no_grad():
+        p = blk.params(split)
+        errs["forward"] = scaled_err(run(p, x, "train", None, 0, split),
+                                     run(ref_blk, x, "train", None, 0,
+                                         None))[1]
+        caches = [cache_of(q) for q in (split, None)]
+        for q, c, prm in ((split, caches[0], p), (None, caches[1],
+                                                   ref_blk)):
+            run(prm, x, "prefill", c, 0, q)
+        errs["decode"] = scaled_err(
+            run(p, x[:, -1:], "decode", caches[0], S, split),
+            run(ref_blk, x[:, -1:], "decode", caches[1], S, None))[1]
+        errs["cache"] = {k: tuple(t.shape) for k, t in _leaves_of(
+            caches[0]).items()}
+    return errs
+
+
+def _leaves_of(tree, path: str = "") -> dict:
+    """{"a/b": tensor} of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return {q: t for k, v in tree.items()
+                for q, t in _leaves_of(v, f"{path}/{k}".lstrip("/")).items()}
+    return {path: tree}
+
+
+def _mixer_run(kind: str, cfg):
+    """``_layer_errs``' ``run`` of a recurrent mixer of ``kind``."""
+    from repro_torch.models import transformer as tf
+    mixer = getattr(tf, f"{kind}_mixer")
+
+    def run(p, x, mode, cache, pos, rt):
+        return mixer(p, x, cfg, mode=mode, cache=cache, rt=rt)
+    return run
+
+
 def tp_rec_rank(out: str, seed: int, device: str) -> None:
     """Phase 37's rank (four share the card over gloo): recurrentgemma-9b
     and xlstm-125m split over "model", held by rank 0 against the
@@ -5439,6 +5586,7 @@ def tp_rec_rank(out: str, seed: int, device: str) -> None:
     from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.configs import base as cb
     from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.models import transformer as tf
     from repro_torch.optim.optimizers import (OptConfig, init_opt_state,
                                               tree_map)
     from repro_torch.roofline.counts import tensor_bytes
@@ -5454,107 +5602,12 @@ def tp_rec_rank(out: str, seed: int, device: str) -> None:
     group = mesh.get_group("model")
     rt = st.make_runtime(mesh)
 
-    def sync():
-        torch.cuda.synchronize()
-        dist.barrier(group=group)
-
-    def kept_step(cfg, opt, state, batch, want):
-        # one train step: (loss, ms, its gradient's distance from ``want``
-        # (the unsharded one; rank 0's, None elsewhere) as _rel_l2 and
-        # _leaf_rel_l2 read it).  The gradient, as ``sharded_grads``
-        # returns it, is gathered whole one leaf at a time (every rank
-        # takes part), so no rank holds it whole.
-        from repro_torch.optim.optimizers import tree_leaves
-        kept, sharded_grads = [], st.sharded_grads
-
-        def keep(*a, **k):
-            got = sharded_grads(*a, **k)
-            kept[:] = [got[2]]
-            return got
-        st.sharded_grads = keep
-        try:
-            sync()
-            t0 = time.perf_counter()
-            _, m = st.make_train_step(cfg, opt, rt=rt)(state, batch)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            st.sharded_grads = sharded_grads
-        shards = tree_leaves(st.wrap_shards(kept.pop(), state["params"],
-                                            mesh))
-        ref_leaves = tree_leaves(want) if r == 0 else [None] * len(shards)
-        num, den = [], []
-        for t, w in zip(shards, ref_leaves):
-            whole = st.full_state(t)
-            if r == 0:
-                a, b = _sq_dist(whole, w)
-                num.append(a)
-                den.append(b)
-            del whole
-        dists = None
-        if r == 0:
-            dists = (math.sqrt(sum(num) / sum(den)),
-                     [math.sqrt(a / b) if b > 0 else
-                      (0.0 if a == 0 else math.inf)
-                      for a, b in zip(num, den)])
-        return float(m["loss"]), ms, dists
-
-    def serve(cfg, params, prompt, fed, kv, steps_n):
-        sync()
-        t0 = time.perf_counter()
-        last, caches = st.make_prefill_step(cfg, kv, rt=rt)(
-            params, {"tokens": prompt})
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        decode = st.make_decode_step(cfg, rt=rt)
-        outs = [last.float()]
-        for i in range(steps_n):
-            lg, caches = decode(params, caches, fed[:, i:i + 1],
-                                prompt.shape[1] + i)
-            outs.append(lg.float())
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        info = {"prefill_ms": (t1 - t0) * 1e3,
-                "decode_ms": (t2 - t1) * 1e3 / steps_n,
-                "cache_bytes": tensor_bytes(caches),
-                "rec_caches": _rec_cache_shapes(caches),
-                "kv_lens": sorted({c["k"].shape[1] for layer in caches
-                                   for c in layer.values()
-                                   if isinstance(c, dict) and "k" in c})}
-        return torch.stack(outs), info
-
     def mixer_errs(cfg, layer: int, x) -> dict:
-        # the layer's mixer split over "model" (its parameters gathered as
-        # serving gathers them) and whole: the forward over x, then a
-        # prefill of x into a decode cache and one decode step, scaled
-        from repro_torch.models import transformer as tf
-        whole = _tp_params(cfg, seed, dev)
-        ref_blk = st.model_of(cfg, whole).dec.layers()[layer]
-        model, run = st._serving(cfg, st.shard_params(whole, mesh), rt,
-                                 {"tokens": x[..., 0]})
-        blk = model.dec.layers()[layer]
-        mixer = getattr(tf, f"{blk.kind}_mixer")
-        B, S, _ = x.shape
-        errs = {}
-        with torch.no_grad():
-            p = blk.params(run)
-            errs["forward"] = scaled_err(
-                mixer(p, x, cfg, mode="train", cache=None, rt=run),
-                mixer(ref_blk, x, cfg, mode="train", cache=None,
-                      rt=None))[1]
-            caches = [tf.init_block_cache(cfg, blk.kind, B, S + 1,
-                                          device=dev, rt=q)
-                      for q in (run, None)]
-            for q, c, prm in ((run, caches[0], p), (None, caches[1],
-                                                     ref_blk)):
-                mixer(prm, x, cfg, mode="prefill", cache=c, rt=q)
-            errs["decode"] = scaled_err(
-                mixer(p, x[:, -1:], cfg, mode="decode", cache=caches[0],
-                      rt=run),
-                mixer(ref_blk, x[:, -1:], cfg, mode="decode",
-                      cache=caches[1], rt=None))[1]
-            errs["cache"] = {k: tuple(t.shape) for k, t in caches[0].items()}
-        return errs
+        kind = (cfg.layer_pattern * cfg.n_layers)[layer]
+        return _layer_errs(
+            cfg, seed, dev, rt, layer, x, _mixer_run(kind, cfg),
+            lambda q: tf.init_block_cache(cfg, kind, x.shape[0],
+                                          x.shape[1] + 1, device=dev, rt=q))
 
     try:
         # recurrentgemma-9b: two ranks at a time make the whole seeded
@@ -5590,7 +5643,7 @@ def tp_rec_rank(out: str, seed: int, device: str) -> None:
         base = torch.cuda.memory_allocated(dev)
         state = {"params": params, "opt": init_opt_state("sgd", params),
                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
-        loss, ms, dists = kept_step(gemma, sgd, state, batch, g16)
+        loss, ms, dists = _rank_step(gemma, sgd, state, batch, g16, rt)
         del state, g16
         g = {"step_ms": ms, "loss": loss, "param_bytes": tensor_bytes(
             params), "base_bytes": base,
@@ -5601,8 +5654,8 @@ def tp_rec_rank(out: str, seed: int, device: str) -> None:
         torch.cuda.empty_cache()
         dist.barrier(group=group)
         torch.cuda.reset_peak_memory_stats(dev)
-        outs, info = serve(gemma, params, ref["gemma_prompt"],
-                           ref["gemma_fed"], ref["gemma_kv"], n_dec)
+        outs, info = _rank_serve(gemma, params, ref["gemma_prompt"],
+                                 ref["gemma_fed"], ref["gemma_kv"], n_dec, rt)
         g.update(info)
         g["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         if r == 0:
@@ -5626,15 +5679,15 @@ def tp_rec_rank(out: str, seed: int, device: str) -> None:
         batch = make_lm_loader(xlstm, cb.ShapeConfig("train", Sx, Bx,
                                                      "train"),
                                seed=seed, device=dev)(0)
-        loss, ms, dists = kept_step(xlstm, adamw, state, batch,
-                                    ref.pop("xlstm_g16"))
+        loss, ms, dists = _rank_step(xlstm, adamw, state, batch,
+                                     ref.pop("xlstm_g16"), rt)
         x = {"step_ms": ms, "loss": loss}
         if r == 0:
             x["grad_vs_ref"], x["grad_leaf_vs_ref"] = dists
         del state
         params = st.shard_params(wx, mesh)
-        outs, info = serve(xlstm, params, ref["xlstm_prompt"],
-                           ref["xlstm_fed"], ref["xlstm_kv"], nx)
+        outs, info = _rank_serve(xlstm, params, ref["xlstm_prompt"],
+                                 ref["xlstm_fed"], ref["xlstm_kv"], nx, rt)
         x.update(info)
         if r == 0:
             x["err"] = scaled_err(outs, ref["xlstm_logits"])[1]
@@ -5720,6 +5773,52 @@ def _bf16_tree_check(cfg, seed: int, dev, card: str) -> dict:
             "decode_vs_fp32": e_dec, "finite": finite}
 
 
+def _train_ref(cfg, seed: int, dev, B: int, S: int) -> tuple:
+    """The unsharded gradient of ``cfg``'s seeded weights on a (B, S)
+    batch (``make_lm_loader``'s first) on the card, and its fp32 twin's:
+    (the weights, their fp32 copy, the gradient, {loss, loss32, grads_ms,
+    grad_vs_fp32, grad_leaf_vs_fp32, leaves})."""
+    import torch
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.train import steps as st
+    params = _tp_params(cfg, seed, dev)
+    batch = make_lm_loader(cfg, cb.ShapeConfig("train", S, B, "train"),
+                           seed=seed, device=dev)(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss16, _, g16 = st.grads_of(cfg, params, [batch])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    p32 = tree_map(lambda t: t.float(), params)
+    loss32, _, g32 = st.grads_of(fp32_cfg(cfg), p32, [batch])
+    info = {"loss": float(loss16), "loss32": float(loss32),
+            "grads_ms": ms, "grad_vs_fp32": _rel_l2(g16, g32),
+            "grad_leaf_vs_fp32": _leaf_rel_l2(g16, g32),
+            "leaves": _leaf_paths(g16)}
+    del g32, batch
+    torch.cuda.empty_cache()
+    return params, p32, g16, info
+
+
+def _serve_ref(cfg, params, p32, prompt, n: int, kv: int, ref: dict,
+               tag: str, extra=None) -> dict:
+    """The unsharded greedy run of ``prompt`` (``_greedy_ref``, ``n``
+    steps, a cache of ``kv``) and its fp32 twin's on the same tokens:
+    what the ranks need goes into ``ref`` under ``tag``; returns the
+    twin's distance and the ms."""
+    fed, lg16, pre, dec = _greedy_ref(cfg, params, prompt, kv, n,
+                                      extra=extra)
+    _, lg32, _, _ = _greedy_ref(fp32_cfg(cfg), p32, prompt, kv, n, fed=fed,
+                                extra=extra)
+    ref.update({f"{tag}_prompt": prompt, f"{tag}_fed": fed,
+                f"{tag}_logits": lg16, f"{tag}_kv": kv,
+                f"{tag}_twin_row": (lg16 - lg32).abs().amax(-1)})
+    return {"serve_vs_fp32": scaled_err(lg16, lg32)[1],
+            "prefill_ms": pre, "decode_ms": dec}
+
+
 def phase_tp_rec(dev, seed: int, card: str) -> dict:
     """Phase 37: the recurrent mixers split over "model" on four gloo
     ranks sharing the card, as phase 36 runs them, against the unsharded
@@ -5733,10 +5832,6 @@ def phase_tp_rec(dev, seed: int, card: str) -> dict:
     import gc
     import tempfile
     import torch
-    from repro_torch.configs import base as cb
-    from repro_torch.data.pipeline import make_lm_loader
-    from repro_torch.optim.optimizers import tree_map
-    from repro_torch.train import steps as st
     from repro_torch.util import dist as rdist
     t_phase = time.perf_counter()
     gemma, xlstm = _tp_rec_cfgs()
@@ -5749,36 +5844,13 @@ def phase_tp_rec(dev, seed: int, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed + 37)
 
     def train_ref(cfg, B, S):
-        params = _tp_params(cfg, seed, dev)
-        batch = make_lm_loader(cfg, cb.ShapeConfig("train", S, B, "train"),
-                               seed=seed, device=dev)(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss16, _, g16 = st.grads_of(cfg, params, [batch])
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        p32 = tree_map(lambda t: t.float(), params)
-        loss32, _, g32 = st.grads_of(fp32_cfg(cfg), p32, [batch])
-        info = {"loss": float(loss16), "loss32": float(loss32),
-                "grads_ms": ms, "grad_vs_fp32": _rel_l2(g16, g32),
-                "grad_leaf_vs_fp32": _leaf_rel_l2(g16, g32),
-                "leaves": _leaf_paths(g16)}
-        del g32, batch
-        torch.cuda.empty_cache()
-        return params, p32, g16, info
+        return _train_ref(cfg, seed, dev, B, S)
 
     def serve_ref(cfg, params, p32, B, P, n, tag):
         prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen,
                                device=dev)
-        kv = _kv_len(P, n, TP_RANKS)
-        fed, lg16, pre, dec = _greedy_ref(cfg, params, prompt, kv, n)
-        _, lg32, _, _ = _greedy_ref(fp32_cfg(cfg), p32, prompt, kv, n,
-                                    fed=fed)
-        ref.update({f"{tag}_prompt": prompt, f"{tag}_fed": fed,
-                    f"{tag}_logits": lg16, f"{tag}_kv": kv,
-                    f"{tag}_twin_row": (lg16 - lg32).abs().amax(-1)})
-        return {"serve_vs_fp32": scaled_err(lg16, lg32)[1],
-                "prefill_ms": pre, "decode_ms": dec}
+        return _serve_ref(cfg, params, p32, prompt, n,
+                          _kv_len(P, n, TP_RANKS), ref, tag)
 
     params, p32, g16, out["gemma_ref"] = train_ref(gemma, Bt, St)
     del g16
@@ -5888,6 +5960,334 @@ def phase_tp_rec(dev, seed: int, card: str) -> dict:
     out["bf16_tree"] = _bf16_tree_check(xlstm, seed, dev, card)
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[tp_rec] phase 37 took {out['phase_s']:.1f} s (the ranks "
+        f"{out['ranks_s']:.1f} s)")
+    return out
+
+
+# ----------------------------------------------------------------------------
+# Phase 38: attention and xLSTM cells whose heads do not divide "model"
+
+#: phase 38: the ranks of "model" (gloo processes sharing the card), where
+#: yi-34b's 56 heads split 19 / 19 / 18, whisper-base's 8 split 3 / 3 / 2
+#: and xlstm-125m's 4 split 2 / 1 / 1 (``sharding.head_range``)
+TP_HEADS_RANKS = 3
+#: phase 38: yi-34b at full width, (layers kept, batch, prompt, decode
+#: steps)
+TP_HEADS_YI = (2, 2, 2_048, 8)
+#: phase 38: whisper-base at full size, (batch, prompt, encoder frames,
+#: decode steps); attn_chunk 500 for the 1,500 frames (phase 27's cut)
+TP_HEADS_WHISPER = (2, 64, 1_500, 8)
+#: phase 38: the uneven attention layers alone in fp32, (batch, sequence)
+TP_HEADS_LAYER = (2, 512)
+#: phase 38: a gradient leaf whose unsharded bf16 value lies this far
+#: (relative L2) or farther from its fp32 twin's carries rounding only,
+#: and is held by the whole gradient's rule, not leaf by leaf: xlstm-125m's
+#: input-gate biases, whose gradient the gates' stabiliser makes zero up
+#: to rounding (exactly zero in the sLSTM; ROADMAP.md §3)
+NOISE_LEAF = 0.5
+
+
+def _tp_heads_cfgs():
+    from repro_torch.configs import base as cb
+    return (cb.get_config("yi_34b").replace(n_layers=TP_HEADS_YI[0]),
+            cb.get_config("whisper_base").replace(attn_chunk=500),
+            cb.get_config("xlstm_125m"))
+
+
+def _head_ranges(cfg, tp: int) -> list:
+    from repro_torch.distributed.sharding import head_range
+    return [head_range(cfg.n_heads, tp, r) for r in range(tp)]
+
+
+def _kv_read(cfg, tp: int) -> list:
+    """The KV heads [lo, hi) each rank's query heads read."""
+    from repro_torch.models.attention import kv_heads_of
+    return [kv_heads_of(h0, h1 - h0, cfg.n_heads // cfg.n_kv)
+            for h0, h1 in _head_ranges(cfg, tp)]
+
+
+def tp_heads_rank(out: str, seed: int, device: str) -> None:
+    """Phase 38's rank (three share the card over gloo): yi-34b,
+    whisper-base and xlstm-125m on their whole heads, split unevenly over
+    "model", held by rank 0 against the unsharded runs (``ref.pt``); then
+    each uneven layer alone in fp32 against itself whole."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import base as cb
+    from repro_torch.data.pipeline import make_lm_loader
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.optimizers import OptConfig, init_opt_state
+    from repro_torch.roofline.counts import tensor_bytes
+    from repro_torch.train import steps as st
+    r = dist.get_rank()
+    dev = torch.device(device)
+    ref = torch.load(os.path.join(out, "ref.pt"), map_location=dev)
+    res = {"err": None}
+    yi, whisper, xlstm = _tp_heads_cfgs()
+    mesh = DeviceMesh(dev.type, [list(range(TP_HEADS_RANKS))],
+                      mesh_dim_names=("data", "model"))
+    rt = st.make_runtime(mesh)
+
+    def served(cfg, tag, n, extra=None):
+        whole = _tp_params(cfg, seed, dev)
+        params = st.shard_params(whole, mesh)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        outs, info = _rank_serve(cfg, params, ref[f"{tag}_prompt"],
+                                 ref[f"{tag}_fed"], ref[f"{tag}_kv"], n, rt,
+                                 extra)
+        info.update(param_bytes=tensor_bytes(params),
+                    peak_bytes=torch.cuda.max_memory_allocated(dev))
+        if r == 0:
+            info["err"] = scaled_err(outs, ref[f"{tag}_logits"])[1]
+            info["agree"], info["of"], info["worst_tie"] = _flip_ties(
+                outs, ref[f"{tag}_logits"], ref[f"{tag}_fed"],
+                ref[f"{tag}_twin_row"], n)
+        del params, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+        return info
+
+    try:
+        res["yi"] = served(yi, "yi", TP_HEADS_YI[3])
+        res["whisper"] = served(whisper, "whisper", TP_HEADS_WHISPER[3],
+                                {"enc_frames": ref["whisper_frames"]})
+        # xlstm-125m: one train step, then serving
+        Bx, Sx, Bxs, Px, nx = TP_REC_XLSTM
+        adamw = OptConfig(kind="adamw", lr=1e-3, warmup_steps=1,
+                          total_steps=10)
+        wx = _tp_params(xlstm, seed, dev)
+        state = st.shard_state({"params": wx, "opt": init_opt_state(
+            "adamw", wx), "step": torch.zeros((), dtype=torch.int32,
+                                              device=dev)}, mesh)
+        del wx
+        batch = make_lm_loader(xlstm, cb.ShapeConfig("train", Sx, Bx,
+                                                     "train"),
+                               seed=seed, device=dev)(0)
+        loss, ms, dists = _rank_step(xlstm, adamw, state, batch,
+                                     ref.pop("xlstm_g16"), rt)
+        del state
+        res["xlstm"] = {"step_ms": ms, "loss": loss, **served(xlstm, "xlstm",
+                                                              nx)}
+        if r == 0:
+            res["xlstm"]["grad_vs_ref"], res["xlstm"]["grad_leaf_vs_ref"] = \
+                dists
+
+        # each uneven layer alone in fp32, split and whole, on one input:
+        # yi's attention, whisper's cross-attention, xlstm's mixers
+        gen = torch.Generator(device=dev).manual_seed(seed + 38)
+
+        def noise(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        B, S = TP_HEADS_LAYER
+        y32 = fp32_cfg(yi).replace(n_layers=1, vocab=256)
+        w32 = fp32_cfg(whisper).replace(vocab=256)
+        x32 = fp32_cfg(xlstm).replace(n_layers=len(xlstm.layer_pattern))
+        kv = _kv_len(S, 1, TP_HEADS_RANKS)
+        Bw, Pw, Fw, _ = TP_HEADS_WHISPER
+        ctx = noise(Bw, Fw, w32.d_model)
+
+        def attn(p, x, mode, cache, pos, q):
+            return tf._self_attention(
+                p["attn"], x, y32, causal=True, window=0, mode=mode,
+                cache=None if cache is None else cache["self"], pos=pos,
+                rt=q)
+
+        def xattn(p, x, mode, cache, pos, q):
+            return tf._cross_attention(
+                p["xattn"], x, w32, ctx=ctx, mode=mode,
+                cache=None if cache is None else cache["cross"], rt=q)
+        xs = noise(Bxs, Px, x32.d_model)
+        res["layers"] = {
+            "yi attention": _layer_errs(
+                y32, seed, dev, rt, 0, noise(B, S, y32.d_model), attn,
+                lambda q: tf.init_block_cache(y32, "attn", B, kv,
+                                              device=dev, rt=q)),
+            "whisper cross-attention": _layer_errs(
+                w32, seed, dev, rt, 0, noise(Bw, Pw, w32.d_model), xattn,
+                lambda q: {"cross": tf.init_block_cache(
+                    w32, "attn_cross", Bw, Pw + 1, Fw, device=dev,
+                    rt=q)["cross"]}),
+            **{f"xlstm {kind}": _layer_errs(
+                x32, seed, dev, rt, layer, xs, _mixer_run(kind, x32),
+                lambda q, kind=kind: tf.init_block_cache(
+                    x32, kind, Bxs, Px + 1, device=dev, rt=q))
+               for kind, layer in (("mlstm", 0), ("slstm", 3))}}
+    except Exception as e:  # noqa: BLE001 — reported by the parent
+        import traceback
+        res["err"] = f"{type(e).__name__}: {e}\n{traceback.format_exc()}"
+    torch.save(res, os.path.join(out, f"tp_heads_{r}.pt"))
+
+
+def phase_tp_heads(dev, seed: int, card: str) -> dict:
+    """Phase 38: attention and the xLSTM cells on each rank's whole heads
+    where the heads do not divide "model" (``sharding.head_range``), on
+    three gloo ranks sharing the card, as phases 36–37 run them, against
+    the unsharded runs on the card by their rules (``BF16_FACTOR`` × the
+    unsharded bf16 run's own distance from its fp32 twin, the gradient
+    leaf by leaf, a greedy flip only at a near-tie, the loss within
+    ``TRAIN_LOSS_TOL``): yi-34b at full width, depth cut to
+    ``TP_HEADS_YI``'s layers (heads 19 / 19 / 18), whisper-base at full
+    size (3 / 3 / 2 in its encoder, self- and cross-attention), prefill
+    and decode; xlstm-125m at full size (2 / 1 / 1), a train step,
+    prefill and decode; then each uneven layer alone in fp32 against
+    itself whole within ``TP_REC_FP32_TOL``."""
+    import gc
+    import tempfile
+    import torch
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.util import dist as rdist
+    t_phase = time.perf_counter()
+    yi, whisper, xlstm = _tp_heads_cfgs()
+    _, By, Py, ny = TP_HEADS_YI
+    Bw, Pw, Fw, nw = TP_HEADS_WHISPER
+    Bx, Sx, Bxs, Px, nx = TP_REC_XLSTM
+    tp = TP_HEADS_RANKS
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref, out = {}, {"card": card}
+    gen = torch.Generator(device=dev).manual_seed(seed + 38)
+
+    def served_ref(cfg, tag, B, P, n, extra=None):
+        params = _tp_params(cfg, seed, dev)
+        p32 = tree_map(lambda t: t.float(), params)
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen,
+                               device=dev)
+        info = _serve_ref(cfg, params, p32, prompt, n, _kv_len(P, n, tp),
+                          ref, tag, extra)
+        del params, p32
+        gc.collect()
+        torch.cuda.empty_cache()
+        return info
+
+    out["yi_ref"] = served_ref(yi, "yi", By, Py, ny)
+    ref["whisper_frames"] = 0.1 * torch.randn(
+        (Bw, Fw, whisper.d_model), generator=gen, device=dev)
+    out["whisper_ref"] = served_ref(whisper, "whisper", Bw, Pw, nw,
+                                    {"enc_frames": ref["whisper_frames"]})
+    params, p32, g16, out["xlstm_ref"] = _train_ref(xlstm, seed, dev, Bx,
+                                                    Sx)
+    ref["xlstm_g16"] = g16
+    prompt = torch.randint(0, xlstm.vocab, (Bxs, Px), generator=gen,
+                           device=dev)
+    out["xlstm_ref"].update(_serve_ref(xlstm, params, p32, prompt, nx,
+                                       _kv_len(Px, nx, tp), ref, "xlstm"))
+    del params, p32, g16
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_heads_") as tmp:
+        torch.save(ref, os.path.join(tmp, "ref.pt"))
+        ref.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[tp_heads] the unsharded references took {t_ref:.1f} s")
+        t_spawn = time.perf_counter()
+        where = f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu"
+        rdist.spawn(tp_heads_rank, tp, tmp, seed, where, backend="gloo",
+                    device=where)
+        out["ranks_s"] = time.perf_counter() - t_spawn
+        ranks = [torch.load(os.path.join(tmp, f"tp_heads_{r}.pt"))
+                 for r in range(tp)]
+    errs = [f"rank {i}: {x['err'][-1500:]}" for i, x in enumerate(ranks)
+            if x["err"]]
+    require(not errs, "phase 38 failed: " + "\n".join(errs))
+    r0 = ranks[0]
+    # the KV lengths each rank's caches hold: self-attention kv / tp,
+    # whisper's cross-attention its frames / tp
+    want_kv = {"yi": [_kv_len(Py, ny, tp) // tp],
+               "whisper": sorted({_kv_len(Pw, nw, tp) // tp, Fw // tp}),
+               "xlstm": []}
+    dh = 2 * xlstm.d_model // xlstm.n_heads
+    ds = xlstm.d_model // xlstm.n_heads
+    names = {"yi": f"yi-34b full width, {yi.n_layers} of 60 layers,",
+             "whisper": "whisper-base full size", "xlstm": "xlstm-125m "
+             "full size"}
+    shapes = {"yi": f"{By} x {Py}", "whisper": f"{Bw} x {Pw} ({Fw} encoder "
+              f"frames)", "xlstm": f"{Bxs} x {Px}"}
+    for tag, cfg in (("yi", yi), ("whisper", whisper), ("xlstm", xlstm)):
+        x, rf = r0[tag], out[f"{tag}_ref"]
+        heads = _head_ranges(cfg, tp)
+        tol_s = BF16_FACTOR * rf["serve_vs_fp32"]
+        ok = (x["err"] <= tol_s and x["worst_tie"] <= 2 * BF16_FACTOR
+              and all(y[tag]["kv_lens"] == want_kv[tag] for y in ranks))
+        msg = (f"[tp_heads] {names[tag]} bf16 on (1, {tp}), heads a rank "
+               f"{heads}")
+        if tag == "yi":
+            msg += f", KV heads read {_kv_read(cfg, tp)}"
+        if tag == "xlstm":
+            want = [{"C": (Bxs, h1 - h0, dh, dh), "c": (Bxs, h1 - h0, ds)}
+                    for h0, h1 in heads]
+            caches = [y[tag]["rec_caches"] for y in ranks]
+            shapes_ok = all(all(c.get(k) == v for k, v in w.items())
+                            for c, w in zip(caches, want))
+            e_loss = abs(x["loss"] - rf["loss"]) / abs(rf["loss"])
+            twin = rf["grad_leaf_vs_fp32"]
+            held = [j for j, t in enumerate(twin) if t < NOISE_LEAF]
+            noise = [j for j in range(len(twin)) if j not in held]
+            require(held, "phase 38: no xlstm-125m gradient leaf within "
+                          f"{NOISE_LEAF:g} of its fp32 twin")
+            i, ratio = _worst_leaf([x["grad_leaf_vs_ref"][j] for j in held],
+                                   [twin[j] for j in held])
+            i = held[i]
+            tol_g = BF16_FACTOR * rf["grad_vs_fp32"]
+            ok = (ok and shapes_ok and x["grad_vs_ref"] <= tol_g
+                  and ratio <= BF16_FACTOR and e_loss <= TRAIN_LOSS_TOL)
+            msg += (f": train step {Bx} x {Sx} {x['step_ms']:.1f} ms "
+                    f"(unsharded forward and backward {rf['grads_ms']:.1f} "
+                    f"ms); gradient vs the unsharded bf16 one "
+                    f"{x['grad_vs_ref']:.3e} (tol {BF16_FACTOR:g} x its fp32 "
+                    f"twin's {rf['grad_vs_fp32']:.3e} = {tol_g:.3e}); worst "
+                    f"leaf {rf['leaves'][i]} {x['grad_leaf_vs_ref'][i]:.3e}, "
+                    f"{ratio:.2f} x its twin's "
+                    f"{rf['grad_leaf_vs_fp32'][i]:.3e} (tol {BF16_FACTOR:g} "
+                    f"x) over the {len(held)} of {len(twin)} leaves within "
+                    f"{NOISE_LEAF:g} of their twins (the other "
+                    f"{len(noise)} rounding only, at most "
+                    f"{max((x['grad_leaf_vs_ref'][j] for j in noise),
+                           default=0):.3e} "
+                    f"from the unsharded bf16 leaf; twins "
+                    f"{min((twin[j] for j in noise), default=0):.3e}–"
+                    f"{max((twin[j] for j in noise), default=0):.3e}); loss "
+                    f"{x['loss']:.6f} vs {rf['loss']:.6f} "
+                    f"({e_loss:.2e}, tol {TRAIN_LOSS_TOL:.0e}); each rank's "
+                    f"recurrent caches {caches}")
+        peak = max(y[tag]["peak_bytes"] for y in ranks)
+        log(msg + f"; prefill {shapes[tag]} {x['prefill_ms']:.1f} ms "
+            f"(unsharded {rf['prefill_ms']:.1f}), decode "
+            f"{x['decode_ms']:.2f} ms a step (unsharded "
+            f"{rf['decode_ms']:.2f}); logits vs the unsharded run "
+            f"{x['err']:.3e} (tol {BF16_FACTOR:g} x {rf['serve_vs_fp32']:.3e}"
+            f" = {tol_s:.3e}); greedy tokens agree {x['agree']} / "
+            f"{x['of']}, each flip's unsharded margin {x['worst_tie']:.2f} x "
+            f"the twin's row distance or less (tol {2 * BF16_FACTOR:g} x); "
+            f"each rank's KV caches {x['kv_lens']} positions; a rank holds "
+            f"{x['param_bytes'] / 1e9:.3f} GB of parameters, peak serving "
+            f"{peak / 1e9:.2f} GB {'ok' if ok else 'FAIL'}; card {card}")
+        require(ok, f"phase 38: {names[tag]} on uneven heads is off the "
+                    f"unsharded run")
+        out[tag] = {**x, "heads": heads, "ranks": [y[tag] for y in ranks]}
+    layers = [y["layers"] for y in ranks]
+    worst = max(e[k] for m in layers for e in m.values()
+                for k in ("forward", "decode"))
+    ok = worst <= TP_REC_FP32_TOL
+    log(f"[tp_heads] each uneven layer alone, fp32, full width, on (1, "
+        f"{tp}) against itself whole (forward; decode step after a "
+        f"prefill): " + "; ".join(
+            f"{k} {layers[0][k]['forward']:.3e} / "
+            f"{layers[0][k]['decode']:.3e}, rank 0's cache "
+            f"{layers[0][k]['cache']}" for k in layers[0])
+        + f"; worst over the ranks {worst:.3e} (tol {TP_REC_FP32_TOL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}; card {card}")
+    require(ok, "phase 38: an uneven layer split over model is off the "
+                "whole one")
+    out["layers"] = layers
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp_heads] phase 38 took {out['phase_s']:.1f} s (the ranks "
         f"{out['ranks_s']:.1f} s)")
     return out
 
@@ -6055,6 +6455,7 @@ def main(argv=None) -> int:
         f"{summary['count']['phase_s'] + summary['dryrun']['phase_s']:.1f} s")
     summary["tp"] = phase_tp(dev, args.seed, card)
     summary["tp_rec"] = phase_tp_rec(dev, args.seed, card)
+    summary["tp_heads"] = phase_tp_heads(dev, args.seed, card)
 
     if args.sparse_dim != SPARSE_DIM:
         log(f"[data] cut: sparse m = n = {args.sparse_dim} of {SPARSE_DIM}")

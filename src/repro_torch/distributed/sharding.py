@@ -19,7 +19,8 @@ reference's for the stacked leaf without its leading None.
 ``to_placements`` turns a spec into DTensor placements on a ``DeviceMesh``
 with named dims.  A spec is how a leaf is stored; ``compute_spec`` says how
 a rank computes with it over "model": split as stored (tensor
-parallelism), or gathered whole.
+parallelism), or gathered whole (attention and xLSTM cells whose heads do
+not divide then take the rank's whole heads, ``head_range``).
 """
 
 from __future__ import annotations
@@ -139,7 +140,8 @@ def param_pspec(path, shape, mesh, *, fsdp_axes=("pod", "data"),
 #: heads of an xLSTM cell: ``n_heads`` of an mLSTM or sLSTM block), "conv"
 #: (a recurrent block's conv: the RG-LRU's channels, the mLSTM's on whole
 #: heads; the sLSTM's stays whole) or None (the storage spec's split is
-#: enough))
+#: enough)); a head leaf whose heads do not divide is gathered whole and
+#: the rank takes its heads' part (``head_range``)
 _TP_COMPUTE: list[tuple[str, int, str | None]] = [
     (r"(attn|xattn)/(wq|bq)$", -1, "heads"),        # column-parallel
     (r"(attn|xattn)/wo$",      -2, "heads"),        # row-parallel
@@ -181,6 +183,17 @@ def _block_kind(path: str, cfg) -> str | None:
     return pattern[int(m.group(2) or m.group(3)) % len(pattern)]
 
 
+def head_range(n_heads: int, tp: int, rank: int) -> tuple:
+    """(h0, h1): the heads h0 … h1 − 1 of ``n_heads`` that rank ``rank``
+    of a "model" of ``tp`` ranks computes, whole heads in rank order: the
+    first ``n_heads % tp`` ranks take ⌈H/tp⌉, the rest ⌊H/tp⌋ (none where
+    H < tp).  Where the heads divide this is the storage split
+    (rank · H/tp …)."""
+    q, rem = divmod(n_heads, tp)
+    h0 = rank * q + min(rank, rem)
+    return h0, h0 + q + (rank < rem)
+
+
 def compute_spec(path, spec: tuple, cfg, mesh, *, seq_parallel=False,
                  tp_axis="model") -> tuple:
     """How a leaf of storage ``spec`` at ``path`` is computed over
@@ -193,12 +206,16 @@ def compute_spec(path, spec: tuple, cfg, mesh, *, seq_parallel=False,
     exists and, for attention and the xLSTM cells, falls on whole heads:
     ``n_heads`` divides the axis for the query and output projections and
     the cells, ``n_kv`` too for the key and value ones; an RG-LRU splits
-    over its channels, an sLSTM's conv never.  Any other leaf is gathered
-    whole.  A whole leaf's gradient is a partial sum when the ranks
-    compute with it on different inputs: the key and value projections of
-    a head-parallel layer whose KV heads do not divide (each rank takes
-    the KV heads its query heads read), the leaves a head-split xLSTM cell
-    takes its heads' columns of (``_TP_SLICED``), and, under sequence
+    over its channels, an sLSTM's conv never.  Where the heads do not
+    divide, attention and the cells still run on the rank's whole heads
+    (``head_range``: uneven, none on some ranks where H < tp): their
+    leaves are gathered whole and each rank takes its heads' part, so the
+    gradient is a partial sum.  Any other leaf is gathered whole.  A
+    whole leaf's gradient is a partial sum when the ranks compute with it
+    on different inputs: the leaves a rank takes its heads' part of (the
+    attention's and cells' where the heads do not divide, the key and
+    value projections of a head-parallel layer whose KV heads do not
+    divide, the leaves of ``_TP_SLICED``), and, under sequence
     parallelism, every whole leaf but the MoE router (the norms, residual
     biases and gates see the rank's sequence slice; the layers computed
     whole end on the rank's slice).  The router runs inside the expert
@@ -210,24 +227,24 @@ def compute_spec(path, spec: tuple, cfg, mesh, *, seq_parallel=False,
     ps = path_str(path)
     heads_tp = cfg.n_heads % tp == 0
     kind = _block_kind(ps, cfg)
-    cells = kind in ("mlstm", "slstm") and heads_tp      # head-split cells
+    cells = kind in ("mlstm", "slstm")
     for pat, dim, need in _TP_COMPUTE:
         if not re.search(pat, ps):
             continue
         d = len(spec) + dim
         stored = d >= 0 and spec[d] == tp_axis
+        mlstm_conv = need == "conv" and kind == "mlstm"
         if need == "conv":
-            need_ok = kind == "rglru" or (kind == "mlstm" and cells)
-        elif need == "cell":
-            need_ok = cells
+            need_ok = kind == "rglru" or (mlstm_conv and heads_tp)
         else:
             need_ok = need is None or (heads_tp and (
-                need == "heads" or cfg.n_kv % tp == 0))
+                need in ("heads", "cell") or cfg.n_kv % tp == 0))
         if stored and need_ok:
             return d, False
         if pat.startswith("moe/"):     # whole experts: moe_ep sums them
             return None, False
-        return None, seq_parallel or (need == "kv" and heads_tp)
+        return None, seq_parallel or mlstm_conv or need in ("heads", "kv",
+                                                             "cell")
     if cells and re.search(_TP_SLICED, ps):
         return None, True
     return None, seq_parallel and not ps.endswith("moe/router")
@@ -328,28 +345,36 @@ def cache_shardings(caches, mesh, batch: int, *, fsdp_axes=("pod", "data"),
     return [walk(c, str(layer)) for layer, c in enumerate(caches)]
 
 
-def recurrent_cache_dims(layer, tp: int) -> dict:
-    """{leaf: its dim over "model"} of one recurrent layer's decode cache
-    (a dict of tensors) where its mixer runs split over a "model" of
-    ``tp`` ranks (``compute_spec``): an RG-LRU's ``h`` and ``conv`` on its
-    channels, an mLSTM's ``C``, ``n``, ``m`` on its heads and its ``conv``
-    on their channels, an sLSTM's ``c``, ``n``, ``h``, ``m`` on its heads
-    (its conv whole); {} for any other layer or where the width or heads
-    do not divide.  The reference's ``cache_shardings`` keeps these states
-    replicated over "model" (GSPMD reshards them every step); the port's
-    decode caches hold the rank's part (``train.steps.local_caches``)."""
+def recurrent_cache_slices(layer, tp: int, rank: int) -> dict:
+    """{leaf: (its dim over "model", start, stop)}: rank ``rank``'s part of
+    one recurrent layer's whole decode cache (a dict of tensors) where
+    its mixer runs split over a "model" of ``tp`` ranks
+    (``compute_spec``): an RG-LRU's ``h`` and ``conv`` on its 1/tp of the
+    channels where they divide; an mLSTM's ``C``, ``n``, ``m`` on its
+    heads (``head_range``, uneven where they do not divide) and its
+    ``conv`` on their channels; an sLSTM's ``c``, ``n``, ``h``, ``m`` on
+    its heads (its conv whole); {} for any other layer.  The reference's
+    ``cache_shardings`` keeps these states replicated over "model" (GSPMD
+    reshards them every step); the port's decode caches hold the rank's
+    part (``train.steps.local_caches``)."""
     if tp == 1 or not isinstance(layer, dict):
         return {}
-    if "C" in layer:                                       # mLSTM
-        width, dims = layer["C"].shape[1], {"C": 1, "n": 1, "m": 1,
-                                            "conv": 2}
-    elif "c" in layer:                                     # sLSTM
-        width, dims = layer["c"].shape[1], {"c": 1, "n": 1, "h": 1, "m": 1}
-    elif "h" in layer and "conv" in layer:                 # RG-LRU
-        width, dims = layer["h"].shape[1], {"h": 1, "conv": 2}
-    else:
-        return {}
-    return dims if width % tp == 0 else {}
+    if "C" in layer or "c" in layer:                   # mLSTM, sLSTM
+        H = (layer["C"] if "C" in layer else layer["c"]).shape[1]
+        h0, h1 = head_range(H, tp, rank)
+        if "c" in layer:
+            return {k: (1, h0, h1) for k in ("c", "n", "h", "m")}
+        dh = layer["conv"].shape[2] // H
+        return {"C": (1, h0, h1), "n": (1, h0, h1), "m": (1, h0, h1),
+                "conv": (2, h0 * dh, h1 * dh)}
+    if "h" in layer and "conv" in layer:                 # RG-LRU
+        width = layer["h"].shape[1]
+        if width % tp:
+            return {}
+        n = width // tp
+        return {"h": (1, rank * n, (rank + 1) * n),
+                "conv": (2, rank * n, (rank + 1) * n)}
+    return {}
 
 
 def tree_specs(tree, mesh, prefix=(), **kw):

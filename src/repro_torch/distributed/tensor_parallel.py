@@ -21,6 +21,10 @@ collectives GSPMD inserts for the reference's sharded program):
                 slices made whole for work that is the same on every rank
                 (its gradient too).
 
+The gathers and their transposes take ``sizes``, each rank's length of
+``dim``, for uneven parts (a rank's whole heads where the heads do not
+divide the group): padded to the longest on the wire.
+
 A group of one rank is the identity in every direction.  Only all-reduce,
 all-gather, reduce-scatter and all-to-all are used: gloo refuses
 point-to-point on CUDA tensors.  Every collective goes through
@@ -39,35 +43,68 @@ def _n(group) -> int:
     return dist.get_world_size(group)
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The group's tensors concatenated along ``dim`` in rank order."""
+def all_gather(x: torch.Tensor, group, dim: int = 0,
+               sizes=None) -> torch.Tensor:
+    """The group's tensors concatenated along ``dim`` in rank order.
+    ``sizes`` (each rank's length of ``dim``; None: all equal) gathers
+    uneven parts, a rank's whole heads of heads that do not divide:
+    ``all_gather_into_tensor`` takes equal shards on gloo and NCCL alike,
+    so each part is padded to the longest, gathered, and the padding
+    dropped (a rank of length 0 sends padding only)."""
     n = _n(group)
     if n == 1:
         return x
-    moved = x.movedim(dim, 0).contiguous()
-    out = torch.empty((n * moved.shape[0],) + tuple(moved.shape[1:]),
+    top = x.shape[dim] if sizes is None else max(sizes)
+    moved = x.movedim(dim, 0)
+    if moved.shape[0] < top:
+        moved = torch.cat([moved, moved.new_zeros(
+            (top - moved.shape[0],) + tuple(moved.shape[1:]))])
+    moved = moved.contiguous()
+    out = torch.empty((n * top,) + tuple(moved.shape[1:]),
                       dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, moved, group=group)
+    if sizes is not None and min(sizes) < top:
+        out = torch.cat([out[r * top:r * top + s]
+                         for r, s in enumerate(sizes)])
     return out.movedim(0, dim)
 
 
-def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
-    """The group's tensors summed, this rank's slice of ``dim`` kept."""
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0,
+                   sizes=None) -> torch.Tensor:
+    """The group's tensors summed, this rank's slice of ``dim`` kept
+    (``sizes``: each rank's length of the slice, as ``all_gather`` takes
+    them; the parts padded to the longest, the padding dropped)."""
     n = _n(group)
     if n == 1:
         return x
-    moved = x.movedim(dim, 0).contiguous()
-    out = torch.empty((moved.shape[0] // n,) + tuple(moved.shape[1:]),
+    moved = x.movedim(dim, 0)
+    top = moved.shape[0] // n if sizes is None else max(sizes)
+    if sizes is not None and min(sizes) < top:
+        parts, start = [], 0
+        for s in sizes:
+            part = moved[start:start + s]
+            start += s
+            parts += [part, part.new_zeros((top - s,)
+                                           + tuple(moved.shape[1:]))]
+        moved = torch.cat(parts)
+    moved = moved.contiguous()
+    out = torch.empty((top,) + tuple(moved.shape[1:]),
                       dtype=x.dtype, device=x.device)
     dist.reduce_scatter_tensor(out, moved, op=dist.ReduceOp.SUM, group=group)
+    if sizes is not None:
+        out = out[:sizes[dist.get_rank(group)]]
     return out.movedim(0, dim)
 
 
-def own_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """This rank's equal slice of ``dim`` (a view)."""
-    n = _n(group)
-    size = x.shape[dim] // n
-    return x.narrow(dim, dist.get_rank(group) * size, size)
+def own_slice(x: torch.Tensor, group, dim: int,
+              sizes=None) -> torch.Tensor:
+    """This rank's slice of ``dim`` (a view): an equal one, or of
+    ``sizes`` (each rank's length, in rank order)."""
+    rank = dist.get_rank(group)
+    if sizes is None:
+        size = x.shape[dim] // _n(group)
+        return x.narrow(dim, rank * size, size)
+    return x.narrow(dim, sum(sizes[:rank]), sizes[rank])
 
 
 def all_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -109,13 +146,14 @@ class _SumShards(torch.autograd.Function):
 
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return all_gather(x, group, dim)
+    def forward(ctx, x, group, dim, sizes):
+        ctx.group, ctx.dim, ctx.sizes = group, dim, sizes
+        return all_gather(x, group, dim, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+        return (reduce_scatter(g, ctx.group, ctx.dim, ctx.sizes), None,
+                None, None)
 
 
 class _ScatterSeq(torch.autograd.Function):
@@ -142,13 +180,13 @@ class _ReduceScatterSeq(torch.autograd.Function):
 
 class _GatherShards(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        return all_gather(x, group, dim)
+    def forward(ctx, x, group, dim, sizes):
+        ctx.group, ctx.dim, ctx.sizes = group, dim, sizes
+        return all_gather(x, group, dim, sizes)
 
     @staticmethod
     def backward(ctx, g):
-        return own_slice(g, ctx.group, ctx.dim), None, None
+        return own_slice(g, ctx.group, ctx.dim, ctx.sizes), None, None, None
 
 
 def enter(x, group):
@@ -159,8 +197,8 @@ def sum_shards(x, group):
     return x if _n(group) == 1 else _SumShards.apply(x, group)
 
 
-def gather_seq(x, group, dim: int = 1):
-    return x if _n(group) == 1 else _GatherSeq.apply(x, group, dim)
+def gather_seq(x, group, dim: int = 1, sizes=None):
+    return x if _n(group) == 1 else _GatherSeq.apply(x, group, dim, sizes)
 
 
 def scatter_seq(x, group, dim: int = 1):
@@ -171,5 +209,5 @@ def reduce_scatter_seq(x, group, dim: int = 1):
     return x if _n(group) == 1 else _ReduceScatterSeq.apply(x, group, dim)
 
 
-def gather_shards(x, group, dim: int = 0):
-    return x if _n(group) == 1 else _GatherShards.apply(x, group, dim)
+def gather_shards(x, group, dim: int = 0, sizes=None):
+    return x if _n(group) == 1 else _GatherShards.apply(x, group, dim, sizes)

@@ -24,9 +24,10 @@ A cell runs ``make_train_step`` (train shapes), ``make_prefill_step``
 over "model", a split recurrent layer's state over its channels or heads)
 on the production mesh (16×16 "data" × "model", or 2×16×16 with "pod"),
 through ``make_runtime(mesh)``: tensor-parallel over "model" as the
-reference's GSPMD program is (heads, FFN columns, vocabulary, RG-LRU
-channels and xLSTM heads split where they divide,
-``sharding.compute_spec``), without sequence
+reference's GSPMD program is (FFN columns, vocabulary and RG-LRU channels
+split where they divide, attention and xLSTM cells on each rank's whole
+heads, unevenly where they do not: rank 0 holds ⌈H/tp⌉, the bound's
+rank; ``sharding.compute_spec``), without sequence
 parallelism, as the reference's ``lower_cell`` runs.  A layer stack costs
 Python time per op here, not per byte, so a cell runs its architecture at
 g = 2 and 3 layer groups (``depth_variant``) and extrapolates to the

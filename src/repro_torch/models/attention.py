@@ -10,7 +10,8 @@ the in-band KV per query chunk) and its static above-diagonal skipping
 (``causal_skip``).  ``F.scaled_dot_product_attention`` is not used: it
 takes neither the soft cap nor the band, and would hide the chunked work.
 
-Conventions: q (B, Sq, H, hd); k/v (B, Skv, KH, hd); GQA groups G = H // KH.
+Conventions: q (B, Sq, H, hd); k/v (B, Skv, KH, hd); GQA groups G = H // KH
+(``_groups``).
 All softmax math in fp32.
 """
 
@@ -56,9 +57,28 @@ def proj(x, w, b=None):
     return y
 
 
+def head_part(t, heads: tuple, unit: int, n_heads: int, dim: int = -1):
+    """Heads ``heads`` = (h0, h1) of a leaf laid out head by head along
+    ``dim``, ``unit`` entries a head: a view of their part of the whole
+    leaf (``n_heads`` · ``unit`` long), or ``t`` itself where it holds
+    their part only (a shard: heads that divide "model" arrive split as
+    stored)."""
+    h0, h1 = heads
+    size = t.shape[dim]
+    if size == (h1 - h0) * unit:
+        return t
+    if size != n_heads * unit:
+        raise ValueError(f"a leaf of {size} along dim {dim} is neither "
+                         f"{n_heads} heads of {unit} nor heads {h0}…{h1}")
+    return t.narrow(dim, h0 * unit, (h1 - h0) * unit)
+
+
 def kv_heads_of(q0: int, n_q: int, group: int) -> tuple:
     """KV heads [lo, hi) that query heads q0 … q0 + n_q − 1 read, GQA
-    groups of ``group`` query heads a KV head."""
+    groups of ``group`` query heads a KV head (none for no query
+    heads)."""
+    if n_q == 0:
+        return q0 // group, q0 // group
     return q0 // group, (q0 + n_q - 1) // group + 1
 
 
@@ -66,32 +86,39 @@ def kv_for_heads(k, q0: int, n_q: int, group: int, k0: int):
     """KV heads ``k0`` … (B, S, n, hd) laid out for query heads q0 …
     q0 + n_q − 1: as they are where local query head i reads local KV head
     i // (n_q / n) (the attention's own grouping), else one KV head per
-    query head."""
+    query head (an odd count of query heads over a GQA group, whose first
+    and last groups the neighbouring ranks share)."""
     n = k.shape[2]
+    if n_q == 0:
+        return k
     want = [(q0 + i) // group - k0 for i in range(n_q)]
     if n_q % n == 0 and want == [i // (n_q // n) for i in range(n_q)]:
         return k
     return k[:, :, want]
 
 
-def qkv(p, x, cfg, ctx=None, *, rotate=None, whole_kv=False, rank=0,
+def qkv(p, x, cfg, ctx=None, *, rotate=None, whole_kv=False, heads=None,
         group=None):
     """Project to per-head (q, k, v, k_all, v_all), k/v from ``ctx`` when
-    cross-attending.  The query heads are those of ``wq``'s columns: all
-    of them, or rank ``rank``'s shard over ``group`` ("model").  k/v are
-    the KV heads those query heads read, laid out for the attention's
-    grouping (``kv_for_heads``): the shard's own KV heads when they split
-    with the query heads, else the ones it needs of the whole KV
-    projection.  With ``whole_kv``, ``k_all``/``v_all`` hold every KV head
-    (what a cache holds; None otherwise).  ``rotate`` (rope) applies to q
-    and k."""
+    cross-attending.  The query heads are ``heads`` = (h0, h1) (all of
+    them where None), of ``wq``'s columns: its heads' part of a whole
+    ``wq``, or the rank's shard over ``group`` ("model").  k/v are the KV
+    heads those query heads read, laid out for the attention's grouping
+    (``kv_for_heads``): the shard's own KV heads when they split with the
+    query heads, else the ones it needs of the whole KV projection.  With
+    ``whole_kv``, ``k_all``/``v_all`` hold every KV head (what a cache
+    holds; None otherwise).  ``rotate`` (rope) applies to q and k."""
     rotate = rotate or (lambda t: t)
     src = x if ctx is None else ctx
     H, KH, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    Hl, KHl = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    h0, h1 = heads or (0, H)
+    Hl, KHl = h1 - h0, p["wk"].shape[-1] // hd
     B, Sq, _ = x.shape
     Skv = src.shape[1]
-    q = rotate(proj(x, p["wq"], p.get("bq")).reshape(B, Sq, Hl, hd))
+    bq = p.get("bq")
+    q = rotate(proj(x, head_part(p["wq"], (h0, h1), hd, H),
+                    None if bq is None else head_part(bq, (h0, h1), hd, H))
+               .reshape(B, Sq, Hl, hd))
     if Hl == H or KHl < KH:
         # a whole layer, or KV heads split with the query heads
         k = rotate(proj(src, p["wk"], p.get("bk")).reshape(B, Skv, KHl, hd))
@@ -103,8 +130,7 @@ def qkv(p, x, cfg, ctx=None, *, rotate=None, whole_kv=False, rank=0,
         return (q, k, v, tp_lib.all_gather(k, group, 2),
                 tp_lib.all_gather(v, group, 2))
     # query heads split, KV heads whole: the ones this rank's heads read
-    q0 = rank * Hl
-    k0, k1 = kv_heads_of(q0, Hl, H // KH)
+    k0, k1 = kv_heads_of(h0, Hl, H // KH)
     k_all = v_all = None
     if whole_kv:
         k_all = rotate(proj(src, p["wk"], p.get("bk")).reshape(B, Skv, KH,
@@ -119,11 +145,19 @@ def qkv(p, x, cfg, ctx=None, *, rotate=None, whole_kv=False, rank=0,
                    .reshape(B, Skv, k1 - k0, hd))
         v = proj(src, p["wv"][:, cols], None if bv is None else bv[cols]) \
             .reshape(B, Skv, k1 - k0, hd)
-    return (q, kv_for_heads(k, q0, Hl, H // KH, k0),
-            kv_for_heads(v, q0, Hl, H // KH, k0), k_all, v_all)
+    return (q, kv_for_heads(k, h0, Hl, H // KH, k0),
+            kv_for_heads(v, h0, Hl, H // KH, k0), k_all, v_all)
 
 
 # ---------------------------------------------------------------- core math
+
+def _groups(H: int, KH: int) -> int:
+    """Query heads a KV head: H // KH; 1 for no heads (a rank of "model"
+    that holds none runs the same ops on empty tensors, so every leaf and
+    input it was given is read and its gradient's collectives run as on
+    the other ranks)."""
+    return H // KH if KH else 1
+
 
 def _scores_mask(qpos, kpos, *, causal: bool, window: int):
     m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
@@ -186,7 +220,7 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
     """
     B, Sq, H, hd = q.shape
     Skv, KH = k.shape[1], k.shape[2]
-    G = H // KH
+    G = _groups(H, KH)
     q = q.reshape(B, Sq, KH, G, hd)
     dev = q.device
 
@@ -266,7 +300,7 @@ def dense_attention(q, k, v, *, causal: bool, window: int = 0,
     """Plain einsum attention (small S / decode)."""
     B, Sq, H, hd = q.shape
     KH = k.shape[2]
-    G = H // KH
+    G = _groups(H, KH)
     q = q.reshape(B, Sq, KH, G, hd)
     qpos = q_offset + torch.arange(Sq, device=q.device)
     kpos = torch.arange(k.shape[1], device=q.device)

@@ -273,7 +273,7 @@ def moe_ep(p, x, cfg, mesh, *, data_axes=("pod", "data"), model_axis="model"):
 
         out, aux = _dispatch_combine({"router": rw}, xs, cfg, capacity,
                                      expert_fn)
-        out = _GatherShards.apply(out, group, 0)
+        out = _GatherShards.apply(out, group, 0, None)
     else:
         # tiny token counts (decode): every rank runs its own experts on
         # every token; the outputs are summed over the model group

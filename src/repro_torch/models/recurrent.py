@@ -137,6 +137,18 @@ def init_mlstm_cell(seed, d_inner, n_heads, dtype, *, device):
     }
 
 
+def _no_heads(x, p, state):
+    """A cell of no heads (a rank of "model" that holds none): its empty
+    output and the state as it is.  The output still reads ``x`` and
+    every leaf of ``p`` (their empty parts), so their zero gradients flow
+    back through the collectives that made them, as on the ranks with
+    heads."""
+    y = x[..., :0]
+    for t in p.values():
+        y = y + t.sum().to(y.dtype)
+    return y, state
+
+
 def _mlstm_qkvg(p, x, n_heads):
     """q, k, v, ĩ, f̃ of ``n_heads`` heads (``p``'s columns: all heads, or
     a rank's) from the cell input ``x`` (B,S,Din)."""
@@ -162,6 +174,8 @@ def mlstm_chunked(p, x, n_heads: int, chunk: int = 256, state=None):
 
     state = (C (B,H,dh,dh), n (B,H,dh), m (B,H)).
     """
+    if n_heads == 0:
+        return _no_heads(x, p, state)
     B, S, _ = x.shape
     H = n_heads
     Din = p["wq"].shape[-1]
@@ -231,6 +245,8 @@ def mlstm_chunked(p, x, n_heads: int, chunk: int = 256, state=None):
 
 def mlstm_step(p, x_t, n_heads: int, state):
     """One decode step.  x_t (B,Din) -> (y_t (B,H·dh), state)."""
+    if n_heads == 0:
+        return _no_heads(x_t, p, state)
     B = x_t.shape[0]
     q, k, v, ig, fg = _mlstm_qkvg(p, x_t[:, None, :], n_heads)
     q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]       # (B,H,hd)
@@ -279,6 +295,8 @@ def slstm_scan(p, x, n_heads: int, state=None):
     doc).  ``n_heads`` heads of ``p``'s gate columns and recurrent blocks:
     all, or a rank's under tensor parallelism (which reads the whole
     ``x``)."""
+    if n_heads == 0:
+        return _no_heads(x, p, state)
     B, S, _ = x.shape
     H = n_heads
     Din = p["wz"].shape[-1]

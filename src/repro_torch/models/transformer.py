@@ -43,13 +43,17 @@ with its decode only when the prompt length is a multiple of W.
 
 On a ``Runtime`` over a mesh with a "model" dim the layers run
 tensor-parallel over it (the reference's GSPMD program; Megatron-LM's
-layout): attention on the rank's query heads (column-parallel q/k/v,
-row-parallel output, all-reduced or, under ``seq_parallel``,
-reduce-scattered to the rank's slice of the sequence), FFNs on its columns,
-where the parameters arrive split (``sharding.compute_spec``: whole heads
-only; elsewhere a layer runs whole on every rank).  The recurrent mixers
-split too: an RG-LRU over its channels (the gates read all of them, an
-all-gather), an mLSTM or sLSTM cell over whole heads.  A decode cache
+layout): attention on the rank's whole query heads (column-parallel
+q/k/v, row-parallel output, all-reduced or, under ``seq_parallel``,
+reduce-scattered to the rank's slice of the sequence; ``Runtime.heads``:
+H/tp where the heads divide and the parameters arrive split, else ⌈H/tp⌉
+or ⌊H/tp⌋, none where H < tp, taken from parameters gathered whole), FFNs
+on its columns where the parameters arrive split (``sharding.
+compute_spec``; elsewhere an FFN runs whole on every rank).  The
+recurrent mixers split too: an RG-LRU over its channels (the gates read
+all of them, an all-gather), an mLSTM or sLSTM cell over the rank's whole
+heads, as attention.  A rank without heads runs the same ops on empty
+tensors, so its collectives are the other ranks'.  A decode cache
 holds the rank's slice of the KV length (``KVShard``): decode attends over
 it and merges the partial softmax states over the group; only the rank
 holding a slot writes it.  A recurrent cache holds the rank's channels or
@@ -62,6 +66,7 @@ import torch
 from torch import nn
 
 from repro_torch.distributed import tensor_parallel as tp_lib
+from repro_torch.distributed.sharding import head_range
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
@@ -85,8 +90,10 @@ class Runtime:
     layers run tensor-parallel, as the reference's GSPMD program does: a
     layer whose parameters arrive as this rank's shard (its heads, FFN
     columns or vocabulary rows; ``distributed.sharding.compute_spec``)
-    computes its part and sums or gathers over the group; a layer whose
-    parameters arrive whole computes the whole layer on every rank.  The
+    computes its part and sums or gathers over the group; attention and
+    the xLSTM cells compute the rank's whole heads (``heads``) also from
+    parameters that arrive whole; any other layer whose parameters arrive
+    whole computes the whole layer on every rank.  The
     residual stream between the layers is whole over "model" or, under
     ``seq_parallel``, the rank's slice of the sequence (the ``act_btd``
     constraint of ``sharding.make_constraint_fn``, which ``shard``
@@ -199,17 +206,31 @@ class Runtime:
             return ctx
         return tp_lib.enter(ctx, self.group)
 
-    def gather_channels(self, x, *, partial: bool = True):
-        """The rank's channels of ``x`` (its last dim) made whole over
-        "model": all-gather forward; backward, the reduce-scatter of a
-        gradient that is a partial sum over the group (``partial``:
-        split work reads the whole, or the sequence is split after), else
-        the rank's slice of a gradient that is the same on every rank."""
+    def heads(self, n_heads: int) -> tuple:
+        """(h0, h1): the rank's whole heads of ``n_heads`` over "model"
+        (``sharding.head_range``: uneven where they do not divide; all of
+        them on one rank)."""
+        return head_range(n_heads, self.tp, self.tp_rank)
+
+    def head_sizes(self, n_heads: int, unit: int = 1) -> list:
+        """Each rank's count of heads of ``n_heads``, times ``unit`` (a
+        head's channels), in rank order: what ``gather_channels`` takes
+        for the ranks' heads."""
+        return [(h1 - h0) * unit for h0, h1 in
+                (head_range(n_heads, self.tp, r) for r in range(self.tp))]
+
+    def gather_channels(self, x, *, partial: bool = True, sizes=None):
+        """The rank's channels of ``x`` (its last dim; ``sizes``, each
+        rank's count, where they are uneven) made whole over "model":
+        all-gather forward; backward, the reduce-scatter of a gradient
+        that is a partial sum over the group (``partial``: split work
+        reads the whole, or the sequence is split after), else the rank's
+        slice of a gradient that is the same on every rank."""
         if self.tp == 1:
             return x
         if partial:
-            return tp_lib.gather_seq(x, self.group, x.ndim - 1)
-        return tp_lib.gather_shards(x, self.group, x.ndim - 1)
+            return tp_lib.gather_seq(x, self.group, x.ndim - 1, sizes)
+        return tp_lib.gather_shards(x, self.group, x.ndim - 1, sizes)
 
     def whole_seq(self, x):
         """The whole sequence of a residual stream (an encoder's output,
@@ -384,10 +405,13 @@ def _fill_cross_cache(cache, k, v) -> None:
     cache["ev"].copy_(v[:, start:start + n])
 
 
-def _local_heads(p, cfg) -> int:
-    """Query heads of an attention's parameters as this rank computes
-    with them: all of them, or its shard over "model"."""
-    return p["wq"].shape[-1] // cfg.head_dim
+def _whole_heads(q, n_heads: int, rt):
+    """A decode step's query (B, 1, Hl, hd) of the rank's heads made
+    whole over them (every rank attends with all of them over its slice
+    of the KV length): the ranks' uneven heads gathered padded."""
+    if rt.tp == 1:
+        return q
+    return tp_lib.all_gather(q, rt.group, 2, rt.head_sizes(n_heads))
 
 
 def _decode_attend(q, cache_k, cache_v, *, kv_valid, softcap, rt, cache):
@@ -411,8 +435,8 @@ def _self_attention(p, h, cfg, *, causal, window, mode, cache, pos, rt):
     the residual stream's layout; the result is too."""
     rt = rt or NULL_RT
     H, hd = cfg.n_heads, cfg.head_dim
-    Hl = _local_heads(p, cfg)
-    split = Hl < H
+    heads = rt.heads(H)
+    Hl, split = heads[1] - heads[0], rt.tp > 1
     x = rt.region_in(h, split)
     B, S, _ = x.shape
     if cfg.pos_kind == "rope":
@@ -426,7 +450,7 @@ def _self_attention(p, h, cfg, *, causal, window, mode, cache, pos, rt):
     decode = mode == "decode"
     q, k, v, k_all, v_all = attn_lib.qkv(
         p, x, cfg, rotate=rotate, whole_kv=decode or cache is not None,
-        rank=rt.tp_rank, group=rt.group)
+        heads=heads, group=rt.group)
     if decode:
         ck, cv = cache["k"], cache["v"]
         start, W = kv_span(cache)
@@ -438,12 +462,10 @@ def _self_attention(p, h, cfg, *, causal, window, mode, cache, pos, rt):
         if start <= slot < start + ck.shape[1]:
             ck[:, slot - start:slot - start + 1] = k_all
             cv[:, slot - start:slot - start + 1] = v_all
-        q_all = tp_lib.all_gather(q, rt.group, 2) if split else q
-        out = _decode_attend(q_all, ck, cv,
+        out = _decode_attend(_whole_heads(q, H, rt), ck, cv,
                              kv_valid=min(pos + 1, W),
                              softcap=cfg.logit_softcap, rt=rt, cache=cache)
-        if split:
-            out = out[:, :, rt.tp_rank * Hl:(rt.tp_rank + 1) * Hl]
+        out = out[:, :, heads[0]:heads[1]]
     else:
         if cfg.attn_chunk and S > cfg.attn_chunk:
             out = attn_lib.blockwise_attention(
@@ -456,7 +478,8 @@ def _self_attention(p, h, cfg, *, causal, window, mode, cache, pos, rt):
                                            softcap=cfg.logit_softcap)
         if cache is not None:
             _fill_self_cache(cache, k_all, v_all, window)
-    out = out.reshape(B, S, Hl * hd) @ p["wo"].to(x.dtype)
+    out = out.reshape(B, S, Hl * hd) @ attn_lib.head_part(
+        p["wo"], heads, hd, H, 0).to(x.dtype)
     out = rt.region_out(out, split)
     if "bo" in p:
         out = out + p["bo"].to(out.dtype)
@@ -468,27 +491,29 @@ def _cross_attention(p, h, cfg, *, ctx, cache, mode, rt):
     or from the cache (decode)."""
     rt = rt or NULL_RT
     H, hd = cfg.n_heads, cfg.head_dim
-    Hl = _local_heads(p, cfg)
-    split = Hl < H
+    heads = rt.heads(H)
+    Hl, split = heads[1] - heads[0], rt.tp > 1
     x = rt.region_in(h, split)
     B, S, _ = x.shape
     if mode == "decode" and cache is not None and "ek" in cache:
-        q = attn_lib.proj(x, p["wq"], p.get("bq")).reshape(B, S, Hl, hd)
-        q_all = tp_lib.all_gather(q, rt.group, 2) if split else q
-        out = _decode_attend(q_all, cache["ek"], cache["ev"],
-                             kv_valid=None, softcap=cfg.logit_softcap, rt=rt,
-                             cache=cache)
-        if split:
-            out = out[:, :, rt.tp_rank * Hl:(rt.tp_rank + 1) * Hl]
+        bq = p.get("bq")
+        q = attn_lib.proj(x, attn_lib.head_part(p["wq"], heads, hd, H),
+                          None if bq is None
+                          else attn_lib.head_part(bq, heads, hd, H))
+        out = _decode_attend(_whole_heads(q.reshape(B, S, Hl, hd), H, rt),
+                             cache["ek"], cache["ev"], kv_valid=None,
+                             softcap=cfg.logit_softcap, rt=rt, cache=cache)
+        out = out[:, :, heads[0]:heads[1]]
     else:
         q, k, v, k_all, v_all = attn_lib.qkv(
             p, x, cfg, rt.ctx_in(ctx, split), whole_kv=cache is not None,
-            rank=rt.tp_rank, group=rt.group)
+            heads=heads, group=rt.group)
         if cache is not None:
             _fill_cross_cache(cache, k_all, v_all)
         out = attn_lib.dense_attention(q, k, v, causal=False,
                                        softcap=cfg.logit_softcap)
-    out = out.reshape(B, S, Hl * hd) @ p["wo"].to(x.dtype)
+    out = out.reshape(B, S, Hl * hd) @ attn_lib.head_part(
+        p["wo"], heads, hd, H, 0).to(x.dtype)
     return rt.region_out(out, split)
 
 
@@ -618,57 +643,71 @@ def init_mlstm_block(seed, cfg, *, device):
     }
 
 
-def _head_cols(t, rank: int, n: int, dim: int = -1):
-    """Rank ``rank``'s 1/n of ``t``'s dim ``dim`` (its heads' columns of
-    a whole leaf laid out head by head; a view)."""
-    size = t.shape[dim] // n
-    return t.narrow(dim, rank * size, size)
+def xlstm_part(p, cfg, kind: str, rt) -> tuple:
+    """(the leaves of an mLSTM or sLSTM block that the rank computes its
+    cell with, its count of heads): its whole heads' part of each
+    (``rt.heads``; all of them on one rank), taken from a whole leaf or
+    arriving as the rank's shard where the heads divide "model".  mLSTM:
+    ``wup``'s x_m and z columns, the conv's channels, the cell's q, k, v
+    columns and gates, ``wdown``'s rows; sLSTM: the cell's gate columns,
+    biases and recurrent blocks (its conv whole)."""
+    H = cfg.n_heads
+    heads = rt.heads(H)
+    cell = p["cell"]
+    if kind == "mlstm":
+        dh = 2 * cfg.d_model // H
+
+        def part(t, unit=dh, dim=-1):
+            return attn_lib.head_part(t, heads, unit, H, dim)
+        return {"wup": torch.cat([part(w) for w in torch.chunk(
+                    p["wup"], 2, dim=-1)], dim=-1),
+                "conv": {k: part(p["conv"][k]) for k in ("w", "b")},
+                "cell": {**{k: part(cell[k]) for k in ("wq", "wk", "wv")},
+                         **{k: part(cell[k], 1)
+                            for k in ("wi", "wf", "bi", "bf")}},
+                "wdown": part(p["wdown"], dim=0)}, heads[1] - heads[0]
+    dh = cfg.d_model // H
+    return {"conv": p["conv"], "cell": {
+        k: attn_lib.head_part(cell[k], heads, 1 if k[0] == "r" else dh, H,
+                              0 if k[0] == "r" else -1)
+        for k in ("wz", "wo", "wi", "wf", "bz", "bi", "bf", "bo",
+                  "rz", "ri", "rf", "ro")}}, heads[1] - heads[0]
 
 
 def mlstm_mixer(p, x, cfg, *, mode, cache, rt=None):
     """The mLSTM block (its projections and cell: the whole block, which
     has no FFN) on the residual stream ``x``: what it adds to it (the
-    decode cache written in place).  Given the rank's heads (``cell/wq`` of
-    fewer than d_in columns) it runs split over "model": ``wup``, gathered
-    whole, gives the rank's heads' x_m and z columns; the conv runs on
-    their channels, q, k, v and the gates on the whole conv output
-    (gathered) and the cell on the rank's H/tp heads; ``wdown``
+    decode cache written in place).  On a runtime over "model" it runs
+    split on the rank's whole heads (``xlstm_part``; uneven, or none,
+    where they do not divide): ``wup`` gives its heads' x_m and z
+    columns; the conv runs on their channels, q, k, v and the gates on
+    the whole conv output (gathered) and the cell on its heads; ``wdown``
     row-parallel."""
     rt = rt or NULL_RT
-    d_in = 2 * cfg.d_model
-    cell = p["cell"]
-    split = cell["wq"].shape[-1] < d_in
+    split = rt.tp > 1
     h = rt.region_in(apply_norm(p["norm"], x, cfg.norm_kind), split)
-    H = cfg.n_heads
-    wup = p["wup"]
-    if split:
-        n = rt.tp
-        H = cfg.n_heads // n
-        wup = torch.cat([_head_cols(w, rt.tp_rank, n)
-                         for w in torch.chunk(wup, 2, dim=-1)], dim=-1)
-        cell = {"wq": cell["wq"], "wk": cell["wk"], "wv": cell["wv"],
-                **{k: _head_cols(cell[k], rt.tp_rank, n)
-                   for k in ("wi", "wf", "bi", "bf")}}
-    up = h @ wup.to(h.dtype)
+    part, H = xlstm_part(p, cfg, "mlstm", rt)
+    up = h @ part["wup"].to(h.dtype)
     xm, z = torch.chunk(up, 2, dim=-1)
     decode = mode == "decode"
-    c, new_conv = rec_lib.conv1d_causal(p["conv"], xm,
+    c, new_conv = rec_lib.conv1d_causal(part["conv"], xm,
                                         cache["conv"] if decode else None)
     c = silu(c)
     if split:
-        c = rt.gather_channels(c)
+        c = rt.gather_channels(c, sizes=rt.head_sizes(
+            cfg.n_heads, 2 * cfg.d_model // cfg.n_heads))
     if decode:
         y, new_state = rec_lib.mlstm_step(
-            cell, c[:, 0], H, (cache["C"], cache["n"], cache["m"]))
+            part["cell"], c[:, 0], H, (cache["C"], cache["n"], cache["m"]))
         y = y[:, None, :]
     else:
-        y, new_state = rec_lib.mlstm_chunked(cell, c, H,
+        y, new_state = rec_lib.mlstm_chunked(part["cell"], c, H,
                                              chunk=cfg.mlstm_chunk)
     if cache is not None:
-        for name, t in zip(("C", "n", "m"), new_state):
+        for name, t in zip(("C", "n", "m"), new_state or ()):
             cache[name].copy_(t)
         cache["conv"].copy_(new_conv)
-    return rt.region_out((y * silu(z)) @ p["wdown"].to(x.dtype), split)
+    return rt.region_out((y * silu(z)) @ part["wdown"].to(x.dtype), split)
 
 
 def apply_mlstm_block(p, x, cfg, *, mode, cache, rt=None):
@@ -696,41 +735,34 @@ def init_slstm_block(seed, cfg, *, device):
 
 def slstm_mixer(p, x, cfg, *, mode, cache, rt=None):
     """The sLSTM block's conv and cell on the residual stream ``x``: what
-    they add to it (the decode cache written in place).  Given the rank's
-    heads (``cell/wz`` of fewer than d_model columns) the cell runs on
-    them, on the whole conv output (the conv runs whole), and its heads'
-    outputs are gathered (the cell has no projection back)."""
+    they add to it (the decode cache written in place).  On a runtime
+    over "model" the cell runs on the rank's whole heads (``xlstm_part``;
+    uneven, or none, where they do not divide), on the whole conv output
+    (the conv runs whole), and its heads' outputs are gathered (the cell
+    has no projection back)."""
     rt = rt or NULL_RT
-    cell = p["cell"]
-    split = cell["wz"].shape[-1] < cfg.d_model
+    split = rt.tp > 1
     h = rt.region_in(apply_norm(p["norm"], x, cfg.norm_kind), False)
     decode = mode == "decode"
     c, new_conv = rec_lib.conv1d_causal(
         p["conv"], h, cache["conv"] if decode else None)
     c = rt.ctx_in(silu(c), split)
-    H = cfg.n_heads
-    if split:
-        n = rt.tp
-        H = cfg.n_heads // n
-        cell = {"wz": cell["wz"], "wo": cell["wo"],
-                **{k: _head_cols(cell[k], rt.tp_rank, n, 0 if k[0] == "r"
-                                 else -1)
-                   for k in ("wi", "wf", "bz", "bi", "bf", "bo",
-                             "rz", "ri", "rf", "ro")}}
+    part, H = xlstm_part(p, cfg, "slstm", rt)
     if decode:
         state = (cache["c"], cache["n"], cache["h"], cache["m"])
-        y, new_state = rec_lib.slstm_step(cell, c[:, 0], H, state)
+        y, new_state = rec_lib.slstm_step(part["cell"], c[:, 0], H, state)
         y = y[:, None, :]
     else:
-        y, new_state = rec_lib.slstm_scan(cell, c, H, None)
+        y, new_state = rec_lib.slstm_scan(part["cell"], c, H, None)
     if cache is not None:
-        for name, t in zip(("c", "n", "h", "m"), new_state):
+        for name, t in zip(("c", "n", "h", "m"), new_state or ()):
             cache[name].copy_(t)
         cache["conv"].copy_(new_conv)
     if split:
         # the gradient of the whole output is the same on every rank, or,
         # where the sequence is split after, a partial sum
-        y = rt.gather_channels(y, partial=rt.sp)
+        y = rt.gather_channels(y, partial=rt.sp, sizes=rt.head_sizes(
+            cfg.n_heads, cfg.d_model // cfg.n_heads))
     return rt.region_out(y, False)
 
 
@@ -829,7 +861,7 @@ def init_block_cache(cfg, kind: str, batch: int, kv_len: int,
     cache whose KV length divides the group holds the rank's slice of it
     (a ``KVShard``), and a recurrent state the rank's channels or heads
     where its mixer runs split, as ``sharding.cache_shardings`` and
-    ``sharding.recurrent_cache_dims`` split them."""
+    ``sharding.recurrent_cache_slices`` split them."""
     KH, hd = cfg.n_kv, cfg.head_dim
     cdt = cfg.dtype_torch
     f32 = torch.float32
@@ -854,25 +886,23 @@ def init_block_cache(cfg, kind: str, batch: int, kv_len: int,
         return c
     if kind == "xattn":
         return {"cross": kv(("ek", "ev"), enc_len)}
-    # a recurrent state: the rank's 1/tp of its channels or heads where
-    # they divide
-    cells = tp if tp > 1 and cfg.n_heads % tp == 0 else 1
+    # a recurrent state: the rank's 1/tp of the RG-LRU's channels where
+    # they divide, its whole heads of an xLSTM cell (``Runtime.heads``)
+    h0, h1 = rt.heads(cfg.n_heads) if rt is not None else (0, cfg.n_heads)
+    H = h1 - h0
     if kind == "rglru":
         lru = cfg.d_model
         lru //= tp if tp > 1 and lru % tp == 0 else 1
         return {"h": z(batch, lru, dtype=f32),
                 "conv": z(batch, cfg.conv_width - 1, lru)}
     if kind == "mlstm":
-        d_in = 2 * cfg.d_model
-        dh = d_in // cfg.n_heads
-        H = cfg.n_heads // cells
+        dh = 2 * cfg.d_model // cfg.n_heads
         return {"C": z(batch, H, dh, dh, dtype=f32),
                 "n": z(batch, H, dh, dtype=f32),
                 "m": z(batch, H, dtype=f32) - 1e30,
-                "conv": z(batch, cfg.conv_width - 1, d_in // cells)}
+                "conv": z(batch, cfg.conv_width - 1, H * dh)}
     if kind == "slstm":
         dh = cfg.d_model // cfg.n_heads
-        H = cfg.n_heads // cells
         return {"c": z(batch, H, dh, dtype=f32),
                 "n": z(batch, H, dh, dtype=f32) + 1e-6,
                 "h": z(batch, H, dh, dtype=f32),

@@ -99,27 +99,33 @@ MODEL_RANKS = 16
 
 
 def tp_note(cfg, tp: int = MODEL_RANKS) -> str:
-    """What each rank of "model" computes whole rather than split
-    (``distributed.sharding.compute_spec``): every other attention, FFN,
-    vocabulary and recurrent product runs on the rank's 1/tp (an RG-LRU
-    over its channels, an xLSTM cell over whole heads)."""
-    whole = []
+    """What each rank of "model" computes otherwise than on its 1/tp
+    (``distributed.sharding.compute_spec``): attention and xLSTM cells
+    whose heads do not divide, on its whole heads, unevenly (at most
+    ⌈H/tp⌉ a rank, ``head_range``); the KV projections, vocabulary and
+    sLSTM FFN that run whole.  Every other attention, FFN, vocabulary
+    and recurrent product runs on the rank's 1/tp (an RG-LRU over its
+    channels, an xLSTM cell over whole heads)."""
+    uneven, whole = [], []
     kinds = set(cfg.layer_pattern) | (set(cfg.encoder_pattern)
                                       if cfg.is_encdec else set())
+    most = f"{cfg.n_heads} over {tp} (≤ {-(-cfg.n_heads // tp)} a rank)"
     if kinds & {"attn", "local_attn", "attn_cross", "enc_attn", "xattn"}:
         if cfg.n_heads % tp:
-            whole.append(f"attention ({cfg.n_heads} heads)")
-        elif cfg.n_kv % tp:
+            uneven.append(f"attention {most}")
+        if cfg.n_kv % tp:
             whole.append(f"KV projections ({cfg.n_kv} KV heads)")
     if cfg.vocab % tp:
         whole.append(f"vocabulary ({cfg.vocab})")
     cells = sorted(kinds & {"mlstm", "slstm"})
     if cells and cfg.n_heads % tp:
-        whole.append("/".join(k[0] + k[1:].upper() for k in cells)
-                     + f" cells ({cfg.n_heads} heads)")
+        uneven.append("/".join(k[0] + k[1:].upper() for k in cells)
+                      + f" cells {most}")
     if "slstm" in kinds and ((4 * cfg.d_model) // 3) % tp:
         whole.append("sLSTM FFN")
-    return "whole: " + ", ".join(whole) if whole else ""
+    return "; ".join(([f"uneven heads: {', '.join(uneven)}"] if uneven
+                      else []) + ([f"whole: {', '.join(whole)}"] if whole
+                                  else []))
 
 
 def fmt_table(mesh: str = "single", results_dir: str = RESULTS_DIR) -> str:

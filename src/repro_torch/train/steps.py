@@ -27,7 +27,8 @@ vocabulary rows, experts), over "model" too for the rest.  Each layer
 gathers where it runs (``_GatherOnUse``; inside a remat group the
 recompute gathers again, so no gathered layer outlives its group) and its
 backward reduce-scatters the gradients, averaged over the data dims and
-summed over "model" where a rank's gradient is a partial sum there, to
+summed over "model" where a rank's gradient is a partial sum there (a
+leaf of which the rank computed its uneven heads' part, among others), to
 the rule's placements; the embeddings, final norms and frontends are
 gathered once a step.  ``seq_parallel`` splits the residual stream's
 sequence over "model" too (``act_btd``).  AdamW and sgd update each
@@ -657,25 +658,26 @@ def local_caches(caches, mesh, batch: int) -> list:
     split as ``cache_shardings`` says: the batch over the data dims and
     the KV length of the attention caches over "model", each such cache a
     ``KVShard`` that knows its first position; and a recurrent state's
-    channels or heads over "model" where its mixer runs split
-    (``sharding.recurrent_cache_dims``)."""
+    channels or whole heads over "model" where its mixer runs split
+    (``sharding.recurrent_cache_slices``: uneven where the heads do not
+    divide)."""
     specs = shard_rules.cache_shardings(caches, mesh, batch)
     names = list(mesh.mesh_dim_names)
     tp = mesh.size(names.index("model")) if "model" in names else 1
+    rank = mesh.get_local_rank("model") if tp > 1 else 0
 
     def walk(tree, spec):
         if isinstance(tree, dict):
-            rec = shard_rules.recurrent_cache_dims(tree, tp)
-            spec = {k: tuple("model" if i == rec.get(k) else a
-                             for i, a in enumerate(sp))
-                    for k, sp in spec.items()} if rec else spec
             out = {k: walk(v, spec[k]) for k, v in tree.items()}
+            for k, (d, a, b) in shard_rules.recurrent_cache_slices(
+                    tree, tp, rank).items():
+                out[k] = out[k].narrow(d, a, b - a).contiguous()
             first = next(iter(tree.values()))
             sp = spec[next(iter(tree))]
             if next(iter(tree)) in ("k", "ek") \
                     and sp[first.ndim - 3] == "model":
                 n = first.shape[first.ndim - 3] // tp
-                return KVShard(out, start=mesh.get_local_rank("model") * n,
+                return KVShard(out, start=rank * n,
                                total=first.shape[first.ndim - 3])
             return out
         if isinstance(tree, (list, tuple)):

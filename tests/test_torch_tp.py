@@ -7,7 +7,9 @@ One spawn of four ranks per module (``util.dist.spawn(..., backend=
 "gloo", device="cpu")``) computes everything the tests read, on the
 ("data", "model") meshes (1, 4) and (2, 2), with ``seq_parallel`` off and
 on, for the families of tests/test_torch_train_dist.py plus reduced
-smollm, qwen2 and granite (MQA) (fp32; MoE at no-drop capacity with the
+smollm, qwen2, granite (MQA), yi-34b (7 heads, 1 KV head: 2/2/2/1 on
+(1, 4), 4/3 on (2, 2)) and a two-head whisper-base (1/1/0/0 on (1, 4):
+two ranks hold no heads) (fp32; MoE at no-drop capacity with the
 load-balance weight 0, as there):
 
 * the forward's logits (the prefill's, gathered over the vocabulary, or
@@ -19,9 +21,10 @@ load-balance weight 0, as there):
   (``steps.sharded_grads``) within a scaled 1e-4, every shard of the
   rule's shape;
 * under ``seq_parallel`` each rank's ``act_btd`` of (B/dp, S/tp, D);
-* the projections computed on 1/tp of the heads and FFN columns where
-  they divide (whole elsewhere), decode caches holding L/tp of the KV
-  length;
+* the projections computed on the rank's whole heads
+  (``sharding.head_range``: 1/tp of them where they divide, unevenly
+  elsewhere) and 1/tp of the FFN columns where they divide (whole
+  elsewhere), decode caches holding L/tp of the KV length;
 * prefill and three decode steps with the KV length split over "model"
   (a distributed flash-decode) against the single-device decode, within a
   scaled 1e-5; recurrentgemma's local-attention ring also at prompts 40
@@ -30,18 +33,20 @@ load-balance weight 0, as there):
 * the vocabulary-parallel cross entropy and its gradient against the
   whole-vocabulary one, within 1e-6;
 * the recurrent mixers (reduced recurrentgemma-9b: 64 RG-LRU channels,
-  split on both meshes; reduced xlstm-125m: 2 heads, its cells split on
-  (2, 2), whole on (1, 4)): each rank's leaf widths and decode caches,
-  and each mixer's forward collectives (``util.wire.record_wire``).
+  split on both meshes; reduced xlstm-125m: 2 heads, its cells split
+  1/1 on (2, 2), 1/1/0/0 on (1, 4)): each rank's leaf widths and decode
+  caches, and each mixer's forward collectives (``util.wire.
+  record_wire``).
 
-The JAX side runs reduced qwen2's, recurrentgemma's and xlstm's train
-steps on 4 forced host devices in a fresh interpreter (this file runs
-itself as a script), from the state it writes with
+The JAX side runs reduced qwen2's, recurrentgemma's, xlstm's and yi's
+train steps on 4 forced host devices in a fresh interpreter (this file
+runs itself as a script), from the state it writes with
 ``repro.checkpoint.save``, and ``jax.grad`` of that state on the batch;
 the ranks restore both, run the port's 2 × 2 ``seq_parallel`` step on
-the same batch and hold its loss at the same tolerance (qwen2's
-parameters too), its gradient norm within a relative 1e-4 and its
-gradient shards within a scaled 1e-4.
+the same batch and hold its loss at the same tolerance (qwen2's and
+yi's parameters too), its gradient norm within a relative 1e-4 and its
+gradient shards within a scaled 1e-4 (yi: the reference splits its 112
+query columns mid-head, 3.5 heads a rank; the port by whole heads).
 """
 
 import dataclasses
@@ -71,7 +76,11 @@ SERVE_TOL = 1e-5
 XENT_TOL = 1e-6
 FAMILIES = ("whisper_base", "recurrentgemma_9b", "dbrx_132b", "xlstm_125m",
             "llama32_vision_90b")
-ARCHS = FAMILIES + ("smollm_135m", "qwen2_72b", "granite_20b")
+#: reduced whisper-base with two heads (head_dim 32): on (1, 4) two
+#: ranks hold none of its encoder's, self- and cross-attention's heads
+WHISPER_2H = "whisper_base_2h"
+ARCHS = FAMILIES + ("smollm_135m", "qwen2_72b", "granite_20b", "yi_34b",
+                    WHISPER_2H)
 MESHES = ((1, 4), (2, 2))
 B, S = 4, 32
 KV_LEN = 80
@@ -79,15 +88,18 @@ RING_PROMPTS = (40, 70)
 OPT = dict(kind="adamw", lr=1e-3, warmup_steps=1, total_steps=10)
 #: the archs whose 2 × 2 seq_parallel step is held against the JAX
 #: package's
-JAX_ARCHS = ("qwen2_72b", "recurrentgemma_9b", "xlstm_125m")
+JAX_ARCHS = ("qwen2_72b", "recurrentgemma_9b", "xlstm_125m", "yi_34b")
 #: the archs with recurrent mixers (reduced recurrentgemma-9b: d = 64,
-#: split on both meshes; reduced xlstm-125m: 2 heads, split on (2, 2),
-#: whole on (1, 4))
+#: split on both meshes; reduced xlstm-125m: 2 heads, one a rank on
+#: (2, 2), 1/1/0/0 on (1, 4))
 REC_ARCHS = ("recurrentgemma_9b", "xlstm_125m")
 
 
 def _cfg(arch):
     from repro_torch.configs import base as cb
+    if arch == WHISPER_2H:
+        return cb.get_reduced_config("whisper_base").replace(
+            n_heads=2, n_kv=2, head_dim=32)
     cfg = cb.get_reduced_config(arch)
     if cfg.moe.n_experts:
         cfg = cfg.replace(moe=dataclasses.replace(
@@ -177,8 +189,9 @@ def _rows(t, mesh):
 
 class _Seen:
     """What the model computes with on this rank: ``act_btd``'s shapes out
-    of ``Runtime.shard``, the query-projection columns and FFN rows, and
-    the train step's gradients (``steps.sharded_grads``' shards)."""
+    of ``Runtime.shard``, the query heads' columns (of q) and FFN rows,
+    the recurrent mixers' leaves (an xLSTM cell's from ``xlstm_part``),
+    and the train step's gradients (``steps.sharded_grads``' shards)."""
 
     def __init__(self):
         from repro_torch.models import attention, transformer
@@ -189,12 +202,13 @@ class _Seen:
         self._qkv, self._shard, self._ffn, self._grads = (
             attention.qkv, transformer.Runtime.shard, transformer.ffn,
             steps.sharded_grads)
-        self._mixers = {k: getattr(transformer, f"{k}_mixer")
-                        for k in RECURRENT}
+        self._mixer = transformer.rglru_mixer
+        self._part = transformer.xlstm_part
 
         def qkv(p, *a, **k):
-            self.wq.add(p["wq"].shape[-1])
-            return self._qkv(p, *a, **k)
+            out = self._qkv(p, *a, **k)
+            self.wq.add(out[0].shape[2] * out[0].shape[3])
+            return out
 
         def shard(rt, x, kind, **k):
             y = self._shard(rt, x, kind, **k)
@@ -210,24 +224,27 @@ class _Seen:
             out = self._grads(*a, **k)
             self.grads.append(out[2])
             return out
-        def mixer(kind):
-            def run(p, *a, **k):
-                self.rec.add((kind,) + _rec_widths(kind, p))
-                return self._mixers[kind](p, *a, **k)
-            return run
+        def rglru_mixer(p, *a, **k):
+            self.rec.add(("rglru",) + _rec_widths("rglru", p))
+            return self._mixer(p, *a, **k)
+
+        def xlstm_part(p, cfg, kind, rt):
+            out = self._part(p, cfg, kind, rt)
+            self.rec.add((kind,) + _rec_widths(kind, out[0]))
+            return out
         attention.qkv, transformer.Runtime.shard, transformer.ffn = \
             qkv, shard, ffn
         steps.sharded_grads = sharded_grads
-        for kind in RECURRENT:
-            setattr(transformer, f"{kind}_mixer", mixer(kind))
+        transformer.rglru_mixer = rglru_mixer
+        transformer.xlstm_part = xlstm_part
 
     def close(self):
         attention, transformer, steps = self.mods
         attention.qkv, transformer.Runtime.shard, transformer.ffn = \
             self._qkv, self._shard, self._ffn
         steps.sharded_grads = self._grads
-        for kind, fn in self._mixers.items():
-            setattr(transformer, f"{kind}_mixer", fn)
+        transformer.rglru_mixer = self._mixer
+        transformer.xlstm_part = self._part
 
 
 #: the recurrent mixers (``transformer.{kind}_mixer``)
@@ -238,7 +255,8 @@ def _rec_widths(kind, p) -> tuple:
     """The widths of a recurrent mixer's leaves as a rank computes with
     them: RG-LRU (wy, wgate, lru/wa's columns, lru/lam, conv/w, wout's
     rows), mLSTM (cell/wq, cell/wk, cell/wv, conv/w, wdown's rows), sLSTM
-    (cell/wz, cell/wo, conv/w)."""
+    (cell/wz, cell/wo, conv/w); an xLSTM cell's as ``xlstm_part`` gives
+    them."""
     if kind == "rglru":
         return (p["wy"].shape[-1], p["wgate"].shape[-1],
                 p["lru"]["wa"].shape[-1], p["lru"]["lam"].shape[-1],
@@ -481,7 +499,7 @@ def _jax_case(mesh, jax_dir, arch):
             "grads": max(_shard_diffs(seen.grads[-1], grads["params"],
                                       mesh)) / top,
             "grad_norm": abs(float(md["grad_norm"]) / want["grad_norm"] - 1),
-            "rec": sorted(seen.rec)}
+            "rec": sorted(seen.rec), "wq": tuple(sorted(seen.wq))}
 
 
 def _rank_body(out_dir, jax_dir):
@@ -616,21 +634,24 @@ def test_local_attention_ring_decodes_with_the_kv_split(ranks, mesh, prompt,
 @pytest.mark.parametrize("arch", ARCHS)
 def test_projections_split_where_heads_and_columns_divide(ranks, mesh,
                                                           arch):
-    """Each rank's query projection has H/tp heads where the heads divide
-    (else all H), its FFNs F/tp columns where F divides."""
+    """Each rank computes its query projection on its whole heads
+    (``head_range``: H/tp where the heads divide, ⌈H/tp⌉ or ⌊H/tp⌋ where
+    they do not, none on a rank past the last head), its FFNs on F/tp
+    columns where F divides (else all F)."""
+    from repro_torch.distributed.sharding import head_range
     cfg = _cfg(arch)
     tp = mesh[1]
     H, hd = cfg.n_heads, cfg.head_dim
-    want_q = H * hd // tp if H % tp == 0 else H * hd
     ffn = {cfg.d_ff} if cfg.d_ff and (not cfg.moe.n_experts
                                       or cfg.moe.shared_expert) else set()
     if "slstm" in cfg.layer_pattern:
         ffn.add((4 * cfg.d_model) // 3)
     want_f = sorted(f // tp if f % tp == 0 else f for f in ffn)
-    for res in ranks:
+    for rank, res in enumerate(ranks):
+        h0, h1 = head_range(H, tp, rank % tp)
         r = res[(mesh, arch, False)]
         if "mlstm" not in cfg.layer_pattern:
-            assert r["wq"] == [want_q], r["wq"]
+            assert r["wq"] == [(h1 - h0) * hd], (rank, r["wq"])
         assert r["ffn"] == want_f, r["ffn"]
 
 
@@ -647,22 +668,25 @@ def test_decode_caches_hold_their_slice_of_the_kv_length(ranks, mesh, arch):
         assert all(n * tp == total for total, n in lens), lens
 
 
-def _want_rec(cfg, tp, dp):
+def _want_rec(cfg, tp, dp, rank):
     """{kind: the widths ``_rec_widths`` reads} and the recurrent caches'
-    {(leaf, shape)} a rank of (dp, tp) holds: the RG-LRU on lru/tp
-    channels where they divide, the xLSTM cells on H/tp heads where the
-    heads do (the sLSTM's conv whole), else whole."""
+    {(leaf, shape)} rank ``rank`` of "model" on (dp, tp) holds: the
+    RG-LRU on lru/tp channels where they divide (else whole), the xLSTM
+    cells on the rank's whole heads (``head_range``: H/tp where they
+    divide, unevenly or none where they do not; the sLSTM's conv
+    whole)."""
+    from repro_torch.distributed.sharding import head_range
     D, H = cfg.d_model, cfg.n_heads
     lru = D // tp if D % tp == 0 else D
-    cells = tp if H % tp == 0 else 1
+    h0, h1 = head_range(H, tp, rank)
     d_in = 2 * D
     Bl, w1 = B // dp, cfg.conv_width - 1
-    Hl, dm, ds = H // cells, d_in // H, D // H
-    widths = {"rglru": (lru,) * 6, "mlstm": (d_in // cells,) * 5,
-              "slstm": (D // cells, D // cells, D)}
+    Hl, dm, ds = h1 - h0, d_in // H, D // H
+    widths = {"rglru": (lru,) * 6, "mlstm": (Hl * dm,) * 5,
+              "slstm": (Hl * ds, Hl * ds, D)}
     caches = {"rglru": {("h", (Bl, lru)), ("conv", (Bl, w1, lru))},
               "mlstm": {("C", (Bl, Hl, dm, dm)), ("n", (Bl, Hl, dm)),
-                        ("m", (Bl, Hl)), ("conv", (Bl, w1, d_in // cells))},
+                        ("m", (Bl, Hl)), ("conv", (Bl, w1, Hl * dm))},
               "slstm": {(k, (Bl, Hl, ds)) for k in "cnhm"}
               | {("conv", (Bl, w1, D))}}
     kinds = [k for k in RECURRENT if k in cfg.layer_pattern]
@@ -674,18 +698,19 @@ def _want_rec(cfg, tp, dp):
 @pytest.mark.parametrize("arch", REC_ARCHS)
 def test_recurrent_leaves_and_caches_split(ranks, mesh, arch):
     """Each rank's RG-LRU leaves and caches on lru/tp channels, its mLSTM
-    and sLSTM cells and caches on H/tp heads where the heads divide (the
-    sLSTM's conv whole), all whole where they do not (xlstm's 2 heads on
-    (1, 4)), in the train step and in serving, with seq_parallel off and
-    on."""
+    and sLSTM cells and caches on its whole heads (the sLSTM's conv
+    whole): H/tp where the heads divide, one or none where they do not
+    (xlstm's 2 heads on (1, 4): 1/1/0/0), in the train step and in
+    serving, with seq_parallel off and on."""
     cfg = _cfg(arch)
     dp, tp = mesh
-    widths, caches = _want_rec(cfg, tp, dp)
-    for res in ranks:
+    for rank, res in enumerate(ranks):
+        widths, caches = _want_rec(cfg, tp, dp, rank % tp)
         for sp in (False, True):
             r = res[(mesh, arch, sp)]
-            assert set(r["rec"]) == widths, (sp, r["rec"])
-            assert set(r["rec_caches"]) == caches, (sp, r["rec_caches"])
+            assert set(r["rec"]) == widths, (rank, sp, r["rec"])
+            assert set(r["rec_caches"]) == caches, (rank, sp,
+                                                    r["rec_caches"])
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -693,23 +718,24 @@ def test_recurrent_leaves_and_caches_split(ranks, mesh, arch):
 @pytest.mark.parametrize("sp", [False, True])
 def test_recurrent_mixer_collectives(ranks, mesh, arch, sp):
     """A recurrent mixer's forward over "model" (``util.wire.record_wire``):
-    split, an RG-LRU or mLSTM one all-gather of its channels (the gates'
-    and q/k/v's input) and one all-reduce of its output (under
-    seq_parallel the sequence all-gathered first and the output
-    reduce-scattered), an sLSTM one all-gather of its heads' outputs;
-    whole, nothing (under seq_parallel the sequence gathered)."""
+    an RG-LRU or mLSTM one all-gather of its channels (the gates' and
+    q/k/v's input) and one all-reduce of its output (under seq_parallel
+    the sequence all-gathered first and the output reduce-scattered), an
+    sLSTM one all-gather of its heads' outputs.  An xLSTM cell's heads
+    gather padded to ⌈H/tp⌉ heads a rank where they do not divide
+    (xlstm's 2 heads on (1, 4): each rank sends one head's channels)."""
     cfg = _cfg(arch)
     dp, tp = mesh
     D = cfg.d_model
     rows = B // dp * S                    # the rank's tokens, whole sequence
-    cells = cfg.n_heads % tp == 0
+    most = -(-cfg.n_heads // tp)          # heads a rank sends, padded
     seq = [("all_gather", rows // tp * D)] if sp else []
     out_sum = [("reduce_scatter" if sp else "all_reduce", rows * D)]
     want = {
         "rglru": seq + [("all_gather", rows * D // tp)] + out_sum,
-        "mlstm": (seq + [("all_gather", rows * 2 * D // tp)] + out_sum)
-        if cells else seq,
-        "slstm": seq + ([("all_gather", rows * D // tp)] if cells else []),
+        "mlstm": seq + [("all_gather", rows * most * 2 * D // cfg.n_heads)]
+        + out_sum,
+        "slstm": seq + [("all_gather", rows * most * D // cfg.n_heads)],
     }
     for res in ranks:
         for kind in RECURRENT:
@@ -735,10 +761,16 @@ COMPUTE_CASES = [
     ("qwen2_72b", "attn/bk", None, True),
     ("qwen2_72b", "ffn/mlp/wi_gate", 1, False),
     ("qwen2_72b", "norm1/scale", None, False),
-    ("smollm_135m", "attn/wq", None, False),     # 9 heads do not
-    ("smollm_135m", "attn/wk", None, False),
+    ("smollm_135m", "attn/wq", None, True),      # 9 heads do not: uneven
+    ("smollm_135m", "attn/wk", None, True),
+    ("smollm_135m", "attn/wo", None, True),
     ("smollm_135m", "ffn/mlp/wo", 0, False),
-    ("yi_34b", "attn/wq", None, False),          # 448 columns: 3.5 heads
+    ("yi_34b", "attn/wq", None, True),           # 448 columns: 3.5 heads
+    ("yi_34b", "attn/wo", None, True),
+    ("whisper_base", "attn/bq", None, True),     # 8 heads over 16
+    ("whisper_base", "xattn/wo", None, True),
+    ("whisper_base", "attn/bo", None, False),
+    ("llama4_maverick", "attn/wq", None, True),  # 40 heads over 16
     ("granite_20b", "attn/wk", None, True),      # MQA
     ("llama4_maverick", "ffn/moe/wi_gate", 0, False),
     ("llama4_maverick", "ffn/moe/router", None, False),
@@ -748,9 +780,11 @@ COMPUTE_CASES = [
     ("recurrentgemma_9b", "lru/lam", 0, False),
     ("recurrentgemma_9b", "wout", 0, False),
     ("recurrentgemma_9b", "conv/w", 1, False),
-    ("xlstm_125m", "cell/wq", None, False),      # 4 heads do not divide
-    ("xlstm_125m", "wup", None, False),
-    ("xlstm_125m", "cell/wi", None, False),
+    ("xlstm_125m", "cell/wq", None, True),       # 4 heads do not divide
+    ("xlstm_125m", "wup", None, True),
+    ("xlstm_125m", "cell/wi", None, True),
+    ("xlstm_125m", "conv/w", None, True),        # the mLSTM's heads' conv
+    ("xlstm_125m", "wdown", None, True),
 ]
 
 
@@ -758,8 +792,9 @@ COMPUTE_CASES = [
 def test_compute_spec_at_the_production_tp(arch, leaf, dim, partial):
     """``sharding.compute_spec`` on the 16 × 16 mesh: the leaves a rank
     computes split (as stored) or whole, and whose gradient is a partial
-    sum over "model"; under seq_parallel every whole leaf's but the
-    router's."""
+    sum over "model" (a head leaf whose heads do not divide: gathered
+    whole, the rank's uneven heads taken); under seq_parallel every whole
+    leaf's but the router's."""
     import types
     from repro_torch.configs import base as cb
     from repro_torch.distributed import sharding as sr
@@ -827,15 +862,77 @@ def test_compute_spec_splits_xlstm_cells_where_heads_divide(leaf, dim,
 
 @pytest.mark.parametrize("arch,tp,note", [
     ("recurrentgemma_9b", 16, "whole: KV projections (1 KV heads)"),
-    ("xlstm_125m", 16, "whole: mLSTM/sLSTM cells (4 heads)"),
+    ("xlstm_125m", 16, "uneven heads: mLSTM/sLSTM cells 4 over 16 (≤ 1 a "
+                       "rank)"),
     ("xlstm_125m", 4, ""),
+    ("xlstm_125m", 3, "uneven heads: mLSTM/sLSTM cells 4 over 3 (≤ 2 a "
+                      "rank); whole: sLSTM FFN"),   # 1,024 columns
+    ("smollm_135m", 16, "uneven heads: attention 9 over 16 (≤ 1 a rank); "
+                        "whole: KV projections (3 KV heads)"),
+    ("yi_34b", 16, "uneven heads: attention 56 over 16 (≤ 4 a rank); "
+                   "whole: KV projections (8 KV heads)"),
+    ("llama4_maverick", 16, "uneven heads: attention 40 over 16 (≤ 3 a "
+                            "rank); whole: KV projections (8 KV heads)"),
+    ("whisper_base", 16, "uneven heads: attention 8 over 16 (≤ 1 a rank); "
+                         "whole: KV projections (8 KV heads), vocabulary "
+                         "(51865)"),
+    ("qwen2_72b", 16, "whole: KV projections (8 KV heads)"),
 ])
 def test_tp_note_names_what_stays_whole(arch, tp, note):
     """``roofline.report.tp_note``: the RG-LRU splits over its channels;
-    the xLSTM cells are whole only where their heads do not divide."""
+    attention and the xLSTM cells run on the rank's whole heads, unevenly
+    where the heads do not divide; the KV projections and the vocabulary
+    run whole where they do not divide."""
     from repro_torch.configs import base as cb
     from repro_torch.roofline.report import tp_note
     assert tp_note(cb.get_config(arch), tp) == note
+
+
+#: (n_heads, tp): heads that divide, that do not, and fewer than the ranks
+HEAD_SPLITS = [(9, 16), (56, 16), (40, 16), (8, 16), (4, 16), (4, 3),
+               (7, 4), (7, 2), (2, 4), (9, 4), (56, 3), (64, 16), (6, 4),
+               (4, 4)]
+
+
+@pytest.mark.parametrize("n_heads,tp", HEAD_SPLITS)
+def test_head_range_covers_every_head_once(n_heads, tp):
+    """``sharding.head_range``: the ranks' ranges tile 0 … H − 1 in rank
+    order, each rank ⌈H/tp⌉ or ⌊H/tp⌋ heads, the larger on the first
+    H mod tp ranks; where the heads divide, rank r's are r·H/tp … (the
+    storage split)."""
+    from repro_torch.distributed.sharding import head_range
+    ranges = [head_range(n_heads, tp, r) for r in range(tp)]
+    assert [h for a, b in ranges for h in range(a, b)] == list(
+        range(n_heads))
+    sizes = [b - a for a, b in ranges]
+    assert sizes == sorted(sizes, reverse=True)
+    assert max(sizes) == -(-n_heads // tp) and min(sizes) == n_heads // tp
+    assert sizes.count(-(-n_heads // tp)) == (n_heads % tp or tp)
+    if n_heads % tp == 0:
+        n = n_heads // tp
+        assert ranges == [(r * n, (r + 1) * n) for r in range(tp)]
+
+
+@pytest.mark.parametrize("n_heads,n_kv,tp,want", [
+    (56, 8, 3, [(0, 3), (2, 6), (5, 8)]),      # yi-34b: 19/19/18 heads
+    (9, 3, 4, [(0, 1), (1, 2), (1, 3), (2, 3)]),     # smollm-135m
+    (7, 1, 4, [(0, 1)] * 4),                   # reduced yi-34b
+    (2, 2, 4, [(0, 1), (1, 2), (2, 2), (2, 2)]),     # two heads: none
+    (40, 8, 16, [(0, 1), (0, 2), (1, 2), (1, 3), (2, 3), (3, 4), (3, 5),
+                 (4, 5), (4, 6), (5, 6), (5, 6), (6, 7), (6, 7), (6, 8),
+                 (7, 8), (7, 8)]),              # llama4-maverick: 3s, 2s
+])
+def test_kv_heads_each_rank_reads(n_heads, n_kv, tp, want):
+    """The KV heads [lo, hi) each rank's query heads read (GQA groups of
+    H / KH): a group straddles ranks where the heads split unevenly, and
+    a rank without query heads reads none."""
+    from repro_torch.distributed.sharding import head_range
+    from repro_torch.models.attention import kv_heads_of
+    got = []
+    for r in range(tp):
+        h0, h1 = head_range(n_heads, tp, r)
+        got.append(kv_heads_of(h0, h1 - h0, n_heads // n_kv))
+    assert got == want
 
 
 def test_seq_parallel_step_matches_jax(ranks):
@@ -852,6 +949,24 @@ def test_seq_parallel_step_matches_jax(ranks):
         assert r["params"] < PARAM_TOL, r
         assert r["grad_norm"] < GRAD_NORM_TOL, r
         assert r["grads"] < GRAD_TOL, r
+
+
+def test_uneven_heads_seq_parallel_step_matches_jax(ranks):
+    """``test_seq_parallel_step_matches_jax`` for reduced yi-34b, whose 7
+    heads split 4/3 by whole heads on 2 × 2 where the reference splits
+    its 112 query columns mid-head (3.5 heads a rank): the loss, the
+    parameters, the gradient norm and each gradient shard; each rank
+    computed its own whole heads."""
+    cfg = _cfg("yi_34b")
+    for res in ranks:
+        r = res[("jax", "yi_34b")]
+        assert "error" not in r, r
+        assert r["loss"] < LOSS_TOL, r
+        assert r["params"] < PARAM_TOL, r
+        assert r["grad_norm"] < GRAD_NORM_TOL, r
+        assert r["grads"] < GRAD_TOL, r
+    widths = {res[("jax", "yi_34b")]["wq"] for res in ranks}
+    assert widths == {(4 * cfg.head_dim,), (3 * cfg.head_dim,)}, widths
 
 
 @pytest.mark.parametrize("arch", REC_ARCHS)
