@@ -20,6 +20,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.core.error import sq_error_from_products
+from repro_torch.obs.trace import active_tracer
 
 
 @dataclass
@@ -67,15 +68,27 @@ def aunmf_step_rule(A, W, Ht, rule, state, normA_sq, *, mm: Callable,
 
     ``mm(A, B) -> A @ B``, ``mm_t(A, B) -> Aᵀ @ B`` and ``gram(X) -> XᵀX``
     are the ``LocalOps`` local products (the engine passes its backend's).
+
+    Each phase is a device span of the active tracer
+    (``obs.trace.active_tracer()``), under ``obs.phases``' key: no-ops
+    while it is disabled.
     """
-    HHt = gram(Ht)
-    AHt = mm(A, Ht)
-    W, state = rule.update_w(HHt, AHt, W, state, norm_psum=norm_psum)
-    WtW = gram(W)
-    AtW = mm_t(A, W)                 # (WᵀA)ᵀ, (n, k)
-    Ht, state = rule.update_h(WtW, AtW, Ht, state, norm_psum=norm_psum)
-    HHt_new = gram(Ht)
-    sq = sq_error_from_products(normA_sq, AtW, Ht, WtW, HHt_new)
+    span, dev = active_tracer().device_span, Ht.device
+    with span("phase.gram_w", dev):
+        HHt = gram(Ht)
+    with span("phase.mm_w", dev):
+        AHt = mm(A, Ht)
+    with span("phase.luc_w", dev):
+        W, state = rule.update_w(HHt, AHt, W, state, norm_psum=norm_psum)
+    with span("phase.gram_h", dev):
+        WtW = gram(W)
+    with span("phase.mm_h", dev):
+        AtW = mm_t(A, W)             # (WᵀA)ᵀ, (n, k)
+    with span("phase.luc_h", dev):
+        Ht, state = rule.update_h(WtW, AtW, Ht, state, norm_psum=norm_psum)
+    with span("phase.error", dev):
+        HHt_new = gram(Ht)
+        sq = sq_error_from_products(normA_sq, AtW, Ht, WtW, HHt_new)
     return W, Ht, sq, state
 
 

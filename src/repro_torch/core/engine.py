@@ -41,6 +41,7 @@ import torch
 from repro_torch import backends as _backends
 from repro_torch.core import rules as _rules
 from repro_torch.core.aunmf import NMFResult, aunmf_step_rule, init_h, init_w
+from repro_torch.obs.trace import active_tracer, use_tracer
 from repro_torch.util.convert import to_torch
 from repro_torch.util.device import make_generator, resolve_device
 
@@ -500,9 +501,11 @@ class NMFSolver:
         as a chain of per-phase segments, synchronised at each boundary
         (``obs/phases.py``): the unprofiled fit's bits, plus
         ``extras["phase_times"]``, the mean seconds per iteration of each
-        phase; ``tracer`` (an ``obs.trace.Tracer``) then records a
+        phase.  ``tracer`` (an ``obs.trace.Tracer``) records a
         ``phase.<key>`` span per phase and a ``phase.iteration`` span per
-        iteration."""
+        iteration: host spans between the profiled loop's syncs, or,
+        unprofiled, the loop's device spans, which otherwise go to the
+        process-default tracer (``run_segment``)."""
         if profile and self.panel_compression is not None:
             raise ValueError(
                 "profile=True times the uncompressed wire format; it does "
@@ -520,10 +523,11 @@ class NMFSolver:
             res = self.collect_result(rs)
             res.extras["phase_times"] = phase_times
             return res
-        if self.stopping.adaptive:
-            self._adaptive_loop(rs, self.stopping)
-        else:
-            self.run_segment(rs, self.stopping.max_iters)
+        with use_tracer(tracer or active_tracer()):
+            if self.stopping.adaptive:
+                self._adaptive_loop(rs, self.stopping)
+            else:
+                self.run_segment(rs, self.stopping.max_iters)
         return self.collect_result(rs)
 
     # -- segment API --------------------------------------------------------
@@ -566,17 +570,27 @@ class NMFSolver:
 
     def run_segment(self, rs: RunState, iters: int) -> RunState:
         """Advance ``iters`` fixed iterations in place.  The rel errors stay
-        on the device until the segment ends: one sync per segment."""
+        on the device until the segment ends: one sync per segment.
+
+        Each iteration is a ``phase.iteration`` device span of the active
+        tracer (``obs.trace.active_tracer()``) with ``iteration`` (the
+        run's step) and ``segment`` (its index in ``rel_history``) args;
+        the serial step's phases are spans inside it.  They are resolved
+        after the read-back, which adds no sync."""
         if iters <= 0:
             return rs
+        tracer, seg = active_tracer(), len(rs.rel_history)
         rels = torch.empty((iters,), dtype=torch.float32, device=self.device)
         W, Ht, state = rs.W, rs.Ht, rs.state
         for i in range(iters):
-            W, Ht, sq, state = self._step(rs, W, Ht, state)
+            with tracer.device_span("phase.iteration", self.device,
+                                    iteration=rs.step + i, segment=seg):
+                W, Ht, sq, state = self._step(rs, W, Ht, state)
             rels[i] = _rel_error(sq, rs.normA_sq)
         rs.W, rs.Ht, rs.state = W, Ht, state
         rs.step += iters
         rs.rel_history.append(rels.cpu())
+        tracer.resolve()
         return rs
 
     def restore_carry(self, rs: RunState, *, rule_state=None,
@@ -736,10 +750,14 @@ class NMFSolver:
         rank that stopped alone would leave the others waiting in a
         collective)."""
         done, rels = _stopping_test(crit), []
+        tracer, seg = active_tracer(), len(rs.rel_history)
         W, Ht, state = rs.W, rs.Ht, rs.state
-        for _ in range(crit.max_iters):
-            W, Ht, sq, state = self._step(rs, W, Ht, state)
+        for i in range(crit.max_iters):
+            with tracer.device_span("phase.iteration", self.device,
+                                    iteration=rs.step + i, segment=seg):
+                W, Ht, sq, state = self._step(rs, W, Ht, state)
             rels.append(np.float32(_rel_error(sq, rs.normA_sq).item()))
+            tracer.resolve()
             if done(rels[-1]):
                 break
         rs.W, rs.Ht, rs.state = W, Ht, state

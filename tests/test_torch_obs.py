@@ -18,6 +18,7 @@ import math
 import os
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -473,6 +474,248 @@ def test_profile_zero_iterations():
     res = NMFSolver(K, algo="mu", device="cpu", max_iters=0).fit(
         A, W0=W0, H0=H0, profile=True)
     assert res.iters == 0 and res.extras["phase_times"] == {}
+
+
+# ---------------------------------------------------------------------------
+# Device spans of the unprofiled loop
+# ---------------------------------------------------------------------------
+
+PHASE_SPANS = {f"phase.{p}" for p in expected_phases("serial")}
+
+
+@pytest.fixture
+def default_on():
+    """The process-default tracer, enabled and empty; disabled and
+    emptied again afterwards."""
+    tr = default_tracer()
+    tr.clear()
+    tr.enable()
+    try:
+        yield tr
+    finally:
+        tr.disable()
+        tr.clear()
+
+
+def _fit_input(backend):
+    """The problem as dense or sparse input, and the solver's backend."""
+    A, W0, H0 = _problem()
+    if backend == "sparse":
+        A = torch.from_numpy(A * (A > 1.2)).to_sparse()
+    return A, W0, H0
+
+
+class _FakeCudaEvent:
+    """A stand-in for ``torch.cuda.Event`` on a fake device clock (ms):
+    ``record`` stamps the clock, ``query`` says whether the clock has
+    reached the stamp's completion."""
+
+    made = 0
+    now_ms = 0.0          # the device's clock at the next record
+    done_ms = 1e9         # events stamped before this have completed
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+        self.at = None
+
+    def record(self, stream=None):
+        cls = type(self)
+        self.at = cls.now_ms
+        cls.now_ms += 1.5
+
+    def query(self):
+        return self.at is not None and self.at < type(self).done_ms
+
+    def elapsed_time(self, other):
+        return other.at - self.at
+
+
+@pytest.fixture
+def fake_events(monkeypatch):
+    monkeypatch.setattr(_FakeCudaEvent, "made", 0)
+    monkeypatch.setattr(_FakeCudaEvent, "now_ms", 0.0)
+    monkeypatch.setattr(_FakeCudaEvent, "done_ms", 1e9)
+    monkeypatch.setattr(torch.cuda, "Event", _FakeCudaEvent)
+    return _FakeCudaEvent
+
+
+@pytest.mark.parametrize("algo,backend", [("mu", "dense"), ("hals", "dense"),
+                                          ("bpp", "dense"), ("mu", "sparse")])
+def test_traced_fit_is_bit_equal_to_the_untraced_fit(default_on, algo,
+                                                     backend):
+    A, W0, H0 = _fit_input(backend)
+    solver = NMFSolver(K, algo=algo, backend=backend, device="cpu",
+                       max_iters=ITERS)
+    default_on.disable()
+    plain = solver.fit(A, W0=W0, H0=H0)
+    assert default_on.spans() == []
+    default_on.enable()
+    traced = solver.fit(A, W0=W0, H0=H0)
+    for key in ("W", "H", "rel_errors"):
+        assert torch.equal(getattr(traced, key), getattr(plain, key)), key
+    assert len(default_on.spans()) == ITERS * (len(PHASE_SPANS) + 1)
+
+
+@pytest.mark.parametrize("kw", [{}, {"tol": 1e-9}],
+                         ids=["fixed", "adaptive"])
+def test_traced_fit_nests_seven_phases_in_each_iteration(default_on, kw):
+    A, W0, H0 = _problem()
+    solver = NMFSolver(K, algo="hals", device="cpu", max_iters=ITERS, **kw)
+    if kw:
+        solver.fit(A, W0=W0, H0=H0)
+        segments = [(0, range(ITERS))]
+    else:
+        rs = solver.prepare_state(A, W0=W0, H0=H0)
+        solver.run_segment(rs, 2)
+        solver.run_segment(rs, ITERS)
+        segments = [(0, range(2)), (1, range(2, 2 + ITERS))]
+    spans = default_on.spans()
+    for seg, its in segments:
+        for it in its:
+            mine = [e for e in spans
+                    if dict(e.args) == {"iteration": it, "segment": seg}]
+            outer = [e for e in mine if e.name == "phase.iteration"]
+            inner = [e for e in mine if e.name != "phase.iteration"]
+            assert len(outer) == 1 and len(inner) == len(PHASE_SPANS)
+            assert {e.name for e in inner} == PHASE_SPANS
+            o = outer[0]
+            for e in inner:
+                assert o.ts_us <= e.ts_us
+                assert e.ts_us + e.dur_us <= o.ts_us + o.dur_us
+    assert len(spans) == sum(len(its) for _, its in segments) * 8
+
+
+@pytest.mark.parametrize("kw,resolves", [({}, 1), ({"tol": 1e-9}, ITERS)],
+                         ids=["fixed", "adaptive"])
+def test_loops_resolve_at_their_read_backs(kw, resolves):
+    class Counting(Tracer):
+        calls = 0
+
+        def resolve(self):
+            Counting.calls += 1
+            return super().resolve()
+
+    A, W0, H0 = _problem()
+    NMFSolver(K, algo="mu", device="cpu", max_iters=ITERS, **kw).fit(
+        A, W0=W0, H0=H0, tracer=Counting())
+    assert Counting.calls == resolves
+
+
+def test_disabled_tracer_records_nothing_and_makes_no_cuda_event(
+        fake_events):
+    tr = Tracer(enabled=False)
+    assert tr.device_span("phase.mm_w", torch.device("cuda", 0),
+                          iteration=0) is tr.span("x")
+    with tr.device_span("phase.mm_w", torch.device("cuda", 0)):
+        pass
+    assert tr.resolve() == 0
+    A, W0, H0 = _problem()
+    assert not default_tracer().enabled
+    NMFSolver(K, algo="mu", device="cpu", max_iters=ITERS).fit(
+        A, W0=W0, H0=H0)
+    assert fake_events.made == 0
+    assert tr.spans() == [] and default_tracer().spans() == []
+
+
+def test_device_spans_resolve_from_their_events_without_a_sync(
+        fake_events, tmp_path):
+    tr, dev = Tracer(), torch.device("cuda", 0)
+    with tr.device_span("outer", dev, iteration=7):
+        with tr.device_span("inner", dev, segment=2):
+            pass
+    assert tr.spans() == []                      # pending until resolved
+    assert tr.resolve() == 2
+    spans = {e.name: e for e in tr.spans()}
+    inner, outer = spans["inner"], spans["outer"]
+    # events at 0 (outer), 1.5 (inner), 3.0 (inner's end), 4.5 (outer's)
+    assert outer.dur_us == pytest.approx(4500.0)
+    assert inner.dur_us == pytest.approx(1500.0)
+    assert inner.ts_us - outer.ts_us == pytest.approx(1500.0)
+    assert inner.tid == outer.tid == 2**31
+    assert dict(inner.args)["iteration"] == 7    # the outer span's args
+    assert dict(inner.args)["segment"] == 2
+    assert dict(outer.args).keys() == {"iteration", "host_dur_us"}
+    with tr.device_span("late", dev):            # events at 6.0 and 7.5
+        pass
+    fake_events.done_ms = 7.0                    # its end still runs
+    assert tr.resolve() == 0 and len(tr.spans()) == 2
+    fake_events.done_ms = 1e9
+    assert tr.resolve() == 1 and fake_events.made == 6
+    doc = json.loads(Path(tr.export(str(tmp_path / "t.json"))).read_text())
+    meta = [e for e in doc["traceEvents"] if e["ph"] == "M"]
+    assert meta == [{"name": "thread_name", "ph": "M", "pid": 1,
+                     "tid": 2**31, "args": {"name": "cuda:0"}}]
+
+
+def test_lower_step_records_no_spans(default_on):
+    rec = NMFSolver(K, algo="mu", device="cpu").lower_step(M, N)
+    assert rec is not None and default_on.spans() == []
+
+
+def test_fit_tracer_records_into_it_not_the_default(default_on):
+    tr = Tracer()
+    A, W0, H0 = _problem()
+    NMFSolver(K, algo="mu", device="cpu", max_iters=ITERS).fit(
+        A, W0=W0, H0=H0, tracer=tr)
+    assert default_on.spans() == []
+    assert len(tr.spans()) == ITERS * (len(PHASE_SPANS) + 1)
+    assert {e.name for e in tr.spans()} == PHASE_SPANS | {"phase.iteration"}
+
+
+#: an aten operator that each phase of a dense mu fit runs
+PHASE_OPS = {"gram_w": "aten::mm", "mm_w": "aten::mm", "luc_w": "aten::div",
+             "gram_h": "aten::mm", "mm_h": "aten::mm", "luc_h": "aten::div",
+             "error": "aten::sum"}
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_phase_spans_are_profiler_ranges_around_their_ops(tmp_path,
+                                                          enabled):
+    A, W0, H0 = _problem()
+    solver = NMFSolver(K, algo="mu", backend="dense", device="cpu",
+                       max_iters=ITERS)
+    tr = Tracer(enabled=enabled)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        solver.fit(A, W0=W0, H0=H0, tracer=tr)
+    path = str(tmp_path / "prof.json")
+    prof.export_chrome_trace(path)
+    events = [e for e in json.loads(Path(path).read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"].startswith("phase.")]
+    if not enabled:
+        assert ranges == []
+        return
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    for phase, op in PHASE_OPS.items():
+        mine = [e for e in ranges if e["name"] == f"phase.{phase}"]
+        assert len(mine) == ITERS, phase
+        for r in mine:
+            inside = {e["name"] for e in ops if r["ts"] <= e["ts"]
+                      and e["ts"] + e["dur"] <= r["ts"] + r["dur"]}
+            assert op in inside, (phase, sorted(inside))
+    assert len([e for e in ranges if e["name"] == "phase.iteration"]) == ITERS
+
+
+@pytest.mark.cuda
+def test_device_spans_time_the_iteration_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    A, W0, H0 = _problem(m=4096, n=2048)
+    tr = Tracer()
+    NMFSolver(K, algo="hals", device="cuda", max_iters=ITERS).fit(
+        A, W0=W0, H0=H0, tracer=tr)
+    spans = tr.spans()
+    assert len(spans) == ITERS * (len(PHASE_SPANS) + 1)
+    for it in range(ITERS):
+        mine = [e for e in spans if dict(e.args)["iteration"] == it]
+        outer = next(e for e in mine if e.name == "phase.iteration")
+        inner = [e for e in mine if e.name != "phase.iteration"]
+        assert all(e.dur_us > 0 and e.tid == outer.tid for e in inner)
+        assert sum(e.dur_us for e in inner) <= outer.dur_us * (1 + 1e-6)
+        assert all(outer.ts_us <= e.ts_us + 1e-3 for e in inner)
 
 
 # ---------------------------------------------------------------------------
