@@ -60,6 +60,13 @@ Phases, each of which raises on failure:
                full width beside their bound and plain versions (hals_sweep
                beside its recorded time before its redesign too), in fp32
                and with a bf16 carry, mu_update also at k = 64 and 128;
+               hals_sweep_norm (the HALS W-step's normalised sweep) against
+               its plain column loop in fp32 and bf16, with both ε, at the
+               same shapes (the ragged ones also on its wide head pass,
+               the one k > 1,438 takes), a column that clamps to all zeros
+               (the guard keeps it zero) and a repeat that must give the
+               same bits; timed at full width beside its bound and the
+               plain loop, in fp32 and bf16;
   7. main      fit() at the full shape: bpp for 10 iterations, then mu and
                hals for 3 each, with the launch counters reset just before
                each fit and read just after; the last rel error is checked
@@ -394,6 +401,9 @@ KERNELS = {
                    "replaces": "src/repro/kernels/hals_sweep.py:53"},
     "hals_sweep_wide": {"source": "src/repro_torch/kernels/csrc/luc.cu",
                         "replaces": "src/repro/kernels/hals_sweep.py:53"},
+    # the HALS W-step's normalised sweep, which the reference leaves to XLA
+    "hals_sweep_norm": {"source": "src/repro_torch/kernels/csrc/luc.cu",
+                        "replaces": "src/repro/core/rules.py:105"},
     # the products' bf16 A · fp32 B instantiation (phase 23)
     "ts_matmul_mixed": {"source": "src/repro_torch/kernels/csrc/ts_matmul.cu",
                         "replaces": "src/repro/kernels/ts_matmul.py:44"},
@@ -604,6 +614,98 @@ def luc_problem(gen, r: int, k: int, x_dtype, r_dtype):
     return X.to(x_dtype), C.T @ C, R.to(r_dtype)
 
 
+def norm_problem(gen, r: int, k: int, x_dtype):
+    """hals_sweep_norm's inputs: X near a planted X* with R = X*·G plus
+    noise, so that most updates stay positive; for k > 1, column min(3,
+    k − 1)'s R so negative that it clamps to all zeros (its norm 0: the
+    guard keeps it).  G fp32, R fp32."""
+    import torch
+    dev = gen.device
+    C = torch.rand((30, k), generator=gen, device=dev)
+    G = C.T @ C
+    X = torch.rand((r, k), generator=gen, device=dev)
+    R = X @ G + 0.1 * torch.rand((r, k), generator=gen, device=dev)
+    X *= 0.5 + torch.rand((r, k), generator=gen, device=dev)
+    if k > 1:
+        R[:, min(3, k - 1)] = -1e3
+    return X.to(x_dtype), G, R
+
+
+def phase_luc_norm(dev, gen, cases, errs: dict, label: str,
+                   time_rows: int) -> dict:
+    """hals_sweep_norm against its plain column loop (ref.hals_sweep_norm)
+    on ``norm_problem``'s inputs: each case (r, k) in fp32 and with a bf16
+    carry, with ε = 1e-16 and ε = eps_for, column-scaled within TOL, the
+    clamped column exactly zero, and a second run the same bits, on its
+    plan and, for r ≤ CHECK_ROWS, on the wide head pass (plan rows 0,
+    which a k past the head pass's tiles takes); then
+    timed at (time_rows, 50) in fp32 and bf16 beside its bound (X and R
+    read once, G once, the output written once; 2·r·k² flops) and the
+    plain loop."""
+    import torch
+    from repro_torch.core.rules import eps_for
+    from repro_torch.kernels import ops, ref
+    for (r, k), (dname, xdt) in (
+            (c, d) for c in cases
+            for d in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16))):
+        X, G, R = norm_problem(gen, r, k, xdt)
+        plan = ops.plan_hals_sweep_norm(
+            r, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        plans = [plan] + ([plan._replace(rows=0, head_blocks=plan.col_blocks)]
+                          if r <= CHECK_ROWS else [])
+        for eps, p in ((e, p) for e in (ref.LUC_EPS, eps_for(xdt))
+                       for p in plans):
+            got = ops.hals_sweep_norm(X, G, R, eps=eps, plan=p)
+            same = torch.equal(got, ops.hals_sweep_norm(X, G, R, eps=eps,
+                                                        plan=p))
+            want = ref.hals_sweep_norm(X, G, R, eps)
+            abs_err, err = col_scaled_err(got, want)
+            zero = k == 1 or not bool(got[:, min(3, k - 1)].any())
+            ok = (err <= TOL[dname] and got.dtype == xdt and same and zero
+                  and bool(torch.isfinite(got.float()).all()))
+            log(f"[luc] hals_sweep_norm {dname:8s} {label:6s} {(r, k)} "
+                f"eps {eps:.1e} {tuple(p)} err {err:.3e} (tol "
+                f"{TOL[dname]:.0e}) abs {abs_err:.3e}; repeat bit-equal "
+                f"{same}; clamped column zero {zero} "
+                f"{'ok' if ok else 'FAIL'}")
+            require(ok, f"hals_sweep_norm {dname} {(r, k)} eps {eps} plan "
+                        f"{tuple(p)}: err {err:.3e}, repeat bit-equal "
+                        f"{same}, clamped column zero {zero}")
+            e = errs.setdefault("hals_sweep_norm", [0.0, 0.0])
+            e[0], e[1] = max(e[0], abs_err), max(e[1], err)
+            del got, want
+        del X, G, R
+        torch.cuda.empty_cache()
+    r, k = time_rows, K
+    row = {"library_ms": None}
+    for dname, xdt in (("float32", torch.float32),
+                       ("bfloat16", torch.bfloat16)):
+        X, G, R = norm_problem(gen, r, k, xdt)
+        eps = eps_for(xdt)
+        size = X.element_size()
+        b_ms, b_by = bound_ms(r * k * (size + 4) + 4 * k * k, size * r * k,
+                              2.0 * r * k * k, "float32")
+        kern = lambda: ops.hals_sweep_norm(X, G, R, eps=eps)
+        plain = lambda: ref.hals_sweep_norm(X, G, R, eps)
+        p1, k1, k2, p2 = (time_ms(f, n) for f, n in (
+            (plain, 3), (kern, 10), (kern, 10), (plain, 3)))
+        tag = "" if dname == "float32" else "_bf16"
+        row.update({f"ms{tag}": min(k1, k2), f"plain_ms{tag}": min(p1, p2),
+                    f"bound_ms{tag}": b_ms})
+        if not tag:
+            row["bound_by"] = b_by
+        short = "fp32" if dname == "float32" else "bf16"
+        log(f"[luc timings] hals_sweep_norm {short} {label} {(r, k)} kernel "
+            f"{k1:.3f}/{k2:.3f} ms, plain loop {p1:.3f}/{p2:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}); "
+            f"{(r * k * (2 * size + 4)) / (min(k1, k2) * 1e-3) / 1e9:.0f} "
+            f"GB/s of the half-update's bytes")
+        del X, G, R
+        torch.cuda.empty_cache()
+    return {"hals_sweep_norm": row}
+
+
 def phase_luc(dev, cases, errs: dict, label: str, time_rows: int,
               mu_ks: tuple = ()) -> dict:
     """mu_update and hals_sweep against their plain versions: each case
@@ -611,7 +713,8 @@ def phase_luc(dev, cases, errs: dict, label: str, time_rows: int,
     ε = eps_for; then both timed in fp32 at (time_rows, 50) beside their
     bound, their plain versions and (mu) the three-op torch expression;
     mu_update also with a bf16 carry, and at (time_rows, k) for each k of
-    ``mu_ks`` in fp32 and bf16, each checked against its plain version."""
+    ``mu_ks`` in fp32 and bf16, each checked against its plain version.
+    Then hals_sweep_norm on the cases (``phase_luc_norm``)."""
     import torch
     from repro_torch.core.rules import eps_for
     from repro_torch.kernels import ops, ref
@@ -727,6 +830,7 @@ def phase_luc(dev, cases, errs: dict, label: str, time_rows: int,
                 f"{err:.3e} ok")
             del X, G, R
             torch.cuda.empty_cache()
+    out.update(phase_luc_norm(dev, gen, cases, errs, label, time_rows))
     return out
 
 
@@ -889,10 +993,14 @@ def phase_timings(A, Ht, W, errs: dict) -> dict:
     return out
 
 
-#: LUC launches per iteration of a plain rule's fit: MU updates both halves
-#: through mu_update; HALS only its H-step through hals_sweep (the W-step's
-#: normalised sweep stays a plain column loop)
-LUC_PER_ITER = {"mu": {"mu_update": 2}, "hals": {"hals_sweep": 1}, "bpp": {}}
+#: LUC launches per iteration of a plain rule's serial fit: MU updates both
+#: halves through mu_update; HALS its H-step through hals_sweep and its
+#: normalised W-step through hals_sweep_norm.  On a grid (faun, naive) the
+#: W-step's column norms are collectives, so it stays a plain column loop.
+LUC_PER_ITER = {"mu": {"mu_update": 2},
+                "hals": {"hals_sweep": 1, "hals_sweep_norm": 1}, "bpp": {}}
+LUC_PER_ITER_GRID = {"mu": {"mu_update": 2}, "hals": {"hals_sweep": 1},
+                     "bpp": {}}
 
 
 def phase_main(A, seed: int, runs) -> tuple[dict, dict, object]:
@@ -959,7 +1067,8 @@ def phase_accel(A, seed: int, runs, backend=None, label="accel") -> tuple:
     delta=0.01, through fit(); the launch counters reset just before each
     fit and read just after.  The LUC launches must equal the inner sweeps
     the rule state counted (amu: both halves through mu_update; ahals: its
-    H sweeps through hals_sweep, its normalised W sweeps in plain torch)."""
+    H sweeps through hals_sweep, its normalised W sweeps through
+    hals_sweep_norm)."""
     import numpy as np
     import torch
     from repro_torch.core import rules
@@ -986,7 +1095,8 @@ def phase_accel(A, seed: int, runs, backend=None, label="accel") -> tuple:
             f"sweeps {st}; launches {counts}")
         log(f"[{label}] {algo:5s} rel errors {rels.tolist()}")
         luc = ({"mu_update": st["inner_w"] + st["inner_h"]} if algo == "amu"
-               else {"hals_sweep": st["inner_h"]})
+               else {"hals_sweep": st["inner_h"],
+                     "hals_sweep_norm": st["inner_w"]})
         want = dict.fromkeys(counts, 0)
         if sparse:
             want["spmm_sorted"] = 2 * iters
@@ -1153,7 +1263,8 @@ def phase_schedules(A, seed: int, runs, card: str, label: str,
                     ) -> tuple[dict, dict]:
     """Phases 15, 15n and 16: ``schedule="faun"`` on a 1×1 grid and
     ``schedule="naive"`` at p = 1, on a one-rank NCCL group, each against
-    the serial fit from the same seed on the same A.  At one rank the
+    the serial fit from the same seed on the same A (HALS's with the plain
+    W sweep that the schedules run, ``plain_w_sweep``).  At one rank the
     collectives are identities through NCCL and the step runs the serial
     step's operations in its order, so W, H and the rel errors must be the
     same bits (``exact``; a product whose sums change order from run to
@@ -1185,8 +1296,9 @@ def phase_schedules(A, seed: int, runs, card: str, label: str,
             tag = f"{schedule:5s} {algo:4s}"
             if "backend" in kw:
                 tag += f" {kw['backend'].spmm_impl}"
-            ser, s_counts, s_peak, s_ms, s_prep, _ = segment_fit(
-                A, seed, iters, algo=algo, **kw)
+            with plain_w_sweep():
+                ser, s_counts, s_peak, s_ms, s_prep, _ = segment_fit(
+                    A, seed, iters, algo=algo, **kw)
             sched_kw = dict(schedule=schedule, **kw)
             if schedule == "faun":
                 sched_kw["grid"] = grid
@@ -1398,10 +1510,13 @@ def phase_gspmd(A, seed: int, runs, card: str, label: str) -> tuple[dict,
                                                                      dict]:
     """Phase 18: ``schedule="gspmd"`` on a one-rank NCCL group, each run
     beside the serial fit of the same backend and seed.  ``cuda`` runs on
-    plain tensors (its kernels are opaque to DTensor): bit-equal to serial.
+    plain tensors (its kernels are opaque to DTensor), HALS's W-step
+    through hals_sweep_norm as serial's: bit-equal to serial.
     ``dense`` and ``sparse`` run over a one-rank ``DeviceMesh`` (DTensors
     on the card), the rule on the rank's rows (``gspmd.rule_on_rows``), so
-    the LUC kernels launch as serial's do: held within a scaled 1e-4
+    the LUC kernels launch as serial's do (HALS's W-step, whose norms are
+    summed over the mesh, as the plain loop: the serial fit runs it too,
+    ``plain_w_sweep``): held within a scaled 1e-4
     (dense) or the sparse kernels' tolerance (sparse "auto", whose spmm
     sums change order from run to run) of the serial fit.  Every run
     launches serial's kernels, as many times.  ``runs`` holds (algo,
@@ -1419,8 +1534,10 @@ def phase_gspmd(A, seed: int, runs, card: str, label: str) -> tuple[dict,
                             group=group)
         for algo, iters, name, kw in runs:
             tag = f"gspmd {algo:4s} {name}"
-            ser, s_counts, s_peak, s_ms, _, _ = segment_fit(
-                A, seed, iters, algo=algo, **kw)
+            with (contextlib.nullcontext() if name == "cuda"
+                  else plain_w_sweep()):
+                ser, s_counts, s_peak, s_ms, _, _ = segment_fit(
+                    A, seed, iters, algo=algo, **kw)
             res, counts, peak, ms, prep, ptrs = segment_fit(
                 A, seed, iters, algo=algo, schedule="gspmd", grid=grid,
                 **kw)
@@ -1513,20 +1630,38 @@ def grid_rank(box: list, out: str, seed: int, runs,
 
 
 @contextlib.contextmanager
-def float64_luc():
-    """The LUC kernel wrappers replaced by float64 arithmetic (MU's update
-    and ``ref.hals_sweep_f64``): with float64 products, a fit in float64
-    from the same factors, which fp32 fits are held against."""
+def plain_w_sweep():
+    """The HALS W-step's kernel (``ops.hals_sweep_norm``) replaced by its
+    plain column loop, which the distributed schedules run (their column
+    norms are collectives): the serial fit they are held against."""
     from repro_torch.kernels import ops, ref
-    saved = ops.mu_update, ops.hals_sweep
+    saved = ops.hals_sweep_norm
+    ops.hals_sweep_norm = lambda X, G, R, *, eps=ref.LUC_EPS: (
+        ref.hals_sweep_norm(X, G, R, eps))
+    try:
+        yield
+    finally:
+        ops.hals_sweep_norm = saved
+
+
+@contextlib.contextmanager
+def float64_luc():
+    """The LUC kernel wrappers replaced by float64 arithmetic (MU's update,
+    ``ref.hals_sweep_f64`` and the W-step's plain loop): with float64
+    products, a fit in float64 from the same factors, which fp32 fits are
+    held against."""
+    from repro_torch.kernels import ops, ref
+    saved = ops.mu_update, ops.hals_sweep, ops.hals_sweep_norm
     ops.mu_update = lambda X, G, R, *, eps=ref.LUC_EPS: X * (R / (X @ G
                                                                   + eps))
     ops.hals_sweep = lambda X, G, R, *, eps=ref.LUC_EPS: ref.hals_sweep_f64(
         X, G, R, eps)
+    ops.hals_sweep_norm = lambda X, G, R, *, eps=ref.LUC_EPS: (
+        ref.hals_sweep_norm(X, G, R, eps))
     try:
         yield
     finally:
-        ops.mu_update, ops.hals_sweep = saved
+        ops.mu_update, ops.hals_sweep, ops.hals_sweep_norm = saved
 
 
 def float64_fit(A, seed: int, algo: str, iters: int):
@@ -1582,7 +1717,9 @@ def phase_grid(dev, seed: int, runs, card: str, rank_fn=grid_rank,
     against serial itself hals's rel errors differ by 1.29e-4 at seed 2.
     The float64 fit is the serial schedule run by the same engine and
     rules in float64 (``float64_fit``): it witnesses the grid's schedule
-    and collectives, not the rule code both share.  The factor 2 sits
+    and collectives, not the rule code both share.  The serial fp32 fit
+    runs its HALS W-step on the plain loop (``plain_w_sweep``), as the
+    ranks do and as when the limits were read.  The factor 2 sits
     between what ``tools/probe_grid_tolerance.py`` read on the card: at
     most 1.13× the serial fit's distance on sound grids (seeds 0–4), at
     least 14.6× with the gathered panels rounded to bf16, and ≥ 347× with
@@ -1606,8 +1743,9 @@ def phase_grid(dev, seed: int, runs, card: str, rank_fn=grid_rank,
     for algo, iters in runs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serial[algo] = NMFSolver(K, algo=algo, max_iters=iters).fit(
-            A, seed=seed)
+        with plain_w_sweep():       # the W-step the grid's ranks run
+            serial[algo] = NMFSolver(K, algo=algo, max_iters=iters).fit(
+                A, seed=seed)
         torch.cuda.synchronize()
         serial_ms[algo] = (time.perf_counter() - t0) * 1e3 / iters
         exact[algo] = float64_fit(A, seed, algo, iters)
@@ -1630,7 +1768,7 @@ def phase_grid(dev, seed: int, runs, card: str, rank_fn=grid_rank,
             want = dict.fromkeys(ops.LAUNCHES, 0)
             want.update(gram=3 * iters, ts_matmul=iters, ts_matmul_t=iters)
             want.update({name: c * iters
-                         for name, c in LUC_PER_ITER[algo].items()})
+                         for name, c in LUC_PER_ITER_GRID[algo].items()})
             ex = exact[algo]
             errs = {f: {"grid-serial": scaled_err(got[f], getattr(ser, f)
                                                   .cpu())[1],

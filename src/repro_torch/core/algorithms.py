@@ -63,7 +63,7 @@ def make_fold_in(algo: "_rules.RuleSpec", *, iters: int = 100,
     return fold
 
 
-def get_update_fns(algo: "_rules.RuleSpec", *, norm_psum=lambda v: v):
+def get_update_fns(algo: "_rules.RuleSpec", *, norm_psum=None):
     """Returns stateless ``(update_w, update_h)`` closures for ``algo``.
 
     update_w normalises columns under the HALS family (the paper's

@@ -62,12 +62,14 @@ def init_w(generator: torch.Generator, m: int, k: int, algo,
 
 
 def aunmf_step_rule(A, W, Ht, rule, state, normA_sq, *, mm: Callable,
-                    mm_t: Callable, gram: Callable, norm_psum=lambda v: v):
+                    mm_t: Callable, gram: Callable, norm_psum=None):
     """One full AU-NMF iteration through an ``UpdateRule``; returns
     (W, Ht, sq_error, state).
 
     ``mm(A, B) -> A @ B``, ``mm_t(A, B) -> Aᵀ @ B`` and ``gram(X) -> XᵀX``
     are the ``LocalOps`` local products (the engine passes its backend's).
+    ``norm_psum`` None: every row is here (the rules' own reductions need
+    no collective, and a HALS W-step runs its kernel).
 
     Each phase is a device span of the active tracer
     (``obs.trace.active_tracer()``), under ``obs.phases``' key: no-ops

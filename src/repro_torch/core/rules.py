@@ -29,9 +29,10 @@ the reference's fields and order.  The port has no compiled-run cache; the
 engine's ``config_fingerprint`` names the rule by it, and the elastic
 runtime refuses to resume a checkpoint under another one.
 
-The MU update and the HALS H-step sweep run through the hand-written LUC
-kernels (``kernels.ops.mu_update`` / ``hals_sweep``) with
-ε = ``eps_for(X.dtype)``; on CPU tensors their plain versions.
+The MU update and the HALS sweeps run through the hand-written LUC kernels
+(``kernels.ops.mu_update`` / ``hals_sweep``, and for a W-step on one device
+``hals_sweep_norm``) with ε = ``eps_for(X.dtype)``; on CPU tensors their
+plain versions (``kernels/ref.py``).
 
     from repro_torch.core.rules import UpdateRule, register_algorithm
 
@@ -53,7 +54,7 @@ from typing import Callable, Type, Union
 import torch
 
 from repro_torch.core.bpp import solve_bpp
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 def eps_for(dtype: torch.dtype) -> float:
@@ -61,10 +62,6 @@ def eps_for(dtype: torch.dtype) -> float:
     ``sqrt(tiny)`` sits halfway down the exponent range of every IEEE
     format (fp32/bf16: ≈1.1e-19; fp16: ≈7.8e-3)."""
     return math.sqrt(float(torch.finfo(dtype).tiny))
-
-
-def _identity(v):
-    return v
 
 
 # ---------------------------------------------------------------------------
@@ -80,8 +77,7 @@ def update_mu(G: torch.Tensor, R: torch.Tensor, X: torch.Tensor) -> torch.Tensor
 
 def update_hals(G: torch.Tensor, R: torch.Tensor, X: torch.Tensor, *,
                 normalize: bool = False,
-                norm_psum: Callable[[torch.Tensor], torch.Tensor] = _identity,
-                ) -> torch.Tensor:
+                norm_psum: Callable | None = None) -> torch.Tensor:
     """Sequential HALS column sweep (paper eq. (5); F = 2rk² flops).
 
     W-step (normalize=True):   w^i ← [w^i·G_ii + R^i − X G^i]_+ ;  w^i ← w^i/‖w^i‖
@@ -89,33 +85,21 @@ def update_hals(G: torch.Tensor, R: torch.Tensor, X: torch.Tensor, *,
 
     Columns are updated in order so later columns see earlier updates.
     The H-step runs through the ``hals_sweep`` kernel.  ``norm_psum``
-    threads the W-step's per-column norm reduction (identity when serial).
-    Returns a new contiguous tensor in X's dtype; X is not modified.
+    threads the W-step's per-column norm reduction over the ranks that
+    hold the other rows (None: every row is here).  Returns a new
+    contiguous tensor in X's dtype; X is not modified.
     """
     eps = eps_for(X.dtype)
+    X, G, R = X.contiguous(), G.contiguous(), R.contiguous()
     if not normalize:
-        return ops.hals_sweep(X.contiguous(), G.contiguous(), R.contiguous(),
-                              eps=eps)
-    # The W-step stays a plain column loop: column i's norm is a reduction
-    # over ALL rows (over the grid, through norm_psum) that must finish
-    # before column i + 1 starts, so no row panel can sweep on its own.
-    k = G.shape[0]
-    X = X.clone(memory_format=torch.contiguous_format)
-    # products in G's precision (fp32 for a bf16 carry, as JAX promotes),
-    # each column rounded to X's dtype before later columns read it
-    Xg = X if X.dtype == G.dtype else X.to(G.dtype)
-    for i in range(k):
-        gii = G[i, i]
-        xi = Xg[:, i] * gii + R[:, i] - Xg @ G[:, i]
-        xi = torch.clamp_min(xi, 0.0)
-        sq = norm_psum(torch.sum(torch.square(xi.float())))
-        nrm = torch.sqrt(sq).to(xi.dtype)
-        # Guard the all-zero column (paper's code resets to machine eps).
-        xi = torch.where(nrm > 0, xi / torch.clamp_min(nrm, eps), xi)
-        X[:, i] = xi.to(X.dtype)
-        if Xg is not X:
-            Xg[:, i] = X[:, i].to(Xg.dtype)
-    return X
+        return ops.hals_sweep(X, G, R, eps=eps)
+    # The W-step: column i's norm is a reduction over ALL rows that must
+    # finish before column i + 1 starts.  With every row on one device the
+    # hals_sweep_norm kernel keeps that order on the device; a reduction
+    # over ranks (a collective a column) runs the plain loop.
+    if norm_psum is None:
+        return ops.hals_sweep_norm(X, G, R, eps=eps)
+    return ref.hals_sweep_norm(X, G, R, eps, norm_psum)
 
 
 def update_bpp(G: torch.Tensor, R: torch.Tensor, X: torch.Tensor, *,
@@ -137,7 +121,11 @@ class UpdateRule:
     the rule's regularisation to (G, R), then dispatch to the ``_update_*``
     hooks:
 
-        update_w(G, R, X, state=None, *, norm_psum=identity) -> (X, state)
+        update_w(G, R, X, state=None, *, norm_psum=None) -> (X, state)
+
+    ``norm_psum`` sums a rank's partial reductions (HALS's column norms,
+    the accelerated rules' change norms) over the ranks that hold the
+    other rows; None where one device holds them all.
 
     ``state`` is the rule's carry (``init_state``'s output, or None for
     stateless rules), threaded by the engine's loop.
@@ -187,11 +175,11 @@ class UpdateRule:
 
     # -- the two half-updates ------------------------------------------------
 
-    def update_w(self, G, R, X, state=None, *, norm_psum=_identity):
+    def update_w(self, G, R, X, state=None, *, norm_psum=None):
         G, R = self.regularize(G, R)
         return self._update_w(G, R, X, state, norm_psum=norm_psum)
 
-    def update_h(self, G, R, X, state=None, *, norm_psum=_identity):
+    def update_h(self, G, R, X, state=None, *, norm_psum=None):
         G, R = self.regularize(G, R)
         return self._update_h(G, R, X, state, norm_psum=norm_psum)
 
@@ -204,7 +192,7 @@ class UpdateRule:
     # -- partial (touched-block) refresh -------------------------------------
 
     def partial_update_h(self, G, R, X, mask=None, state=None, *,
-                         norm_psum=_identity):
+                         norm_psum=None):
         """Touched-block H refresh (Gao & Chu, arXiv:1802.08938): update
         only the rows of X selected by the boolean ``mask`` (r,), returning
         the others as they came in.  The default runs a FULL ``update_h``
@@ -435,7 +423,7 @@ class _AcceleratedRule(UpdateRule):
 
         def change(Xn, X):
             d = torch.sum(torch.square((Xn - X).float()))
-            return torch.sqrt(norm_psum(d))
+            return torch.sqrt(d if norm_psum is None else norm_psum(d))
 
         d0 = change(X1, X)
         X, d, sweeps = X1, d0, 1
@@ -472,7 +460,7 @@ class _AcceleratedRule(UpdateRule):
         # batch lives on one device, so the change norms need no reduction.
         G, R = self.regularize(G, R)
         X, sweep = self._fold_setup(G, R, X0)
-        X, _ = self._accelerate(sweep, X, _identity, budget=max(iters, 1),
+        X, _ = self._accelerate(sweep, X, None, budget=max(iters, 1),
                                 delta=self.fold_delta)
         return X
 

@@ -38,7 +38,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 #: C entry points of each library: name -> argtypes (all return an int,
 #: the CUDA error code of the launch; 0 is success).  ``<name>_tiles``
 #: writes the tile sizes the library was compiled with (``luc_tiles``: the
-#: columns per block of hals_sweep's column-blocked sweep).
+#: columns per block of hals_sweep's column-blocked sweep and of
+#: hals_sweep_norm's).
 SIGNATURES = {
     "ts_matmul": {
         "ts_matmul_launch": [_I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
@@ -61,6 +62,8 @@ SIGNATURES = {
     "luc": {
         "luc_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _I64, _I64, _F, _I,
                        _I, _I, _I, _I, _I, _I, _P],
+        "hals_norm_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I64,
+                             _I64, _F, _I, _I, _I, _P],
         "luc_tiles": [_IP],
     },
 }

@@ -100,6 +100,47 @@
 // into scratch by luc_transpose_kernel, so the lanes' reads coalesce) and
 // a fixed butterfly, and lane i mod 32 writes x_i.  For correctness, not
 // speed.
+//
+// hals_sweep_norm (the W-step of the HALS rules on one device; replaces
+// no TPU kernel: the reference leaves its W-step to XLA, and the plain
+// version is a Python loop of about ten launches a column):
+//   for i = 0..k-1 in order,
+//     x_i ← max(0, x_i·G_ii + R_i − X·G_i);  x_i ← x_i / max(‖x_i‖, ε)
+//   where ‖x_i‖ > 0, ‖x_i‖ the fp32 norm of the clamped column over ALL r
+//   rows, each new x_i rounded to X's dtype before later columns read it.
+//  * Column i's norm must be complete before column i + 1 starts, so no
+//    row panel can sweep on its own: the barrier is a kernel boundary, k +
+//    1 launches on the stream from one host call.  Each pass writes its
+//    blocks' sums of squares of the column it finishes (a fixed order, no
+//    atomics); the next pass's blocks each reduce them in a fixed order
+//    (the same bits in every block) and divide by max(‖x‖, ε) as they next
+//    read the column.  Repeated runs on a plan are bit-identical.
+//  * Columns go in blocks of NB = 8, like hals_sweep_kernel's.  A block's
+//    head pass reads each row once (from X, copying it to out, for the
+//    first block; from out after), normalises and writes the previous
+//    block's columns, and takes for each column c of the block its sum
+//    over every column but the block's newer ones: q_c = x_c·G_cc + r_c −
+//    Σ x_l·G_lc (l before the block new, after it old, and the block's own
+//    old l ≥ c).  Column j0 is then finished.  q goes to Q, a column-major
+//    (NB, r) fp32 scratch panel (coalesced, 0.54 GB at r = 2^24).  A head
+//    pass stages its tile (by cp.async for fp32, every copy in flight at
+//    once), the tile's R[:, J] and previous block in shared memory, and
+//    writes the previous block to out NB adjacent lanes a row.  Each
+//    other column c of the block is a column pass that reads only Q: the
+//    newer columns' v, normalised, times G, taken from q_c, then clamped.
+//    The tail pass normalises the last block into out.
+//  * Bound: bytes.  At r = 2^24, k = 50 fp32: 7 head passes of ≈ 360 bytes
+//    a row (the row, R's 8 columns and the previous block's in sectors, Q
+//    written and read) and 43 column passes of 4·(s + 2) bytes a row, ≈ 61
+//    GB, 18 ms at 3.35 TB/s, against 221 GB (66 ms) for one pass over the
+//    rows per column and 3.0 ms for the half-update's bytes read once.
+//    Measured (tools/probe_hals_norm.py, PERF.md §6): 29.6 ms, of which
+//    the head passes 21.4: R's block and out's are scattered sectors, one
+//    or two a row, which hold those passes near 2 TB/s.
+//  * Every k: where no tile of rows fits a block's shared memory (k >
+//    1,438), the head pass is norm_head_wide_kernel, the same sums in the
+//    same order a thread a row through the caches.  For correctness, not
+//    speed.
 #include "common.cuh"
 
 namespace {
@@ -115,6 +156,17 @@ constexpr int HB = 16;           // hals_sweep_kernel: columns per block
 constexpr int HALS_MAX_THREADS = 256;
 constexpr int HALS_MIN_BLOCKS = 2;
 constexpr int WIDE_THREADS = 256;  // rowwise kernels: 8 warps, a row each
+// hals_sweep_norm: columns per block (the column-major scratch panel's
+// width), the threads of its column and tail passes, and the most threads
+// (a row each) of its head pass
+constexpr int NB = 8;
+constexpr int NORM_THREADS = 256;
+constexpr int NORM_MAX_THREADS = 128;
+constexpr int NORM_MAX_WARPS = NORM_MAX_THREADS / 32;
+// blocks an SM holds (registers for): head passes of 128 threads, column
+// and tail passes of NORM_THREADS (ops.HALS_NORM_HEAD_PER_SM, _COLUMN_PER_SM)
+constexpr int NORM_HEAD_BLOCKS = 8;
+constexpr int NORM_COLUMN_BLOCKS = 4;
 
 __device__ __forceinline__ float round_to(float v, float*) { return v; }
 __device__ __forceinline__ float round_to(float v, __nv_bfloat16*) {
@@ -640,6 +692,428 @@ hals_rowwise_kernel(const TX* __restrict__ X, const float* __restrict__ Gt,
 }
 
 // ---------------------------------------------------------------------------
+// hals_sweep_norm: the W-step's normalised sweep
+// ---------------------------------------------------------------------------
+
+// Byte offsets of norm_head_kernel's shared memory: G[:, j0 : j0 + NB) as k
+// rows of NB floats, the NB divisors of the previous block, the warps'
+// partial sums, the tile's R[:, J] (a row of NB at the odd stride NB + 1)
+// and previous block's Q (NB columns of `rows`), then the tile's rows in
+// fp32 at the odd stride k | 1.  ops.py's hals_norm_smem computes the same
+// sizes.
+struct NormLayout {
+  int64_t g, ds, red, rs, qs, xf, total;
+};
+
+__host__ __device__ __forceinline__ NormLayout norm_layout(int64_t k,
+                                                           int rows) {
+  NormLayout L;
+  L.g = align16(k * NB * 4);
+  L.ds = align16(NB * 4);
+  L.red = align16(NORM_MAX_WARPS * 4);
+  L.rs = align16((int64_t)rows * (NB + 1) * 4);
+  L.qs = align16((int64_t)NB * rows * 4);
+  L.xf = align16((int64_t)rows * (k | 1) * 4);
+  L.total = L.g + L.ds + L.red + L.rs + L.qs + L.xf;
+  return L;
+}
+
+// The sum of `v` over the block's threads, in a fixed order (a butterfly
+// in each warp, then the warps in order), in thread 0.  `red` holds one
+// float a warp.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(FULL, v, off);
+  const int warp = threadIdx.x / 32, warps = (blockDim.x + 31) / 32;
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (threadIdx.x == 0)
+    for (int w = 0; w < warps; ++w) s += red[w];
+  return s;
+}
+
+// The divisor of column c, max(‖x_c‖, ε) where ‖x_c‖ > 0 and 1 otherwise
+// (x / 1 = x: the rule's `where(nrm > 0, x / max(nrm, ε), x)`, a NaN norm
+// included), from its `count` per-block sums of squares at `part`, summed
+// by one warp in a fixed order (lane l adds blocks l, l + 32, …, then a
+// butterfly): every block computes the same bits.  Call with a whole warp.
+__device__ __forceinline__ float column_divisor(const float* part, int count,
+                                                float eps) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int b = threadIdx.x & 31; b < count; b += 32) acc += part[b];
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) acc += __shfl_xor_sync(FULL, acc, off);
+  const float nrm = sqrtf(acc);
+  return nrm > 0.f ? (nrm < eps ? eps : nrm) : 1.f;
+}
+
+// How many per-block sums of squares column c has: the head pass of its
+// block (c a multiple of NB) writes `ph`, a column pass `pc`.
+__device__ __forceinline__ int column_parts(int c, int ph, int pc) {
+  return c % NB == 0 ? ph : pc;
+}
+
+// The divisors of the previous block's `pw` columns (ending at j0) into
+// ds: the last from its sums of squares, computed here by warp 0 (block 0
+// also writes it to dsc for later passes), the others from dsc, where the
+// passes that reduced them left them.  Visible after the next barrier.
+__device__ __forceinline__ void previous_divisors(const float* part,
+                                                  float* dsc, float* ds,
+                                                  int j0, int pw, int ph,
+                                                  int pc, int pm, float eps) {
+  if (pw == 0) return;
+  if (threadIdx.x < 32) {
+    const int c = j0 - 1;
+    const float d = column_divisor(part + (int64_t)c * pm,
+                                   column_parts(c, ph, pc), eps);
+    if (threadIdx.x == 0) {
+      ds[pw - 1] = d;
+      if (blockIdx.x == 0) dsc[c] = d;
+    }
+  }
+  for (int u = threadIdx.x; u < pw - 1; u += blockDim.x)
+    ds[u] = dsc[j0 - pw + u];
+}
+
+// The head pass of the block of columns J = [j0, j0 + w), w = min(NB, k −
+// j0), a thread a row over tiles of `rows` rows (persistent blocks, a
+// grid-stride loop).  For each row:
+//  * its tile is read once, from X for the first block (and copied to out,
+//    so that out holds every column's current value), else from out;
+//  * the previous block's pw values v (from Q, column-major) are
+//    normalised, x = v / d rounded to X's dtype, and written to out and to
+//    the row;
+//  * for each c of J, a_c = Σ x_l·G_lc over the columns l outside J (before
+//    J new, after J old), one fp32 chain over l in order, then J's own old
+//    columns l ≥ c in order; q_c = (x_c·G_cc + r_c) − a_c, the rule's form
+//    (its x_c·G_cc added here and inside a_c);
+//  * column j0, which has no newer column of J before it, is finished:
+//    v = max(q, 0) (keeping a NaN) goes to Q[0] and v² to the thread's
+//    sum; the other q_c go to Q[c − j0], for the column passes.
+// The block's sum of squares of column j0 goes to part[j0·pm + block].
+template <typename TX, typename TR>
+__global__ void __launch_bounds__(NORM_MAX_THREADS, NORM_HEAD_BLOCKS)
+norm_head_kernel(const TX* src, const TR* __restrict__ R,
+                 const float* __restrict__ G, TX* out, float* __restrict__ Q,
+                 float* __restrict__ part, float* __restrict__ dsc, int64_t r,
+                 int k, int j0, int pw, int ph, int pc, int pm, float eps,
+                 int first) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = blockDim.x;
+  const NormLayout L = norm_layout(k, rows);
+  float* gb = reinterpret_cast<float*>(smem);
+  float* ds = reinterpret_cast<float*>(smem + L.g);
+  float* red = reinterpret_cast<float*>(smem + L.g + L.ds);
+  float* rs = reinterpret_cast<float*>(smem + L.g + L.ds + L.red);
+  float* qs = reinterpret_cast<float*>(smem + L.g + L.ds + L.red + L.rs);
+  float* xf = reinterpret_cast<float*>(smem + L.g + L.ds + L.red + L.rs +
+                                       L.qs);
+  const int tid = threadIdx.x;
+  const int ks = k | 1;
+  const int w = k - j0 < NB ? k - j0 : NB;
+  const int jw = j0 + w;
+  const int64_t ntiles = (r + rows - 1) / rows;
+  // the (row, column) of this thread's first element of a tile, and the
+  // step to its next (rows elements on)
+  const int t0 = tid / k, l0 = tid % k;
+  const int dr = rows / k, dc = rows % k;
+
+  previous_divisors(part, dsc, ds, j0, pw, ph, pc, pm, eps);
+  for (int e = tid; e < k * NB; e += rows) {
+    const int l = e / NB, c = e % NB;
+    gb[e] = c < w ? G[(int64_t)l * k + j0 + c] : 0.f;
+  }
+  __syncthreads();
+
+  float ss = 0.f;
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int64_t row0 = tile * rows;
+    const int nr = (int)(r - row0 < rows ? r - row0 : rows);
+    const int n = nr * k;
+    const TX* sp = src + row0 * k;
+    TX* op = out + row0 * k;
+    // The tile's rows into xf: fp32 element by element by cp.async, all
+    // of the tile's copies in flight at once; bf16 through registers.
+    if constexpr (sizeof(TX) == 4) {
+      for (int e = tid, t = t0, l = l0; e < n; e += rows) {
+        repro_torch::cp_async4(xf + t * ks + l, sp + e, 4);
+        t += dr;
+        l += dc;
+        if (l >= k) { l -= k; ++t; }
+      }
+    } else {
+      constexpr int U = 8;                     // loads in flight a thread
+      for (int e0 = 0, t = t0, l = l0; e0 < n; e0 += U * rows) {
+        TX v[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * rows + tid;
+          v[u] = sp[e < n ? e : 0];
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int e = e0 + u * rows + tid;
+          if (e < n) {
+            xf[t * ks + l] = to_f32(v[u]);
+            if (first) op[e] = v[u];
+          }
+          t += dr;
+          l += dc;
+          if (l >= k) { l -= k; ++t; }
+        }
+      }
+    }
+    // R[:, J] and the previous block's Q: NB adjacent lanes a row of R,
+    // consecutive lanes consecutive rows of a column of Q
+    for (int e = tid; e < nr * NB; e += rows) {
+      const int i = e / NB, c = e % NB;
+      if (c < w) {
+        const TR* src_r = R + (row0 + i) * k + j0 + c;
+        if constexpr (sizeof(TR) == 4)
+          repro_torch::cp_async4(rs + i * (NB + 1) + c, src_r, 4);
+        else
+          rs[i * (NB + 1) + c] = to_f32(*src_r);
+      }
+    }
+    for (int e = tid; e < pw * rows; e += rows) {
+      const int c = e / rows, i = e % rows;
+      if (i < nr)
+        repro_torch::cp_async4(qs + c * rows + i, Q + c * r + row0 + i, 4);
+    }
+    repro_torch::cp_async_commit();
+    repro_torch::cp_async_wait<0>();
+    __syncthreads();                           // the tile is in shared memory
+
+    if (tid < nr) {
+      const int64_t row = row0 + tid;
+      float* x = xf + tid * ks;
+      for (int c = 0; c < pw; ++c)             // the previous block, new
+        x[j0 - pw + c] = round_to(qs[c * rows + tid] / ds[c],
+                                  static_cast<TX*>(nullptr));
+      float a[NB];
+#pragma unroll
+      for (int c = 0; c < NB; ++c) a[c] = 0.f;
+      const float4* g4 = reinterpret_cast<const float4*>(gb);
+      for (int half = 0; half < 2; ++half) {   // l < j0, then l ≥ j0 + w
+        const int l1 = half ? k : j0;
+#pragma unroll 2
+        for (int l = half ? jw : 0; l < l1; ++l) {
+          const float xl = x[l];
+          const float4 ga = g4[l * (NB / 4)], gc = g4[l * (NB / 4) + 1];
+          a[0] = fmaf(xl, ga.x, a[0]);
+          a[1] = fmaf(xl, ga.y, a[1]);
+          a[2] = fmaf(xl, ga.z, a[2]);
+          a[3] = fmaf(xl, ga.w, a[3]);
+          a[4] = fmaf(xl, gc.x, a[4]);
+          a[5] = fmaf(xl, gc.y, a[5]);
+          a[6] = fmaf(xl, gc.z, a[6]);
+          a[7] = fmaf(xl, gc.w, a[7]);
+        }
+      }
+      // J's old columns l = j0 + e ≥ c, in order
+#pragma unroll
+      for (int e = 0; e < NB; ++e) {
+        if (e < w) {
+          const float xe = x[j0 + e];
+#pragma unroll
+          for (int c = 0; c <= e; ++c)
+            a[c] = fmaf(xe, gb[(j0 + e) * NB + c], a[c]);
+        }
+      }
+      const float* rrow = rs + tid * (NB + 1);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        if (c < w) {
+          const float q = fmaf(x[j0 + c], gb[(j0 + c) * NB + c], rrow[c]) -
+                          a[c];
+          if (c == 0) {
+            const float v = q < 0.f ? 0.f : q;   // max(q, 0), keeping a NaN
+            ss = fmaf(v, v, ss);
+            Q[row] = v;
+          } else {
+            Q[c * r + row] = q;
+          }
+        }
+      }
+    }
+    __syncthreads();                           // xf holds the new block
+    // out: the previous block's new values, pw adjacent lanes a row; or,
+    // for the first block, the copy of X (bf16: made as it was read)
+    if constexpr (sizeof(TX) == 4) {
+      if (first)
+        for (int e = tid, t = t0, l = l0; e < n; e += rows) {
+          op[e] = xf[t * ks + l];
+          t += dr;
+          l += dc;
+          if (l >= k) { l -= k; ++t; }
+        }
+    }
+    for (int e = tid; e < nr * pw; e += rows) {
+      const int i = e / pw, c = e % pw;
+      store(op + (int64_t)i * k + j0 - pw + c, xf[i * ks + j0 - pw + c]);
+    }
+    __syncthreads();                           // shared memory is free again
+  }
+  const float tot = block_sum(ss, red);
+  if (tid == 0) part[(int64_t)j0 * pm + blockIdx.x] = tot;
+}
+
+// The head pass for a k whose tile of rows no block's shared memory holds
+// (ops.hals_norm_rows(k) = 0): norm_head_kernel's sums, in its order, a
+// thread a row (grid-stride) on blocks of NORM_THREADS, reading the row,
+// G and R through the caches.  The previous block's new values are
+// written to out first (rounded to X's dtype, as norm_head_kernel rounds
+// them) and the row is then read back from out.  A warp's loads touch 32
+// rows: for correctness, not speed.
+template <typename TX, typename TR>
+__global__ void __launch_bounds__(NORM_THREADS, NORM_COLUMN_BLOCKS)
+norm_head_wide_kernel(const TX* src, const TR* __restrict__ R,
+                      const float* __restrict__ G, TX* out,
+                      float* __restrict__ Q, float* __restrict__ part,
+                      float* __restrict__ dsc, int64_t r, int k, int j0,
+                      int pw, int ph, int pc, int pm, float eps, int first) {
+  __shared__ float ds[NB], red[NORM_THREADS / 32];
+  previous_divisors(part, dsc, ds, j0, pw, ph, pc, pm, eps);
+  __syncthreads();
+  const int w = k - j0 < NB ? k - j0 : NB;
+  const int jw = j0 + w;
+  const float* gj = G + j0;                    // G[l, j0 + c] at l·k + c
+  float ss = 0.f;
+  const int64_t step = (int64_t)gridDim.x * NORM_THREADS;
+  for (int64_t row = (int64_t)blockIdx.x * NORM_THREADS + threadIdx.x;
+       row < r; row += step) {
+    TX* x = out + row * k;
+    if (first)
+      for (int l = 0; l < k; ++l) x[l] = src[row * k + l];
+    for (int c = 0; c < pw; ++c)               // the previous block, new
+      store(x + j0 - pw + c, Q[c * r + row] / ds[c]);
+    float a[NB];
+#pragma unroll
+    for (int c = 0; c < NB; ++c) a[c] = 0.f;
+    for (int half = 0; half < 2; ++half) {     // l < j0, then l ≥ j0 + w
+      const int l1 = half ? k : j0;
+      for (int l = half ? jw : 0; l < l1; ++l) {
+        const float xl = to_f32(x[l]);
+        const float* gl = gj + (int64_t)l * k;
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          if (c < w) a[c] = fmaf(xl, gl[c], a[c]);
+      }
+    }
+    // J's old columns l = j0 + e ≥ c, in order
+#pragma unroll
+    for (int e = 0; e < NB; ++e) {
+      if (e < w) {
+        const float xe = to_f32(x[j0 + e]);
+        const float* ge = gj + (int64_t)(j0 + e) * k;
+#pragma unroll
+        for (int c = 0; c <= e; ++c) a[c] = fmaf(xe, ge[c], a[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      if (c < w) {
+        const float q = fmaf(to_f32(x[j0 + c]),
+                             gj[(int64_t)(j0 + c) * k + c],
+                             to_f32(R[row * k + j0 + c])) - a[c];
+        if (c == 0) {
+          const float v = q < 0.f ? 0.f : q;   // max(q, 0), keeping a NaN
+          ss = fmaf(v, v, ss);
+          Q[row] = v;
+        } else {
+          Q[c * r + row] = q;
+        }
+      }
+    }
+  }
+  const float tot = block_sum(ss, red);
+  if (threadIdx.x == 0) part[(int64_t)j0 * pm + blockIdx.x] = tot;
+}
+
+// The column pass of column c = j0 + s (0 < s < w) of the block from j0, a
+// thread a row (grid-stride): the block's newer columns j0 … c − 1 are
+// normalised from Q (x = v / d rounded to X's dtype) and Σ x·G_{j0+u, c}
+// taken in order; v = max(q_c − Σ, 0) (keeping a NaN) replaces q_c in Q
+// and v² goes to the thread's sum; the block's sum of squares goes to
+// part[c·pm + block].  Column c − 1's divisor is reduced here from its
+// sums of squares, the earlier ones read from dsc.
+template <typename TX>
+__global__ void __launch_bounds__(NORM_THREADS, NORM_COLUMN_BLOCKS)
+norm_column_kernel(float* __restrict__ Q, const float* __restrict__ G,
+                   float* __restrict__ part, float* __restrict__ dsc,
+                   int64_t r, int k, int j0, int s, int ph, int pc, int pm,
+                   float eps) {
+  __shared__ float ds[NB], gc[NB], red[NORM_THREADS / 32];
+  const int c = j0 + s;
+  previous_divisors(part, dsc, ds, c, s, ph, pc, pm, eps);
+  if (threadIdx.x < s) gc[threadIdx.x] = G[(int64_t)(j0 + threadIdx.x) * k + c];
+  __syncthreads();
+  float ss = 0.f;
+  // two rows an iteration, `step` apart, their loads issued together
+  const int64_t step = (int64_t)gridDim.x * NORM_THREADS;
+  for (int64_t t = (int64_t)blockIdx.x * NORM_THREADS + threadIdx.x; t < r;
+       t += 2 * step) {
+    const bool two = t + step < r;
+    const int64_t t2 = two ? t + step : t;
+    float q[2][NB - 1];
+#pragma unroll
+    for (int u = 0; u < NB - 1; ++u) {
+      if (u < s) {
+        q[0][u] = Q[u * r + t];
+        q[1][u] = Q[u * r + t2];
+      }
+    }
+    const float qs[2] = {Q[s * r + t], Q[s * r + t2]};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float n = 0.f;
+#pragma unroll
+      for (int u = 0; u < NB - 1; ++u) {
+        if (u < s) {
+          const float x = round_to(q[i][u] / ds[u], static_cast<TX*>(nullptr));
+          n = fmaf(x, gc[u], n);
+        }
+      }
+      float v = qs[i] - n;
+      v = v < 0.f ? 0.f : v;                   // max(v, 0), keeping a NaN
+      if (i == 0 || two) {
+        ss = fmaf(v, v, ss);
+        Q[s * r + (i ? t2 : t)] = v;
+      }
+    }
+  }
+  const float tot = block_sum(ss, red);
+  if (threadIdx.x == 0) part[(int64_t)c * pm + blockIdx.x] = tot;
+}
+
+// The last block's pw columns from j0 normalised from Q into out, a
+// thread a row (grid-stride); the last column's divisor is reduced here.
+template <typename TX>
+__global__ void __launch_bounds__(NORM_THREADS, NORM_COLUMN_BLOCKS)
+norm_tail_kernel(const float* __restrict__ Q, TX* __restrict__ out,
+                 const float* __restrict__ part, float* __restrict__ dsc,
+                 int64_t r, int k, int j0, int pw, int ph, int pc, int pm,
+                 float eps) {
+  __shared__ float ds[NB];
+  previous_divisors(part, dsc, ds, j0 + pw, pw, ph, pc, pm, eps);
+  __syncthreads();
+  const int64_t step = (int64_t)gridDim.x * NORM_THREADS;
+  for (int64_t t = (int64_t)blockIdx.x * NORM_THREADS + threadIdx.x; t < r;
+       t += step) {
+    // the row's last sectors into L2 first, so that the partial writes
+    // below complete them there (not in a read-modify-write of memory)
+    TX* o = out + t * k + j0;
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(o));
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(o + pw - 1));
+#pragma unroll
+    for (int u = 0; u < NB; ++u)
+      if (u < pw) store(o + u, Q[u * r + t] / ds[u]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -752,11 +1226,71 @@ cudaError_t launch_op(int op, const void* X, const void* G, const void* R,
                              chunk, rt, blocks, vec, direct, s);
 }
 
+
+// The normalised sweep: per block of NB columns a head pass, then a column
+// pass for each of its other columns; then the tail pass.  k + 1 launches
+// on the stream, in order (each reads what the ones before it wrote).
+// rows = 0: the head passes are norm_head_wide_kernel's.
+template <typename TX, typename TR>
+cudaError_t launch_hals_norm(const void* X, const void* G, const void* R,
+                             void* out, float* Q, float* part, float* dsc,
+                             int64_t r, int64_t k, float eps, int rows,
+                             int ph, int pc, cudaStream_t s) {
+  const bool wide = rows == 0;
+  if ((!wide && (rows < 32 || rows > NORM_MAX_THREADS || rows % 32)) ||
+      ph < 1 || pc < 1 || k > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const NormLayout L = norm_layout(k, wide ? 32 : rows);
+  auto head = &norm_head_kernel<TX, TR>;
+  cudaError_t err = cudaSuccess;
+  if (!wide) {
+    if (L.total > 232448) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(
+        head, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    if (err != cudaSuccess) return err;
+  }
+  const int kk = (int)k, pm = ph > pc ? ph : pc;
+  const TX* x = static_cast<const TX*>(X);
+  TX* o = static_cast<TX*>(out);
+  const float* g = static_cast<const float*>(G);
+  const TR* rr = static_cast<const TR*>(R);
+  for (int j0 = 0; j0 < kk; j0 += NB) {
+    if (wide)
+      norm_head_wide_kernel<TX, TR><<<ph, NORM_THREADS, 0, s>>>(
+          j0 ? o : x, rr, g, o, Q, part, dsc, r, kk, j0, j0 ? NB : 0, ph,
+          pc, pm, eps, j0 == 0);
+    else
+      head<<<ph, rows, L.total, s>>>(j0 ? o : x, rr, g, o, Q, part, dsc, r,
+                                     kk, j0, j0 ? NB : 0, ph, pc, pm, eps,
+                                     j0 == 0);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int w = kk - j0 < NB ? kk - j0 : NB;
+    for (int c = 1; c < w; ++c) {
+      norm_column_kernel<TX><<<pc, NORM_THREADS, 0, s>>>(
+          Q, g, part, dsc, r, kk, j0, c, ph, pc, pm, eps);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  const int last = (kk - 1) / NB * NB;
+  norm_tail_kernel<TX><<<pc, NORM_THREADS, 0, s>>>(
+      Q, o, part, dsc, r, kk, last, kk - last, ph, pc, pm, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The columns of one block of hals_sweep_kernel's sweep (ops.HALS_BLOCK).
+// The columns of one block of hals_sweep_kernel's sweep (ops.HALS_BLOCK);
+// of the normalised sweep's (ops.HALS_NORM_BLOCK), the threads of its
+// column passes (HALS_NORM_THREADS), the most rows of its head pass's tile
+// (max(HALS_NORM_ROWS)), and the blocks of each an SM holds
+// (HALS_NORM_HEAD_PER_SM, HALS_NORM_COLUMN_PER_SM).
 extern "C" int luc_tiles(int* out) {
   out[0] = HB;
+  out[1] = NB;
+  out[2] = NORM_THREADS;
+  out[3] = NORM_MAX_THREADS;
+  out[4] = NORM_HEAD_BLOCKS;
+  out[5] = NORM_COLUMN_BLOCKS;
   return 0;
 }
 
@@ -790,5 +1324,31 @@ extern "C" int luc_launch(int op, int x_dtype, int r_dtype, const void* X,
     return (int)launch_op<bf16, bf16>(op, X, G, R, out, scratch, r, k, eps,
                                       rows, stages, chunk, rt, blocks, vec,
                                       direct, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// hals_sweep_norm on the plan (rows, ph, pc) of ops.plan_hals_sweep_norm:
+// head passes of `rows` threads on `ph` blocks (rows = 0: the wide head
+// pass, NORM_THREADS threads a block), column and tail passes on `pc`
+// blocks.  X and out (r, k) of x_dtype, R (r, k) of r_dtype (fp32, or
+// X's dtype), G (k, k) fp32, all contiguous; out may not alias X or R.
+// Scratch, fp32: Q (NB, r), part (k, max(ph, pc)), dsc (k).
+extern "C" int hals_norm_launch(int x_dtype, int r_dtype, const void* X,
+                                const void* G, const void* R, void* out,
+                                float* Q, float* part, float* dsc, int64_t r,
+                                int64_t k, float eps, int rows, int ph,
+                                int pc, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k < 1 || r < 1) return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  if (x_dtype == repro_torch::kF32 && r_dtype == repro_torch::kF32)
+    return (int)launch_hals_norm<float, float>(X, G, R, out, Q, part, dsc, r,
+                                               k, eps, rows, ph, pc, s);
+  if (x_dtype == repro_torch::kBF16 && r_dtype == repro_torch::kF32)
+    return (int)launch_hals_norm<bf16, float>(X, G, R, out, Q, part, dsc, r,
+                                              k, eps, rows, ph, pc, s);
+  if (x_dtype == repro_torch::kBF16 && r_dtype == repro_torch::kBF16)
+    return (int)launch_hals_norm<bf16, bf16>(X, G, R, out, Q, part, dsc, r,
+                                             k, eps, rows, ph, pc, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 """Wrappers around the port's CUDA kernels — the counterpart of
 ``repro/kernels/ops.py`` (``gram`` :109, ``ts_matmul`` :153,
 ``ts_matmul_t`` :174, ``spmm`` :195, ``spmm_t`` :230, ``spmm_sorted`` :254,
-``mu_update`` :306, ``hals_sweep`` :319).
+``mu_update`` :306, ``hals_sweep`` :319), and ``hals_sweep_norm``, the
+HALS W-step's normalised sweep, which the reference leaves to XLA.
 
 Each wrapper
 
@@ -31,7 +32,9 @@ as the reference's scatter drops out-of-range updates; the plain versions
 raise on them.  The LUC kernels take ε as an argument (default the TPU
 kernels' 1e-16; the rules pass ``eps_for(X.dtype)``) and every k, as the
 reference's rules do (``mu_update`` on ``plan_mu_update``'s tiles,
-``hals_sweep`` on ``plan_hals_sweep``'s).
+``hals_sweep`` on ``plan_hals_sweep``'s, ``hals_sweep_norm`` on
+``plan_hals_sweep_norm``'s; past their tiles the latter two run a kernel
+of a row at a time).
 """
 
 from __future__ import annotations
@@ -50,10 +53,12 @@ from repro_torch.roofline.counts import is_fake as _fake, record_kernel
 #: launches of each kernel on CUDA tensors since the last reset
 #: (``hals_sweep_wide``: hals_sweep's row-per-warp kernel, for the k that
 #: no plan of its column-blocked kernel fits; ``ts_matmul_mixed`` /
-#: ``ts_matmul_t_mixed``: the products' bf16 A · fp32 B instantiation)
+#: ``ts_matmul_t_mixed``: the products' bf16 A · fp32 B instantiation;
+#: ``hals_sweep_norm``: one a sweep, however many passes it launches)
 LAUNCHES = {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0, "ts_matmul_mixed": 0,
             "ts_matmul_t_mixed": 0, "spmm": 0, "spmm_sorted": 0,
-            "mu_update": 0, "hals_sweep": 0, "hals_sweep_wide": 0}
+            "mu_update": 0, "hals_sweep": 0, "hals_sweep_wide": 0,
+            "hals_sweep_norm": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the H100 SXM's SM count, for planning a call on fake tensors (no card
@@ -121,8 +126,22 @@ HALS_RESTAGE_ROWS = 256
 HALS_MIN_THREADS_PER_SM = 128
 HALS_WIDE_TPR = 4
 
+#: hals_sweep_norm, as luc_tiles reports luc.cu's sizes: columns per
+#: block (NB: the width of its column-major scratch panel); the rows of its
+#: head pass's tile tried in order (a thread a row; the first is
+#: NORM_MAX_THREADS); the threads of its column and tail passes, and of
+#: its wide head pass (NORM_THREADS); the blocks of each that an SM holds
+#: at most (its register budget: NORM_HEAD_BLOCKS, NORM_COLUMN_BLOCKS)
+HALS_NORM_BLOCK = 8
+HALS_NORM_ROWS = (128, 64, 32)
+HALS_NORM_THREADS = 256
+HALS_NORM_HEAD_PER_SM = 8
+HALS_NORM_COLUMN_PER_SM = 4
+
 _TILES_EXPECTED = {"gram": GRAM_TILES, "ts_matmul": TS_TILES,
-                   "luc": (HALS_BLOCK,)}
+                   "luc": (HALS_BLOCK, HALS_NORM_BLOCK, HALS_NORM_THREADS,
+                           HALS_NORM_ROWS[0], HALS_NORM_HEAD_PER_SM,
+                           HALS_NORM_COLUMN_PER_SM)}
 _TILES: dict[str, tuple[int, ...]] = {}
 
 
@@ -330,7 +349,8 @@ def _sm_count(device: torch.device) -> int:
 def tiles(name: str) -> tuple[int, ...]:
     """The fixed sizes library ``name`` was compiled with, as its
     ``<name>_tiles`` entry point reports them; raises if they are not the
-    ones this module plans with (GRAM_TILES, TS_TILES, HALS_BLOCK)."""
+    ones this module plans with (GRAM_TILES, TS_TILES, and for ``luc``
+    HALS_BLOCK and hals_sweep_norm's HALS_NORM_* sizes)."""
     if name not in _TILES:
         want = _TILES_EXPECTED[name]
         out = (ctypes.c_int * len(want))()
@@ -929,3 +949,91 @@ def hals_sweep(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor, *,
     if not _check_luc("hals_sweep", X, G, R):
         return ref.hals_sweep(X, G, R, eps)
     return _luc("hals_sweep", 1, X, G, R, eps, plan)
+
+
+class HalsNormPlan(NamedTuple):
+    """How hals_sweep_norm's passes walk X (r, k): each head pass on
+    ``head_blocks`` persistent blocks of ``rows`` threads (a row each;
+    ``rows`` 0: the wide head pass, a thread a row on blocks of
+    HALS_NORM_THREADS), each column and tail pass on ``col_blocks`` blocks
+    of HALS_NORM_THREADS (a row a thread, grid-stride).  The bits depend
+    on the plan (the blocks' sums of squares), and repeat on it."""
+    rows: int
+    head_blocks: int
+    col_blocks: int
+
+
+def hals_norm_smem(k: int, rows: int) -> int:
+    """Shared memory of hals_sweep_norm's head pass (luc.cu's norm_layout):
+    G's block of columns (k × HALS_NORM_BLOCK floats), the previous block's
+    divisors, a float a warp, the tile's block of R (rows at stride
+    HALS_NORM_BLOCK + 1) and of Q (HALS_NORM_BLOCK columns of rows), and
+    the tile's rows in fp32 at stride k | 1."""
+    nb = HALS_NORM_BLOCK
+    return (_align16(k * nb * 4) + _align16(nb * 4)
+            + _align16(HALS_NORM_ROWS[0] // 32 * 4)
+            + _align16(rows * (nb + 1) * 4) + _align16(nb * rows * 4)
+            + _align16(rows * (k | 1) * 4))
+
+
+def hals_norm_rows(k: int) -> int:
+    """The head pass's rows a tile: the first of HALS_NORM_ROWS whose
+    shared memory fits a block, 0 where none does (k > 1,438: the wide
+    head pass)."""
+    for rows in HALS_NORM_ROWS:
+        if hals_norm_smem(k, rows) <= SMEM_PER_BLOCK:
+            return rows
+    return 0
+
+
+@functools.lru_cache(maxsize=256)
+def plan_hals_sweep_norm(r: int, k: int, sm_count: int) -> HalsNormPlan:
+    """The head pass on ``hals_norm_rows(k)`` rows a tile, as many blocks
+    as an SM holds (HALS_NORM_HEAD_PER_SM, fewer where shared memory runs
+    out) times ``sm_count``, and no more than the tiles; the column and
+    tail passes, and a wide head pass (``rows`` 0), on
+    HALS_NORM_COLUMN_PER_SM blocks an SM, times ``sm_count``, and no more
+    than cover r.  All resident at once: one wave."""
+    col = max(1, min(-(-r // HALS_NORM_THREADS),
+                     HALS_NORM_COLUMN_PER_SM * sm_count))
+    rows = hals_norm_rows(k)
+    if rows == 0:
+        return HalsNormPlan(0, col, col)
+    per_sm = min(HALS_NORM_HEAD_PER_SM, SMEM_PER_SM // (
+        hals_norm_smem(k, rows) + SMEM_RESERVED_PER_BLOCK))
+    head = max(1, min(-(-r // rows), per_sm * sm_count))
+    return HalsNormPlan(rows, head, col)
+
+
+def hals_sweep_norm(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor, *,
+                    eps: float = ref.LUC_EPS,
+                    plan: HalsNormPlan | None = None) -> torch.Tensor:
+    """The sequential HALS column sweep, W-step form, each new column
+    normalised over all r rows (``ref.hals_sweep_norm``), (r, k) in X's
+    dtype, any k: k + 1 passes from one host call, on ``plan`` (default
+    ``plan_hals_sweep_norm``'s; ``rows`` 0 takes the wide head pass at any
+    k), with an (HALS_NORM_BLOCK, r) fp32 scratch panel."""
+    if not _check_luc("hals_sweep_norm", X, G, R):
+        return ref.hals_sweep_norm(X, G, R, eps)
+    r, k = X.shape
+    if _fake(X):
+        # counted as the other LUC kernels: X and R read once, G once, the
+        # result written once; X·G's multiply-adds
+        sx, sr = X.element_size(), R.element_size()
+        return _recorded("hals_sweep_norm", (r, k), X.dtype, X.device,
+                         2.0 * r * k * k, r * k * (2 * sx + sr) + k * k * 4,
+                         "float32")
+    tiles("luc")
+    dev = X.device
+    plan = plan or plan_hals_sweep_norm(r, k, _sm_count(dev))
+    out = torch.empty_like(X)
+    Q = torch.empty((HALS_NORM_BLOCK, r), dtype=torch.float32, device=dev)
+    part = torch.empty((k, max(plan.head_blocks, plan.col_blocks)),
+                       dtype=torch.float32, device=dev)
+    dsc = torch.empty(k, dtype=torch.float32, device=dev)
+    _launch(build.load("luc"), "hals_norm_launch", "hals_sweep_norm", dev,
+            _DTYPE_CODES[X.dtype], _DTYPE_CODES[R.dtype], X.data_ptr(),
+            G.data_ptr(), R.data_ptr(), out.data_ptr(), Q.data_ptr(),
+            part.data_ptr(), dsc.data_ptr(), r, k, float(eps), plan.rows,
+            plan.head_blocks, plan.col_blocks)
+    return out

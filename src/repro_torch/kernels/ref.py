@@ -110,6 +110,39 @@ def hals_sweep(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor,
     return out
 
 
+def hals_sweep_norm(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor,
+                    eps: float = LUC_EPS, norm_psum=None) -> torch.Tensor:
+    """Sequential HALS column sweep, W-step form (paper eq. (5)), each new
+    column normalised:
+
+        x_i ← [x_i·G_ii + R_i − X·G_i]_+ ;  x_i ← x_i / max(‖x_i‖, ε) where
+        ‖x_i‖ > 0   for i = 0..k-1
+
+    in order, with no division by G_ii.  Products in G's precision (fp32
+    for a bf16 carry, as JAX promotes), the sum of squares in fp32, each
+    column rounded to X's dtype before later columns read it.
+    ``norm_psum`` sums a column's sum of squares over the ranks that hold
+    the other rows (None: all rows are here).  Returns a new contiguous
+    tensor in X's dtype; X is not modified."""
+    k = G.shape[0]
+    X = X.clone(memory_format=torch.contiguous_format)
+    Xg = X if X.dtype == G.dtype else X.to(G.dtype)
+    for i in range(k):
+        gii = G[i, i]
+        xi = Xg[:, i] * gii + R[:, i] - Xg @ G[:, i]
+        xi = torch.clamp_min(xi, 0.0)
+        sq = torch.sum(torch.square(xi.float()))
+        if norm_psum is not None:
+            sq = norm_psum(sq)
+        nrm = torch.sqrt(sq).to(xi.dtype)
+        # Guard the all-zero column (paper's code resets to machine eps).
+        xi = torch.where(nrm > 0, xi / torch.clamp_min(nrm, eps), xi)
+        X[:, i] = xi.to(X.dtype)
+        if Xg is not X:
+            Xg[:, i] = X[:, i].to(Xg.dtype)
+    return X
+
+
 def hals_sweep_f64(X: torch.Tensor, G: torch.Tensor, R: torch.Tensor,
                    eps: float = LUC_EPS,
                    chunk: int = 1 << 20) -> torch.Tensor:

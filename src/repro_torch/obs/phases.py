@@ -90,10 +90,8 @@ class _Segment:
 
 
 def _luc(update, norm_psum=None):
-    """A rule half-update as a segment; ``norm_psum`` None is the serial
-    identity."""
-    if norm_psum is None:
-        return lambda G, R, X, state: update(G, R, X, state)
+    """A rule half-update as a segment; ``norm_psum`` None: serial, every
+    row on this device."""
     return lambda G, R, X, state: update(G, R, X, state, norm_psum=norm_psum)
 
 

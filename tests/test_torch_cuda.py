@@ -174,8 +174,10 @@ def test_ts_matmul_is_bit_reproducible(cuda_device, m, n):
 
 # LUC launches per iteration of a 3-iteration fit (amu/ahals: inner_iters=2,
 # delta=0, so exactly 2 sweeps per half)
-LUC_PER_ITER = {"mu": {"mu_update": 2}, "hals": {"hals_sweep": 1},
-                "bpp": {}, "amu": {"mu_update": 4}, "ahals": {"hals_sweep": 2}}
+LUC_PER_ITER = {"mu": {"mu_update": 2},
+                "hals": {"hals_sweep": 1, "hals_sweep_norm": 1},
+                "bpp": {}, "amu": {"mu_update": 4},
+                "ahals": {"hals_sweep": 2, "hals_sweep_norm": 2}}
 
 
 def _algo(name):
@@ -622,6 +624,180 @@ def test_hals_sweep_row_per_warp_kernel_past_the_plans(cuda_device, dt):
                  small[0], Gs, small[1], eps, dt)
 
 
+# hals_sweep_norm, the HALS W-step's normalised sweep, against the plain
+# loop (``ref.hals_sweep_norm``) on the card: k below one 8-column block,
+# two blocks, ragged blocks, a k past the plans; r not a multiple of the
+# head pass's 128-row tile
+NORM_K = [1, 16, 50, 70]
+NORM_R = [37, 1_003, 65_537]
+
+
+def _norm_problem(seed, r, k, x_scale=None):
+    """X near a planted X* with R = X*·G plus noise, so that the updates
+    are mostly positive; for k > 1, column min(3, k − 1)'s R so negative
+    that the column clamps to all zeros (its norm 0: the guard keeps it).
+    ``x_scale``: X uniform on [0, x_scale) instead, so that X·G is a small
+    part of each update and a wide k's sums cancel little."""
+    rng = np.random.default_rng(seed)
+    C = rng.uniform(size=(30, k)).astype(np.float32)
+    G = C.T @ C
+    Xs = rng.uniform(size=(r, k)).astype(np.float32)
+    R = (Xs @ G + 0.1 * rng.uniform(size=(r, k))).astype(np.float32)
+    X = (Xs * rng.uniform(0.5, 1.5, size=(r, k))).astype(np.float32)
+    if x_scale is not None:
+        X = (x_scale * rng.uniform(size=(r, k))).astype(np.float32)
+    if k > 1:
+        R[:, min(3, k - 1)] = -1e3
+    return X, G, R
+
+
+def _norm_inputs(device, seed, r, k, dt, x_scale=None):
+    x, g, rr = _norm_problem(seed, r, k, x_scale)
+    xdt, rdt = LUC_DTYPES[dt]
+    return (torch.from_numpy(x).to(device, xdt), torch.from_numpy(g).to(device),
+            torch.from_numpy(rr).to(device, rdt))
+
+
+def _plain_w_sweep(X, G, R, *, eps=ref.LUC_EPS):
+    """ops.hals_sweep_norm's stand-in that runs the plain column loop."""
+    return ref.hals_sweep_norm(X, G, R, eps)
+
+
+def _assert_columns(got, want, tol):
+    """Each column within ``tol`` of its largest |value| (a normalised
+    column's scale is its own); an all-zero column exactly zero."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = want.abs().amax(0)
+    err = (got - want).abs().amax(0)
+    assert bool((err <= tol * scale).all()), (err / scale.clamp_min(1e-30))
+
+
+def _norm_plan(device, r, k, head):
+    """hals_sweep_norm's plan, or (``head`` "wide") the same with the wide
+    head pass that a k past the head pass's tiles takes."""
+    plan = ops.plan_hals_sweep_norm(r, k, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    if head == "wide":
+        plan = plan._replace(rows=0, head_blocks=plan.col_blocks)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", ["tiled", "wide"])
+@pytest.mark.parametrize("r", NORM_R)
+@pytest.mark.parametrize("k", NORM_K)
+@pytest.mark.parametrize("dt", LUC_DTYPES)
+def test_hals_sweep_norm_matches_the_plain_loop(cuda_device, dt, k, r, head):
+    """fp32 within 1e-5 of the plain loop column by column, bf16 within
+    2e-2 (one rounding of the carry); the all-zero column stays zero; X is
+    not modified; a second run gives the same bits.  On its plan and on
+    the wide head pass."""
+    X, G, R = _norm_inputs(cuda_device, 31, r, k, dt)
+    X0 = X.clone()
+    eps = rules.eps_for(X.dtype)
+    plan = _norm_plan(cuda_device, r, k, head)
+    ops.reset_launches()
+    got = ops.hals_sweep_norm(X, G, R, eps=eps, plan=plan)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == _launches(hals_sweep_norm=1)
+    assert got.dtype == X.dtype and got.is_cuda
+    assert torch.isfinite(got.float()).all() and got.min() >= 0
+    want = ref.hals_sweep_norm(X, G, R, eps)
+    _assert_columns(got, want, TOL["f32" if dt == "f32" else "bf16"])
+    if k > 1:
+        assert not got[:, min(3, k - 1)].any()
+    assert torch.equal(X, X0)
+    assert torch.equal(got, ops.hals_sweep_norm(X, G, R, eps=eps, plan=plan))
+
+
+@pytest.mark.cuda
+def test_hals_sweep_norm_uses_no_tf32_and_keeps_a_nan(cuda_device):
+    """The sweep's sums are fp32 FMAs whatever the TF32 switches say; a NaN
+    in a row reaches that row's later columns and its column's norm (the
+    column then keeps its values, as the plain loop's guard does)."""
+    X, G, R = _norm_inputs(cuda_device, 32, 4_099, 50, "f32")
+    want = ops.hals_sweep_norm(X, G, R)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert torch.equal(ops.hals_sweep_norm(X, G, R), want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    X[7, 5] = float("nan")
+    got, plain = ops.hals_sweep_norm(X, G, R), ref.hals_sweep_norm(X, G, R)
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", LUC_DTYPES)
+def test_w_step_past_the_plans_runs_the_wide_head_pass(cuda_device, dt):
+    """k = 1,460: no head-pass tile fits, so the rule's W-step runs the
+    kernel with its wide head pass (one launch), within the plain loop's
+    tolerance on a problem whose sums cancel little, the same bits twice;
+    float64 on the card is refused, as by the other LUC wrappers."""
+    X, G, R = _norm_inputs(cuda_device, 33, 1_003, 1_460, dt, x_scale=0.05)
+    assert ops.hals_norm_rows(1_460) == 0
+    ops.reset_launches()
+    got = rules.update_hals(G, R, X, normalize=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == _launches(hals_sweep_norm=1)
+    eps = rules.eps_for(X.dtype)
+    _assert_columns(got, ref.hals_sweep_norm(X, G, R, eps),
+                    TOL["f32" if dt == "f32" else "bf16"])
+    assert not got[:, 3].any()
+    assert torch.equal(got, ops.hals_sweep_norm(X, G, R, eps=eps))
+    X64, G64, R64 = (t[:, :50].double().contiguous() for t in (X, G, R))
+    G64 = G64[:50].contiguous()
+    with pytest.raises(TypeError):
+        rules.update_hals(G64, R64, X64, normalize=True)
+
+
+@pytest.mark.cuda
+def test_w_step_takes_the_kernel_only_without_a_reduction(cuda_device):
+    """``norm_psum`` left at None (one device holds every row) runs
+    hals_sweep_norm; a reduction over ranks (any callable) the plain
+    loop."""
+    X, G, R = _norm_inputs(cuda_device, 34, 1_003, 50, "f32")
+    ops.reset_launches()
+    kern = rules.update_hals(G, R, X, normalize=True)
+    assert ops.LAUNCHES == _launches(hals_sweep_norm=1)
+    ops.reset_launches()
+    loop = rules.update_hals(G, R, X, normalize=True, norm_psum=lambda v: v)
+    assert ops.LAUNCHES == _launches()
+    assert torch.equal(loop, ref.hals_sweep_norm(X, G, R,
+                                                 rules.eps_for(X.dtype)))
+    _assert_columns(kern, loop, TOL["f32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["hals", "ahals"])
+def test_hals_fits_with_the_w_kernel_match_the_plain_loop(cuda_device,
+                                                          algo):
+    """Serial hals and ahals on the card, the W-step through
+    hals_sweep_norm, against the same fits with the plain loop: the
+    rel-error trajectories at 1e-4, the factors after one iteration at
+    1e-4 (scaled) and after three at 1e-3 (HALS clamps part of W to 0
+    there, so rounding moves later iterations)."""
+    rng = np.random.default_rng(35)
+    m, n, k = 4_099, 1_001, 50
+    A = (rng.uniform(size=(m, k)) @ rng.uniform(size=(k, n))
+         + 0.5 * rng.uniform(size=(m, n))).astype(np.float32)
+    for iters, tol in ((1, 1e-4), (3, 1e-3)):
+        ops.reset_launches()
+        got = NMFSolver(k, algo=_algo(algo), max_iters=iters).fit(A, seed=3)
+        assert ops.LAUNCHES["hals_sweep_norm"] == \
+            iters * LUC_PER_ITER[algo]["hals_sweep_norm"]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ops, "hals_sweep_norm", _plain_w_sweep)
+            ops.reset_launches()
+            want = NMFSolver(k, algo=_algo(algo), max_iters=iters).fit(
+                A, seed=3)
+            assert ops.LAUNCHES["hals_sweep_norm"] == 0
+        np.testing.assert_allclose(got.rel_errors.numpy(),
+                                   want.rel_errors.numpy(), rtol=1e-4)
+        _assert_scaled(got.W.cpu(), want.W.cpu(), tol)
+        _assert_scaled(got.H.cpu(), want.H.cpu(), tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("algo", ["mu", "hals", "amu", "ahals"])
 def test_wide_k_fit_on_the_card_matches_the_cpu_path(cuda_device, algo):
@@ -897,9 +1073,15 @@ def test_one_rank_nccl_schedules_are_serial_bit_for_bit(nccl_group, schedule,
     kw = dict(schedule=schedule, grid=make_faun_grid(1, 1)) \
         if schedule == "faun" else dict(schedule=schedule)
     ops.reset_launches()
-    serial = NMFSolver(k, algo=_algo(algo), backend=ops_of(),
-                       max_iters=3).fit(A, seed=5)
+    with pytest.MonkeyPatch.context() as mp:
+        # the schedules' HALS W-step sums its column norms through a
+        # collective, so it runs the plain loop: the serial fit held
+        # against them bit for bit runs that loop too
+        mp.setattr(ops, "hals_sweep_norm", _plain_w_sweep)
+        serial = NMFSolver(k, algo=_algo(algo), backend=ops_of(),
+                           max_iters=3).fit(A, seed=5)
     want = dict(ops.LAUNCHES)
+    assert want["hals_sweep_norm"] == 0
     ops.reset_launches()
     res = NMFSolver(k, algo=_algo(algo), backend=ops_of(), max_iters=3,
                     **kw).fit(A, seed=5)

@@ -95,13 +95,15 @@ def test_cpu_path_counts_no_launch():
     G = ops.gram(B)
     ops.mu_update(B, G, B)
     ops.hals_sweep(B, G, B)
+    ops.hals_sweep_norm(B, G, B)
     A16 = torch.from_numpy(a).to(torch.bfloat16)
     ops.ts_matmul(A16, B)                            # bf16 A · fp32 B
     ops.ts_matmul_t(A16, torch.from_numpy(a[:, :5].copy()))
     assert ops.LAUNCHES == {"gram": 0, "ts_matmul": 0, "ts_matmul_t": 0,
                             "ts_matmul_mixed": 0, "ts_matmul_t_mixed": 0,
                             "spmm": 0, "spmm_sorted": 0, "mu_update": 0,
-                            "hals_sweep": 0, "hals_sweep_wide": 0}
+                            "hals_sweep": 0, "hals_sweep_wide": 0,
+                            "hals_sweep_norm": 0}
 
 
 @pytest.mark.parametrize("case", ["strided", "dtype_mix", "f16", "shape",

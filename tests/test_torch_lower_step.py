@@ -65,10 +65,12 @@ def test_serial_sparse_lower_step_lists_its_scatter_add():
 
 
 @pytest.mark.parametrize("algo,luc", [("mu", {"mu_update": 2}),
-                                      ("hals", {"hals_sweep": 1}),
+                                      ("hals", {"hals_sweep": 1,
+                                                "hals_sweep_norm": 1}),
                                       ("bpp", {}),
                                       ("amu", {"mu_update": 8}),
-                                      ("ahals", {"hals_sweep": 4})])
+                                      ("ahals", {"hals_sweep": 4,
+                                                 "hals_sweep_norm": 4})])
 def test_serial_cuda_lower_step_counts_the_kernels(algo, luc):
     """The main path (backend "cuda", the card stood in for) records one
     call per launch a live iteration makes; the accelerated rules run

@@ -62,6 +62,21 @@ def _luc_inputs(seed, r, k, dt="f32"):
     return X, G, R
 
 
+def _w_inputs(seed, r, k, dt="f32"):
+    """Inputs of a W-step whose updates are mostly positive: X near a
+    planted X* and R = X*·G plus noise (``_luc_inputs``' R clamps most
+    columns to zero)."""
+    rng = np.random.default_rng(seed)
+    C = rng.uniform(size=(30, k)).astype(np.float32)
+    G = C.T @ C
+    Xs = rng.uniform(size=(r, k)).astype(np.float32)
+    R = (Xs @ G + 0.1 * rng.uniform(size=(r, k))).astype(np.float32)
+    X = (Xs * rng.uniform(0.5, 1.5, size=(r, k))).astype(np.float32)
+    if dt == "bf16":
+        X = _bf16(X)
+    return X, G, R
+
+
 def _t(x, dt="f32"):
     return torch.from_numpy(np.ascontiguousarray(x)).to(DTYPES[dt][0])
 
@@ -156,12 +171,103 @@ def test_luc_wrappers_reject_what_the_kernels_do_not_take(case):
             "strided": (X, G, torch.zeros(4, 16).T),
             "device_mix": (X, G, R.to("meta")),
             "empty": (X[:0], G, R[:0])}[case]
-    for fn in (ops.mu_update, ops.hals_sweep):
+    for fn in (ops.mu_update, ops.hals_sweep, ops.hals_sweep_norm):
         with pytest.raises((TypeError, ValueError)):
             fn(*args)
 
 
+@pytest.mark.parametrize("k", [50, 1_460])
+def test_w_step_takes_the_kernel_at_every_k(k):
+    """On data-less tensors (the card stood in for) the one-device W-step
+    records hals_sweep_norm at k = 50 and at k = 1,460, which no head-pass
+    tile fits (the wide head pass takes it); float64, which no LUC kernel
+    takes, is refused there and on the CPU, as by the other wrappers."""
+    from repro_torch.roofline import counts
+    assert ops.hals_norm_rows(1_438) == 32 and ops.hals_norm_rows(1_439) == 0
+    X, R = (torch.empty(64, k, device="meta") for _ in range(2))
+    G = torch.empty(k, k, device="meta")
+    with counts.record_step() as rec:
+        out = rules.update_hals(G, R, X, normalize=True)
+    assert dict(rec.kernel_calls()) == {"hals_sweep_norm": 1}
+    assert out.shape == (64, k) and out.dtype == X.dtype
+    for dev in ("meta", "cpu"):
+        t = [torch.zeros(4, 3, dtype=torch.float64, device=dev),
+             torch.zeros(3, 3, dtype=torch.float64, device=dev),
+             torch.zeros(4, 3, dtype=torch.float64, device=dev)]
+        with pytest.raises(TypeError):
+            rules.update_hals(t[1], t[2], t[0], normalize=True)
+
+
+def test_plan_hals_sweep_norm():
+    """The head pass's tile and blocks, and the column passes' blocks, at
+    the benchmark's 2^24 × 50 and at Video's W at k = 160."""
+    sm = ops.H100_SM_COUNT
+    plan = ops.plan_hals_sweep_norm(1 << 24, 50, sm)
+    assert plan.rows == 128
+    assert ops.hals_norm_smem(50, 128) == (50 * 8 * 4 + 32 + 16 + 128 * 9 * 4
+                                           + 8 * 128 * 4 + 128 * 51 * 4)
+    assert plan.head_blocks == 6 * sm and plan.col_blocks == 4 * sm
+    wide = ops.plan_hals_sweep_norm(1_013_400, 160, sm)
+    assert wide.rows == 128 and wide.head_blocks == 2 * sm
+    tiny = ops.plan_hals_sweep_norm(37, 1, sm)
+    assert (tiny.head_blocks, tiny.col_blocks) == (1, 1)
+    # past the head pass's tiles: the wide head pass, on the column
+    # passes' blocks
+    assert ops.plan_hals_sweep_norm(1 << 24, 1_460, sm) == (0, 4 * sm,
+                                                            4 * sm)
+    assert ops.plan_hals_sweep_norm(1_003, 1_460, sm) == (0, 4, 4)
+
+
 # ---------------------------------------------------------------- rules
+
+@pytest.mark.parametrize("r,k", SHAPES)
+@pytest.mark.parametrize("dt", DTYPES)
+def test_plain_w_sweep_matches_jax_rule_body(r, k, dt):
+    """``ref.hals_sweep_norm``, the kernel's CPU mirror and the rules'
+    plain loop, against the reference's normalised W-step, with X in fp32
+    or a bf16 carry and G, R in fp32: fp32 at the kernels' scaled 1e-5
+    (each x_i is R_i less a sum of k products that mostly cancels it)."""
+    X, G, R = _w_inputs(8, r, k, dt)
+    Xt = _t(X, dt)
+    got = ref.hals_sweep_norm(Xt, _t(G), _t(R), rules.eps_for(Xt.dtype))
+    want = jrules.update_hals(jnp.asarray(G), jnp.asarray(R),
+                              jnp.asarray(X, DTYPES[dt][1]), normalize=True)
+    assert got.dtype == Xt.dtype
+    _assert_scaled(got.float(), np.asarray(want, np.float32),
+                   TOL["f32"] if dt == "f32" else BF16_RULE_TOL)
+
+
+def test_w_step_routing_on_the_cpu_and_across_ranks():
+    """A CPU X takes the plain loop (no launch, the loop's bits); a
+    ``norm_psum`` (a reduction over ranks) takes it everywhere, and is
+    applied: two ranks holding the same rows sum twice the squares, so
+    each column comes out 1/√2 of the one-device sweep's.  On data-less
+    CUDA-like tensors the one-device W-step records hals_sweep_norm and the
+    reduced one records no kernel."""
+    from repro_torch.roofline import counts
+    X, G, R = (_t(a) for a in _w_inputs(9, 40, 6))
+    eps = rules.eps_for(torch.float32)
+    ops.reset_launches()
+    one = rules.update_hals(G, R, X, normalize=True)
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+    assert torch.equal(one, ref.hals_sweep_norm(X, G, R, eps))
+    assert torch.equal(one, ops.hals_sweep_norm(X, G, R, eps=eps))
+    two = rules.update_hals(G, R, X, normalize=True,
+                            norm_psum=lambda v: 2.0 * v)
+    assert torch.equal(two, ref.hals_sweep_norm(X, G, R, eps,
+                                                lambda v: 2.0 * v))
+    first = one[:, 0]
+    torch.testing.assert_close(two[:, 0], first / np.sqrt(2.0), rtol=1e-6,
+                               atol=0)
+    Xm, Gm, Rm = (torch.empty(t.shape, device="meta") for t in (X, G, R))
+    with counts.record_step() as rec:
+        rules.update_hals(Gm, Rm, Xm, normalize=True)
+    assert dict(rec.kernel_calls()) == {"hals_sweep_norm": 1}
+    with counts.record_step() as rec:
+        rules.update_hals(Gm, Rm, Xm, normalize=True, norm_psum=lambda v: v)
+    assert dict(rec.kernel_calls()) == {}
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+
 
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("body", ["mu", "hals_h", "hals_w"])
