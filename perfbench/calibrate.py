@@ -11,7 +11,9 @@ for the control seeds also the numbers of the control (the reference
 computed in TF32, ``reference.Products(tf32=True)``) against the same
 reference.  One JSON line a seed on standard output.  The largest program
 reading over the seeds is a number's lower reading, the smallest control
-reading its upper one.
+reading its upper one.  A ranked cell reads every seed in one process
+group of its chips (``launch``), through the split reference and judge
+(``ranks``), and takes no witness seeds.
 """
 
 import argparse
@@ -63,6 +65,44 @@ def readings(cell: harness.Cell, seed: int, control: bool, witness: bool,
     return row
 
 
+def ranked_readings(device: torch.device, root: str, name: str, seeds: list,
+                    control_seeds: list) -> list:
+    """``readings`` of every seed on one rank of a ranked cell (a
+    ``launch.ranks`` target): rank 0's rows are the run's."""
+    import ranks as _ranks
+    cell = harness.Cell(Path(root), name)
+    cfg, traffic = cell.cfg, cell.traffic
+    r = _ranks.Ranks(cfg, device)
+    iters = harness.check_iters(traffic)
+    rows = []
+    for seed in seeds:
+        inputs = gen.make_inputs(cfg, traffic, seed, device, r.shape,
+                                 r.block)
+        solver = harness.solver_for(cfg, traffic, device)
+        seg = harness.Segments(solver, harness.program_input(cfg, inputs),
+                               inputs.pop("W0"), inputs.pop("H0"))
+        seg.run()
+        out = harness.program_output(seg, iters)
+        del seg, solver
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        r.localize(inputs)
+        t0 = time.perf_counter()
+        ref = r.segment(r.products(inputs), cfg, traffic, seed, iters)
+        row = {"seed": seed, "rels": out["rels"], "ref_rels": ref["rels"],
+               "program": r.judge_outputs(inputs, out, ref)}
+        row["reference_s"] = time.perf_counter() - t0
+        if seed in control_seeds:
+            ctl = r.segment(r.products(inputs, tf32=True), cfg, traffic,
+                            seed, iters)
+            row["control"] = r.judge_outputs(inputs, ctl, ref)
+        rows.append(row)
+        del inputs, out, ref
+        gc.collect()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -73,6 +113,18 @@ def main() -> int:
     args = ap.parse_args()
     device = torch.device(args.device)
     cell = harness.Cell(ROOT, args.workload)
+    if cell.ranked:
+        if args.witness_seeds:
+            ap.error("a ranked cell takes no witness seeds")
+        import launch
+        rows = launch.ranks(cell.chips, ranked_readings,
+                            (str(ROOT), args.workload, args.seeds,
+                             args.control_seeds), device_type=device.type)
+        if rows is None:
+            return 1
+        for row in rows:
+            print(json.dumps(row), flush=True)
+        return 0
     for seed in args.seeds:
         row = readings(cell, seed, seed in args.control_seeds,
                        seed in args.witness_seeds, device)

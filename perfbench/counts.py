@@ -20,6 +20,11 @@ correct implementation can beat it) and its bytes at HBM3's rate.
                    bound, used only inside the iteration's count)
     error          ‖A − WH‖² from byproducts: the new Hᵀ's Gram, the
                    cross term ⟨AᵀW, Hᵀ⟩ and ⟨WᵀW, HHᵀ⟩; AᵀW and Hᵀ read
+
+On a cell of p chips each phase's least time is the whole problem's count
+divided by p: the work split evenly, with nothing counted for the
+collectives that move the panels between the chips.  It is a lower bound
+there, and the shares read the same work however the grid splits it.
 """
 
 from __future__ import annotations
@@ -86,18 +91,19 @@ GROUPS = {"mm": ("mm_w", "mm_h"), "gram": ("gram_w", "gram_h"),
           "luc": ("luc_w", "luc_h"), "error": ("error",)}
 
 
-def least_by_group(cfg: dict, rule: str) -> dict:
+def least_by_group(cfg: dict, rule: str, chips: int = 1) -> dict:
     """Least ms of each group of phases and of the whole iteration (BPP's
     half-updates there at ``luc_floor``: the iteration's count is then a
-    lower bound); a group holding an uncounted phase is None."""
+    lower bound) on ``chips`` chips; a group holding an uncounted phase is
+    None."""
     counted = phases(cfg, rule)
     out = {}
     for group, keys in GROUPS.items():
         parts = [counted[p] for p in keys]
         out[group] = (None if any(p is None for p in parts)
-                      else sum(least_ms(*p) for p in parts))
+                      else sum(least_ms(*p) for p in parts) / chips)
     floors = {"luc_w": luc_floor(cfg["m"], cfg["k"]),
               "luc_h": luc_floor(cfg["n"], cfg["k"])}
     out["iteration"] = sum(least_ms(*(c if c is not None else floors[p]))
-                           for p, c in counted.items())
+                           for p, c in counted.items()) / chips
     return out

@@ -2,7 +2,9 @@
 
 A cell is an entry of ``workloads`` in ``BENCHMARK.json``: a configuration
 (``configs/<name>.json``: the data matrix's shape, storage, generator and
-rank k, and the port's backend for it) under a traffic mix
+rank k, the port's backend for it, and its schedule on a grid of cards:
+``"schedule"``, serial unless named, and ``"grid": [pr, pc]``, whose
+pr·pc is the cell's ``chips``) under a traffic mix
 (``traffic/<name>.json``: the update rule, the iterations of a segment and
 the starting W).  ``workloads/<cell>.json`` holds the limits of the
 numbers that decide ``correct``; ``metrics/<name>.py`` reads one metric
@@ -24,6 +26,12 @@ A run:
            state freed: the last segment's factors and relative errors
            against the plain reference's from the same inputs
            (``judge``).
+
+A ranked cell (more than one chip, or a schedule other than serial) runs
+``run`` on every rank of a process group that ``launch`` starts, one card
+each (``ranks``): each rank draws only its block's triplets, rank 0 ends
+the window for all, and the reference and the judge are split across the
+ranks.  A serial one-chip cell runs in the calling process.
 """
 
 from __future__ import annotations
@@ -51,6 +59,10 @@ import gen  # noqa: E402
 import judge  # noqa: E402
 import reference  # noqa: E402
 
+#: the schedules a cell may name: the program's serial one, and faun on a
+#: pr × pc grid (``make_faun_grid``)
+SCHEDULES = ("serial", "faun")
+
 
 def load_json(path: Path) -> dict:
     with open(path) as f:
@@ -77,6 +89,18 @@ class Cell:
                                  / f"{self.entry['traffic']}.json")
         limits = HERE / "workloads" / f"{name}.json"
         self.limits = load_json(limits)["limits"] if limits.exists() else {}
+        self.chips = self.entry["chips"]
+        self.schedule = self.cfg.get("schedule", "serial")
+        pr, pc = self.cfg.get("grid", (1, 1))
+        if self.schedule not in SCHEDULES:
+            raise ValueError(f"configuration {cfg_entry['name']!r}: schedule "
+                             f"{self.schedule!r} is not one of {SCHEDULES}")
+        if pr * pc != self.chips or (self.schedule == "serial"
+                                     and pr * pc != 1):
+            raise ValueError(f"cell {name!r}: {self.chips} chip(s) for a "
+                             f"{self.schedule} {pr} × {pc} grid")
+        #: whether the cell runs on ranks started by ``launch``
+        self.ranked = self.chips > 1 or self.schedule != "serial"
 
         def mine(metrics):
             return [m for m in metrics if name in m.get("workloads", [name])]
@@ -109,12 +133,19 @@ def read_metrics(specs: list, rec: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def solver_for(cfg: dict, traffic: dict, device: torch.device):
+    """The program's solver; on a grid, every rank calls it in the same
+    order (``make_faun_grid`` makes process groups)."""
     from repro_torch.backends import SparseOps
     from repro_torch.core.engine import NMFSolver
     backend = (SparseOps(spmm_impl=cfg["spmm_impl"])
                if cfg["backend"] == "sparse" else cfg["backend"])
+    kw = {}
+    if cfg.get("schedule", "serial") != "serial":
+        from repro_torch.core.faun import make_faun_grid
+        kw = {"schedule": cfg["schedule"],
+              "grid": make_faun_grid(*cfg["grid"])}
     return NMFSolver(cfg["k"], algo=traffic["rule"], backend=backend,
-                     device=device, max_iters=traffic["segment_iters"])
+                     device=device, max_iters=traffic["segment_iters"], **kw)
 
 
 def program_input(cfg: dict, inputs: dict):
@@ -164,19 +195,36 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def window(seg: Segments, seconds: float, device) -> dict:
-    """Whole segments until ``seconds`` have passed."""
+def _more(start: float, seconds: float, ranks) -> bool:
+    """Whether another segment runs: ``seconds`` not yet passed since
+    ``start``, by rank 0's clock on a grid."""
+    more = time.perf_counter() - start < seconds
+    return more if ranks is None else ranks.agree(more)
+
+
+def window(seg: Segments, seconds: float, device, ranks=None) -> dict:
+    """Whole segments until ``seconds`` have passed; on a grid (``ranks``)
+    between two barriers, every rank running as many segments as rank 0
+    decides, the segments with a non-finite error summed over the
+    ranks."""
     _sync(device)
+    if ranks is not None:
+        ranks.barrier()
     t0 = time.perf_counter()
     segments = nonfinite = 0
     while True:
         rels = seg.run()
         segments += 1
         nonfinite += int(not bool(torch.isfinite(rels).all()))
-        if time.perf_counter() - t0 >= seconds:
+        if not _more(t0, seconds, ranks):
             break
     _sync(device)
-    return {"window_s": time.perf_counter() - t0, "segments": segments,
+    if ranks is not None:
+        ranks.barrier()
+    window_s = time.perf_counter() - t0
+    if ranks is not None:
+        nonfinite = int(ranks.sum(nonfinite))
+    return {"window_s": window_s, "segments": segments,
             "iters": segments * seg.iters, "nonfinite": nonfinite}
 
 
@@ -200,9 +248,10 @@ def profiled_segment(seg: Segments, device) -> dict:
     return summary
 
 
-def phase_window(seg: Segments, seconds: float) -> dict:
+def phase_window(seg: Segments, seconds: float, ranks=None) -> dict:
     """Mean ms an iteration of each phase, over whole profiled segments
-    for ``seconds`` (``obs.phases.run_profiled``)."""
+    for ``seconds`` (``obs.phases.run_profiled``; on a grid, as many as
+    rank 0 decides)."""
     from repro_torch.obs.phases import run_profiled
     totals: dict[str, float] = {}
     iters = 0
@@ -212,7 +261,7 @@ def phase_window(seg: Segments, seconds: float) -> dict:
         for phase, s in run_profiled(seg.solver, seg.rs).items():
             totals[phase] = totals.get(phase, 0.0) + s * seg.iters
         iters += seg.iters
-        if time.perf_counter() - t0 >= seconds:
+        if not _more(t0, seconds, ranks):
             break
     return {phase: 1e3 * s / iters for phase, s in totals.items()}
 
@@ -263,18 +312,20 @@ def judge_outputs(cfg: dict, traffic: dict, inputs: dict, out: dict,
 # One run
 # ---------------------------------------------------------------------------
 
-def device_info(device: torch.device, peak: int) -> dict:
+def device_info(device: torch.device, peak: int, count: int = 1) -> dict:
     if device.type == "cuda":
         return {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
-                "count": 1, "memory_peak_bytes": peak}
-    return {"platform": "cpu", "kind": "cpu", "count": 1,
+                "count": count, "memory_peak_bytes": peak}
+    return {"platform": "cpu", "kind": "cpu", "count": count,
             "memory_peak_bytes": peak}
 
 
 def run(root: Path, name: str, seed: int, seconds: float, trace: bool,
         device: torch.device, t_start: float) -> dict:
     """One run of cell ``name``; the result line's object.  ``t_start``
-    is the process's start on the host clock (``time.perf_counter``)."""
+    is the process's start on the host clock (``time.perf_counter``).  A
+    ranked cell's every rank calls it on its own card, in a process group
+    of the cell's chips (``launch``); rank 0's object is the run's."""
     cell = Cell(root, name)
     cfg, traffic = cell.cfg, cell.traffic
     marks = [("imports", time.perf_counter())]
@@ -284,18 +335,28 @@ def run(root: Path, name: str, seed: int, seconds: float, trace: bool,
         marks.append((stage, time.perf_counter()))
 
     torch.empty(1, device=device)
+    ranks = None
+    if cell.ranked:
+        import ranks as _ranks
+        ranks = _ranks.Ranks(cfg, device)
     mark("device_init")
-    inputs = gen.make_inputs(cfg, traffic, seed, device)
+    place = (ranks.shape, ranks.block) if ranks is not None else ()
+    inputs = gen.make_inputs(cfg, traffic, seed, device, *place)
     mark("inputs")
     solver = solver_for(cfg, traffic, device)
     with warnings.catch_warnings():          # the COO's invariants hold
         warnings.simplefilter("ignore")
         A = program_input(cfg, inputs)
     mark("solver")
-    seg = Segments(solver, A, inputs["W0"], inputs["H0"])
+    if ranks is None:
+        seg = Segments(solver, A, inputs["W0"], inputs["H0"])
+    else:        # not held through the window: drawn again for the judge
+        seg = Segments(solver, A, inputs.pop("W0"), inputs.pop("H0"))
     del A
     mark("prepare")
     seg.run()
+    if ranks is not None:
+        ranks.barrier()
     mark("warmup")
     rec = {"prepare_s": marks[-2][1] - marks[-3][1],
            "setup_s": marks[-1][1] - t_start,
@@ -304,33 +365,53 @@ def run(root: Path, name: str, seed: int, seconds: float, trace: bool,
     if device.type == "cuda":
         rec["setup_parts"]["peak_gb_after_setup"] = (
             torch.cuda.max_memory_allocated(device) / 1e9)
-    print("setup " + " ".join(f"{k} {v:.3f}" for k, v in
-                              rec["setup_parts"].items()), file=sys.stderr)
+    if ranks is None or ranks.rank == 0:
+        print("setup " + " ".join(f"{k} {v:.3f}" for k, v in
+                                  rec["setup_parts"].items()),
+              file=sys.stderr)
     if trace:
-        rec.update(window(seg, seconds / 3, device))
+        rec.update(window(seg, seconds / 3, device, ranks))
         rec["unprofiled_iter_ms"] = 1e3 * rec["window_s"] / rec["iters"]
         rec["trace"] = profiled_segment(seg, device)
-        rec["phase_ms"] = phase_window(seg, seconds / 3)
-        rec["least_ms"] = counts.least_by_group(cfg, traffic["rule"])
+        pair = [rec["trace"]["busy_s"], rec["trace"]["window_s"]]
+        rec["trace"]["ranks"] = ([pair] if ranks is None
+                                 else ranks.gather(pair))
+        rec["phase_ms"] = phase_window(seg, seconds / 3, ranks)
+        rec["least_ms"] = counts.least_by_group(cfg, traffic["rule"],
+                                                cell.chips)
     else:
-        rec.update(window(seg, seconds, device))
+        rec.update(window(seg, seconds, device, ranks))
     out = program_output(seg, check_iters(traffic))
     rec["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                          if device.type == "cuda" else 0)
+    if ranks is not None:
+        peaks = [int(b) for (b,) in ranks.gather([rec["peak_bytes"]])]
+        rec["peak_bytes"] = max(peaks)
+        if ranks.rank == 0:
+            print("peak_gb by rank " + " ".join(f"{b / 1e9:.4f}"
+                                               for b in peaks),
+                  file=sys.stderr)
     del seg, solver
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    nums = judge_outputs(cfg, traffic, inputs, out)
+    if ranks is None:
+        nums = judge_outputs(cfg, traffic, inputs, out)
+    else:
+        ranks.localize(inputs)
+        ref = ranks.segment(ranks.products(inputs), cfg, traffic, seed,
+                            check_iters(traffic))
+        nums = ranks.judge_outputs(inputs, out, ref)
     correct, checks = judge.decide(nums, cell.limits)
     result = {"correct": correct and rec["nonfinite"] == 0,
               "attempted": rec["segments"], "failed": rec["nonfinite"],
               "metrics": read_metrics(cell.per_layer if trace
                                       else cell.end_to_end, rec),
-              "device": device_info(device, rec["peak_bytes"])}
+              "device": device_info(device, rec["peak_bytes"], cell.chips)}
     if trace:
-        result["device"]["busy_s"] = rec["trace"]["busy_s"]
-        result["device"]["window_s"] = rec["trace"]["window_s"]
+        busy, spans = zip(*rec["trace"]["ranks"])
+        result["device"]["busy_s"] = sum(busy) / len(busy)
+        result["device"]["window_s"] = sum(spans) / len(spans)
         result["breakdown"] = {"device_ops": rec["trace"]["device_ops"],
                                "idle_gaps": rec["trace"]["idle_gaps"]}
     result["checks"] = checks

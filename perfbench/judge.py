@@ -32,8 +32,8 @@ import torch
 CHUNK_ROWS = 1 << 22
 
 
-def _gaps(X: torch.Tensor, Xr: torch.Tensor) -> tuple[float, float]:
-    """(worst row gap, Frobenius gap) of X against the reference's Xr."""
+def row_gaps(X: torch.Tensor, Xr: torch.Tensor):
+    """(‖X_i − Xr_i‖, ‖Xr_i‖) of every row i, float64."""
     diff = torch.empty(X.shape[0], dtype=torch.float64, device=X.device)
     norm = torch.empty_like(diff)
     for r0 in range(0, X.shape[0], CHUNK_ROWS):
@@ -41,17 +41,24 @@ def _gaps(X: torch.Tensor, Xr: torch.Tensor) -> tuple[float, float]:
         xr = Xr[r0:r0 + CHUNK_ROWS].to(x.device).double()
         diff[r0:r0 + CHUNK_ROWS] = (x - xr).norm(dim=1)
         norm[r0:r0 + CHUNK_ROWS] = xr.norm(dim=1)
+    return diff, norm
+
+
+def _gaps(X: torch.Tensor, Xr: torch.Tensor) -> tuple[float, float]:
+    """(worst row gap, Frobenius gap) of X against the reference's Xr."""
+    diff, norm = row_gaps(X, Xr)
     floor = norm.median().clamp_min(torch.finfo(torch.float64).tiny)
     row = (diff / torch.maximum(norm, floor)).max()
     frob = diff.norm() / norm.norm().clamp_min(torch.finfo(torch.float64).tiny)
     return float(row), float(frob)
 
 
-def numbers(out: dict, ref: dict, rel_exact: float) -> dict:
+def numbers(out: dict, ref: dict, rel_exact: float, gaps=_gaps) -> dict:
     """Every number above for the program's ``out`` and the reference's
-    ``ref`` (dicts of "W", "Ht", "rels")."""
-    w_row, w_frob = _gaps(out["W"], ref["W"])
-    h_row, h_frob = _gaps(out["Ht"], ref["Ht"])
+    ``ref`` (dicts of "W", "Ht", "rels"); ``gaps`` takes the two row gaps
+    (the rows of every rank, on a grid: ``ranks.Ranks.gaps``)."""
+    w_row, w_frob = gaps(out["W"], ref["W"])
+    h_row, h_frob = gaps(out["Ht"], ref["Ht"])
     rels, rels_ref = list(out["rels"]), list(ref["rels"])
     if len(rels) != len(rels_ref):
         traj = math.inf

@@ -1,10 +1,11 @@
 """The share of the traced segment in which no device operation ran, %
 (``torch.profiler``: the union of kernel, copy and set intervals over the
-segment's length on the host clock)."""
+segment's length on the host clock); on a grid, the largest of the
+ranks'."""
 
 
 def read(rec):
     trace = rec.get("trace")
-    if not trace or trace["busy_s"] <= 0:
+    if not trace or any(busy <= 0 for busy, _ in trace["ranks"]):
         return None
-    return 100.0 * (1.0 - trace["busy_s"] / trace["window_s"])
+    return max(100.0 * (1.0 - busy / span) for busy, span in trace["ranks"])

@@ -152,12 +152,15 @@ def mu(P: Products, G, R, X):
     return X * (R / (P.matmul(X, G) + EPS))
 
 
-def hals_w(P: Products, G, R, X):
+def hals_w(P: Products, G, R, X, psum=None):
+    """``psum`` sums a column's squares over the ranks that hold the
+    column's other rows (None: X holds every row)."""
     X = X.clone()
     for i in range(G.shape[0]):
         xi = X[:, i] * G[i, i] + R[:, i] - P.matmul(X, G[:, i:i + 1])[:, 0]
         xi = torch.clamp_min(xi, 0.0)
-        nrm = torch.sqrt(torch.sum(xi * xi))
+        sq = torch.sum(xi * xi)
+        nrm = torch.sqrt(sq if psum is None else psum(sq))
         X[:, i] = torch.where(nrm > 0, xi / torch.clamp_min(nrm, EPS), xi)
     return X
 
@@ -236,12 +239,17 @@ RULES = {"mu": (mu, mu), "hals": (hals_w, hals_h), "bpp": (bpp, bpp)}
 def sq_error(normA_sq: float, AtW, Ht, WtW, HHt) -> float:
     """‖A − WH‖² = ‖A‖² − 2 tr(WᵀA Hᵀ) + tr(WᵀW HHᵀ), summed in float64
     (the cross term over chunks of rows)."""
-    rows = max(1, CHUNK_ELEMS // Ht.shape[1])
-    cross = sum(float((AtW[r0:r0 + rows].double()
-                       * Ht[r0:r0 + rows].double()).sum())
-                for r0 in range(0, Ht.shape[0], rows))
     quad = float((WtW.double() * HHt.double()).sum())
-    return normA_sq - 2.0 * cross + quad
+    return normA_sq - 2.0 * dot64(AtW, Ht) + quad
+
+
+def dot64(X, Y) -> float:
+    """⟨X, Y⟩ of two (r, k) panels, summed in float64 over chunks of
+    rows."""
+    rows = max(1, CHUNK_ELEMS // Y.shape[1])
+    return sum(float((X[r0:r0 + rows].double()
+                      * Y[r0:r0 + rows].double()).sum())
+               for r0 in range(0, Y.shape[0], rows))
 
 
 def rel_error(P: Products, W, Ht) -> float:

@@ -13,6 +13,11 @@ numbers compared against the plain reference come last, under
 CUDA device, or with fewer than the cell asks for, or with ``jax``,
 ``jaxlib``, ``flax`` or the JAX package loaded once the window has
 closed, it prints no result and exits with 2.
+
+A serial one-chip cell runs in this process.  A ranked cell (more chips,
+or another schedule) runs on one process per card that ``launch`` starts;
+this process prints rank 0's result, and exits with 1 and no result where
+a rank fails or the ranks do not end in time.
 """
 
 import time
@@ -28,13 +33,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-#: top-level module names that must not be loaded in a run
-FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-
-
-def forbidden_modules() -> list:
-    return sorted({name.split(".")[0] for name in sys.modules}
-                  & set(FORBIDDEN))
+from launch import forbidden_modules  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -55,8 +54,17 @@ def main(argv=None) -> int:
               f"device(s); torch.cuda.is_available() is "
               f"{torch.cuda.is_available()}", file=sys.stderr)
         return 2
-    result = harness.run(ROOT, args.workload, args.seed, args.seconds,
-                         bool(args.trace), torch.device("cuda", 0), T_START)
+    if cell.ranked:
+        import launch
+        result = launch.ranks(chips, launch.run_cell,
+                              (str(ROOT), args.workload, args.seed,
+                               args.seconds, bool(args.trace), T_START))
+        if result is None:
+            return 1
+    else:
+        result = harness.run(ROOT, args.workload, args.seed, args.seconds,
+                             bool(args.trace), torch.device("cuda", 0),
+                             T_START)
     found = forbidden_modules()
     if found:
         print(f"perfbench: modules loaded that the port must not load: "
